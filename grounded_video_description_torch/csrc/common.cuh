@@ -1,0 +1,81 @@
+// Helpers shared by the port's kernels: dtype conversion, warp and block
+// reductions, and the dtype dispatch of the C entry points.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace gvd {
+
+// Masked scores are SET to this value before the softmax, never to -inf:
+// a fully masked row then gives a uniform softmax, not NaN.
+constexpr float MIN_VALUE = -1e8f;
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T> __device__ __forceinline__ T from_f32(float x);
+template <> __device__ __forceinline__ float from_f32<float>(float x) {
+  return x;
+}
+template <> __device__ __forceinline__ __nv_bfloat16
+from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+// Four consecutive elements as f32.  p must be aligned to 4 elements.
+__device__ __forceinline__ void load4(const float* p, float out[4]) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
+}
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, float out[4]) {
+  const uint2 v = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.y));
+  out[0] = a.x; out[1] = a.y; out[2] = b.x; out[3] = b.y;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+  for (int o = 16; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// Sum (or max) over the whole block; every thread gets the result.
+// `scratch` holds at least 32 floats.  blockDim.x is a multiple of 32.
+template <bool IS_MAX>
+__device__ float block_reduce(float v, float* scratch) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int n_warps = blockDim.x >> 5;
+  v = IS_MAX ? warp_max(v) : warp_sum(v);
+  __syncthreads();  // scratch may still be read by a previous reduction
+  if (lane == 0) scratch[warp] = v;
+  __syncthreads();
+  float r = lane < n_warps ? scratch[lane] : (IS_MAX ? -INFINITY : 0.0f);
+  r = IS_MAX ? warp_max(r) : warp_sum(r);
+  return r;
+}
+
+}  // namespace gvd
+
+// dtype codes of the C interface: 0 = float32, 1 = bfloat16
+#define GVD_DISPATCH(code, T, ...)                     \
+  do {                                                 \
+    if ((code) == 0) {                                 \
+      using T = float;                                 \
+      __VA_ARGS__;                                     \
+    } else if ((code) == 1) {                          \
+      using T = __nv_bfloat16;                         \
+      __VA_ARGS__;                                     \
+    } else {                                           \
+      return (int)cudaErrorInvalidValue;               \
+    }                                                  \
+  } while (0)

@@ -1,0 +1,250 @@
+"""Neural-net ops of the port: plain functions on tensors, plus the two
+parameter containers whose names follow the reference state dict.
+
+Counterpart of ``grounded_video_description_tpu/nn/core.py``.  Weights
+keep PyTorch's layout: a linear weight is (out, in), where the JAX
+package stores (in, out).  Parameters stay float32, as in the JAX
+package, and are cast to the activation dtype where they are used.
+
+Initializers take an explicit ``torch.Generator`` and draw from the
+distributions of the JAX package (Linear: U(+-1/sqrt(fan_in)) for weight
+and bias; Embedding: N(0, 1); recurrent cells: U(+-1/sqrt(hidden))).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+# --------------------------------------------------------------------- #
+# initializers
+# --------------------------------------------------------------------- #
+
+def uniform_fan_in_(t: torch.Tensor, fan_in: int,
+                    generator: torch.Generator) -> torch.Tensor:
+    bound = 1.0 / math.sqrt(fan_in) if fan_in > 0 else 0.0
+    with torch.no_grad():
+        return t.uniform_(-bound, bound, generator=generator)
+
+
+def init_linear_(m: nn.Linear, generator: torch.Generator) -> nn.Linear:
+    fan_in = m.weight.shape[1]
+    uniform_fan_in_(m.weight, fan_in, generator)
+    if m.bias is not None:
+        uniform_fan_in_(m.bias, fan_in, generator)
+    return m
+
+
+def init_embedding_(m: nn.Embedding, generator: torch.Generator):
+    with torch.no_grad():
+        m.weight.normal_(0.0, 1.0, generator=generator)
+    return m
+
+
+# --------------------------------------------------------------------- #
+# linear / embedding
+# --------------------------------------------------------------------- #
+
+def linear(x: torch.Tensor, weight: torch.Tensor,
+           bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """y = x W^T + b, with W (out, in) cast to x's dtype."""
+    return F.linear(x, weight.to(x.dtype),
+                    None if bias is None else bias.to(x.dtype))
+
+
+def embedding(weight: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    return weight[ids]
+
+
+# --------------------------------------------------------------------- #
+# recurrent cells (torch gate orders: LSTM i, f, g, o; GRU r, z, n)
+# --------------------------------------------------------------------- #
+
+class LSTMCellParams(nn.Module):
+    """weight_ih (4H, in), weight_hh (4H, H), bias_ih, bias_hh — the
+    reference's nn.LSTMCell names.  The JAX cell has one fused bias;
+    this port keeps it in ``bias_ih`` and leaves ``bias_hh`` at zero."""
+
+    def __init__(self, in_dim: int, hidden: int):
+        super().__init__()
+        self.weight_ih = nn.Parameter(torch.empty(4 * hidden, in_dim))
+        self.weight_hh = nn.Parameter(torch.empty(4 * hidden, hidden))
+        self.bias_ih = nn.Parameter(torch.empty(4 * hidden))
+        self.bias_hh = nn.Parameter(torch.zeros(4 * hidden))
+
+    def reset_parameters(self, generator: torch.Generator):
+        hidden = self.weight_hh.shape[1]
+        for p in (self.weight_ih, self.weight_hh, self.bias_ih):
+            uniform_fan_in_(p, hidden, generator)
+        with torch.no_grad():
+            self.bias_hh.zero_()
+
+
+def lstm_cell(cell: LSTMCellParams, x: torch.Tensor,
+              state: Tuple[torch.Tensor, torch.Tensor]):
+    h, c = state
+    gates = (linear(x, cell.weight_ih) + linear(h, cell.weight_hh)
+             + (cell.bias_ih + cell.bias_hh).to(x.dtype))
+    i, f, g, o = gates.chunk(4, dim=-1)
+    c_new = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+    h_new = torch.sigmoid(o) * torch.tanh(c_new)
+    return h_new, (h_new, c_new)
+
+
+def _gru_cell(x: torch.Tensor, h: torch.Tensor, w_ih: torch.Tensor,
+              w_hh: torch.Tensor, b_ih: torch.Tensor,
+              b_hh: torch.Tensor) -> torch.Tensor:
+    gi = linear(x, w_ih, b_ih)
+    gh = linear(h, w_hh, b_hh)
+    ir, iz, in_ = gi.chunk(3, dim=-1)
+    hr, hz, hn = gh.chunk(3, dim=-1)
+    r = torch.sigmoid(ir + hr)
+    z = torch.sigmoid(iz + hz)
+    n = torch.tanh(in_ + r * hn)
+    return (1.0 - z) * n + z * h
+
+
+# --------------------------------------------------------------------- #
+# multi-layer bidirectional RNN over time (the temporal context encoder,
+# reference model.py:145-156).  Layout: (B, T, D) batch-first.
+# --------------------------------------------------------------------- #
+
+class BiRNNParams(nn.Module):
+    """Parameters of a bidirectional nn.GRU / nn.LSTM under the names
+    torch gives them (``weight_ih_l{k}[_reverse]`` and so on)."""
+
+    def __init__(self, in_dim: int, hidden: int, num_layers: int,
+                 mode: str):
+        super().__init__()
+        if mode not in ("bigru", "bilstm"):
+            raise ValueError(f"unknown t_attn_mode {mode!r}")
+        self.mode, self.hidden, self.num_layers = mode, hidden, num_layers
+        G = (3 if mode == "bigru" else 4) * hidden
+        d = in_dim
+        for li in range(num_layers):
+            for sfx in ("", "_reverse"):
+                self.register_parameter(
+                    f"weight_ih_l{li}{sfx}", nn.Parameter(torch.empty(G, d)))
+                self.register_parameter(
+                    f"weight_hh_l{li}{sfx}",
+                    nn.Parameter(torch.empty(G, hidden)))
+                self.register_parameter(
+                    f"bias_ih_l{li}{sfx}", nn.Parameter(torch.empty(G)))
+                self.register_parameter(
+                    f"bias_hh_l{li}{sfx}", nn.Parameter(torch.zeros(G)))
+            d = 2 * hidden
+
+    def reset_parameters(self, generator: torch.Generator):
+        """GRU: all four tensors U(+-1/sqrt(H)).  LSTM: the JAX cell's
+        single bias goes to bias_ih, bias_hh stays zero."""
+        for li in range(self.num_layers):
+            for sfx in ("", "_reverse"):
+                names = ["weight_ih", "weight_hh", "bias_ih"]
+                if self.mode == "bigru":
+                    names.append("bias_hh")
+                for n in names:
+                    uniform_fan_in_(getattr(self, f"{n}_l{li}{sfx}"),
+                                    self.hidden, generator)
+                if self.mode == "bilstm":
+                    with torch.no_grad():
+                        getattr(self, f"bias_hh_l{li}{sfx}").zero_()
+
+    def layer(self, li: int):
+        """Layer li with both directions stacked on a leading axis:
+        (w_ih (2,G,D), w_hh (2,G,H), b_ih (2,G), b_hh (2,G))."""
+        def both(n):
+            return torch.stack([getattr(self, f"{n}_l{li}"),
+                                getattr(self, f"{n}_l{li}_reverse")])
+        return (both("weight_ih"), both("weight_hh"), both("bias_ih"),
+                both("bias_hh"))
+
+
+def _scan_bidir(mode: str, w_ih, w_hh, b_ih, b_hh, xs: torch.Tensor,
+                hidden: int, use_kernel: bool = False) -> torch.Tensor:
+    """Both directions of one layer in one T-step recurrence: the
+    backward lane consumes time-reversed inputs.  The input projection
+    has no sequential dependency and is hoisted out as one product.
+
+    use_kernel: run the recurrence through ``birnn_recurrence`` (the
+    CUDA kernel on a CUDA tensor); otherwise its plain version."""
+    from grounded_video_description_torch.ops.kernels.birnn import (
+        birnn_recurrence, birnn_recurrence_plain)
+
+    dt = xs.dtype
+    bias = b_ih if mode == "bigru" else b_ih + b_hh     # LSTM: one bias
+    gi = torch.einsum("btd,kgd->tkbg", xs, w_ih.to(dt))  # (T, 2, B, G)
+    gi = gi + bias.to(dt)[None, :, None, :]
+    gi = torch.stack([gi[:, 0], gi[:, 1].flip(0)], dim=1)  # reverse lane 1
+    wh = w_hh.to(dt).transpose(1, 2).contiguous()          # (2, H, G)
+    bh = b_hh.to(dt).contiguous() if mode == "bigru" else None
+    run = birnn_recurrence if use_kernel else birnn_recurrence_plain
+    ys = run(gi.contiguous(), wh, bh, mode=mode, hidden=hidden)
+    out = torch.cat([ys[:, 0], ys[:, 1].flip(0)], dim=-1)  # (T, B, 2H)
+    return out.transpose(0, 1)
+
+
+def birnn(rnn: BiRNNParams, x: torch.Tensor, *,
+          use_kernel: bool = False) -> torch.Tensor:
+    """Inference pass of the stacked bidirectional RNN: (B, T, D) ->
+    (B, T, 2H).  Dropout between layers is the identity at eval."""
+    out = x
+    for li in range(rnn.num_layers):
+        out = _scan_bidir(rnn.mode, *rnn.layer(li), out, rnn.hidden,
+                          use_kernel=use_kernel)
+    return out
+
+
+# --------------------------------------------------------------------- #
+# normalization
+# --------------------------------------------------------------------- #
+
+def layer_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """Parameter-free layer norm over the last axis (biased variance,
+    eps on the variance); statistics in f32."""
+    x32 = x.float()
+    mean = x32.mean(-1, keepdim=True)
+    var = x32.var(-1, unbiased=False, keepdim=True)
+    return ((x32 - mean) * torch.rsqrt(var + eps)).to(x.dtype)
+
+
+def layer_norm_affine(gamma: torch.Tensor, beta: torch.Tensor,
+                      x: torch.Tensor, eps: float = 1e-6,
+                      use_std: bool = False) -> torch.Tensor:
+    """Affine layer norm.  ``use_std=True`` is the transformer variant
+    that divides by (unbiased std + eps) (misc/transformer.py:66-77);
+    ``torch.nn.LayerNorm`` computes something else."""
+    mean = x.mean(-1, keepdim=True)
+    if use_std:
+        n = x.shape[-1]
+        var = x.var(-1, unbiased=False, keepdim=True) * (n / max(n - 1, 1))
+        normed = (x - mean) / (torch.sqrt(var) + eps)
+    else:
+        var = x.var(-1, unbiased=False, keepdim=True)
+        normed = (x - mean) * torch.rsqrt(var + eps)
+    return gamma.to(x.dtype) * normed + beta.to(x.dtype)
+
+
+def batch_norm(bn: nn.BatchNorm1d, x: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """BatchNorm over the channels of a (B, T, C) tensor at eval, with
+    the running statistics (model.py:114-115, 396-398)."""
+    mean = bn.running_mean.to(x.dtype)
+    var = bn.running_var.to(x.dtype)
+    y = (x - mean) * torch.rsqrt(var + eps)
+    return bn.weight.to(x.dtype) * y + bn.bias.to(x.dtype)
+
+
+# --------------------------------------------------------------------- #
+# dropout
+# --------------------------------------------------------------------- #
+
+def dropout(x: torch.Tensor, rate: float, *, train: bool) -> torch.Tensor:
+    """The identity at eval.  The training path is not ported yet."""
+    if train and rate > 0.0:
+        raise NotImplementedError("training-mode dropout is not ported")
+    return x

@@ -1,0 +1,7 @@
+MIN_VALUE = -1e8
+
+from grounded_video_description_torch.ops.attention import (  # noqa: E402,F401
+    grounder,
+    region_attention,
+    temporal_attention,
+)

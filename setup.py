@@ -7,11 +7,15 @@ setup(
                 "(JAX/XLA/Pallas)",
     packages=find_packages(
         include=["grounded_video_description_tpu",
-                 "grounded_video_description_tpu.*"]),
+                 "grounded_video_description_tpu.*",
+                 "grounded_video_description_torch",
+                 "grounded_video_description_torch.*"]),
     py_modules=["main"],
     package_data={
         "grounded_video_description_tpu.data": ["native/pack.cc",
                                                 "native/Makefile"],
+        # the PyTorch port's CUDA kernels, built with nvcc at first use
+        "grounded_video_description_torch": ["csrc/*.cu", "csrc/*.cuh"],
     },
     python_requires=">=3.10",
     install_requires=["jax", "optax", "orbax-checkpoint", "numpy",
