@@ -2,7 +2,7 @@
 
 The JAX package ``grounded_video_description_tpu`` is the reference; this
 package computes the same functions in PyTorch, with hand-written CUDA
-kernels for Hopper where the JAX package has Pallas kernels.  It reuses
-the JAX package's numpy-only modules (``config``, ``data.synthetic``) and
-never imports JAX.
+kernels for Hopper where the JAX package has Pallas kernels.  It has its
+own ``config`` and ``data.synthetic`` (the JAX package's, restricted to
+what the port runs) and imports nothing of JAX or of the JAX package.
 """

@@ -1,0 +1,155 @@
+"""Configuration of the port.
+
+The fields of ``grounded_video_description_tpu/config.py::GVDConfig``
+that the greedy-captioning slice reads, under the same names, with the
+same defaults and derived widths (tests/test_torch_slice.py holds the two
+equal).  The port keeps its own copy so that it runs where the JAX
+package is not installed.
+
+Three flags choose the hand-written kernels, as the JAX package's flags
+choose its Pallas kernels: ``use_pallas`` (K3, the per-token region
+attention), ``use_pallas_rnn`` (K2, the BiRNN recurrence) and
+``use_pallas_encoder`` (K1, the obj_interact layer).  A kernel runs only
+on CUDA tensors; on CPU tensors the flag takes the plain version.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+
+
+@dataclass
+class GVDConfig:
+    # ---- model dims (opts.py:38-64) ----
+    rnn_size: int = 1024
+    input_encoding_size: int = 512
+    att_hid_size: int = 512
+    fc_feat_size: int = 3072      # rgb_feat_size + motion_feat_size
+    rgb_feat_size: int = 2048
+    motion_feat_size: int = 1024
+    att_feat_size: int = 2048
+    t_attn_size: int = 480
+    num_sampled_frm: int = 10
+    num_prop_per_frm: int = 100
+    glove_dim: int = 300
+    loc_encoding_size: int = 300
+    seg_info_size: int = 50
+
+    att_model: str = "topdown"          # only topdown is ported
+    att_input_mode: str = "both"        # both | featmap | region | dual_region
+    t_attn_mode: str = "bigru"          # bilstm | bigru
+    transfer_mode: str = "cls"          # none | cls | glove | both
+    region_attn_mode: str = "mix"       # dp | add | cat | mix | mix_mul
+
+    enable_BUTD: bool = False
+    obj_interact: bool = False
+
+    # ---- decoding ----
+    drop_prob_lm: float = 0.5
+    loc_drop: float = 0.5
+    seq_per_img: int = 1
+    seq_length: int = 20
+
+    # ---- execution ----
+    dtype: str = "float32"              # compute dtype: float32 | bfloat16
+    use_pallas: bool = False            # K3
+    use_pallas_rnn: bool = True         # K2
+    use_pallas_encoder: bool = True     # K1
+    # logit head width rounded up to a multiple of this; pad columns are
+    # masked before the log-softmax
+    vocab_pad_to: int = 1
+
+    # ---- from the dataset ----
+    vocab_size: int = 0
+    detect_size: int = 0
+    unk_idx: int = -1       # -1 -> vocab_size - 1 (UNK appended last)
+    max_gt_box: int = 100
+
+    @property
+    def max_proposal(self) -> int:
+        return self.num_sampled_frm * self.num_prop_per_frm
+
+    @property
+    def vocab_size_padded(self) -> int:
+        m = max(self.vocab_pad_to, 1)
+        return ((self.vocab_size + m - 1) // m) * m
+
+    @property
+    def fc_feat_size_full(self) -> int:
+        """fc feature + segment-info embedding (model.py:38-39)."""
+        return self.fc_feat_size + self.seg_info_size
+
+    @property
+    def vis_encoding_size(self) -> int:
+        """Visual-word embedding width per transfer mode (model.py:84-91)."""
+        if self.transfer_mode in ("none", "cls"):
+            return self.att_feat_size
+        if self.transfer_mode == "both":
+            return self.att_feat_size + self.glove_dim
+        if self.transfer_mode == "glove":
+            return self.glove_dim
+        raise NotImplementedError(self.transfer_mode)
+
+    @property
+    def pool_feat_size(self) -> int:
+        """Region-feature width fed to pool_embed (model.py:65-69)."""
+        if self.enable_BUTD:
+            return self.vis_encoding_size
+        return (self.vis_encoding_size + self.loc_encoding_size
+                + self.detect_size + 1)
+
+    def validate(self) -> "GVDConfig":
+        if self.enable_BUTD and self.att_input_mode != "region":
+            raise ValueError("region attention only under the BUTD mode")
+        if self.att_model != "topdown":
+            raise NotImplementedError(
+                f"att_model {self.att_model!r}: only topdown is ported")
+        if self.att_input_mode not in ("both", "featmap", "region",
+                                       "dual_region"):
+            raise ValueError(f"unknown att_input_mode {self.att_input_mode!r}")
+        if self.region_attn_mode not in ("dp", "add", "cat", "mix",
+                                         "mix_mul"):
+            raise ValueError(
+                f"unknown region_attn_mode {self.region_attn_mode!r}")
+        if self.transfer_mode not in ("none", "cls", "glove", "both"):
+            raise ValueError(f"unknown transfer_mode {self.transfer_mode!r}")
+        if self.t_attn_mode not in ("bilstm", "bigru"):
+            raise ValueError(f"unknown t_attn_mode {self.t_attn_mode!r}")
+        if self.dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"unknown dtype {self.dtype!r}")
+        if self.fc_feat_size != self.rgb_feat_size + self.motion_feat_size:
+            raise ValueError(
+                "fc_feat_size must equal rgb_feat_size + motion_feat_size")
+        return self
+
+    def replace(self, **kw) -> "GVDConfig":
+        return dataclasses.replace(self, **kw)
+
+
+def tiny_test_config(**overrides) -> GVDConfig:
+    """The JAX package's ``tiny_test_config``, restricted to these fields."""
+    base = dict(
+        rnn_size=64,
+        input_encoding_size=32,
+        att_hid_size=32,
+        fc_feat_size=48,
+        rgb_feat_size=32,
+        motion_feat_size=16,
+        att_feat_size=24,
+        t_attn_size=16,
+        num_sampled_frm=4,
+        num_prop_per_frm=5,
+        glove_dim=12,
+        loc_encoding_size=16,
+        seg_info_size=8,
+        seq_length=8,
+        seq_per_img=1,
+        vocab_size=50,
+        detect_size=10,
+        max_gt_box=6,
+        drop_prob_lm=0.0,
+        loc_drop=0.0,
+    )
+    base.update(overrides)
+    return GVDConfig(**base).validate()

@@ -15,6 +15,8 @@ package.  Three config flags select the hand-written kernels:
 ``use_pallas_rnn`` (K2, the BiRNN recurrence), ``use_pallas_encoder``
 (K1, the obj_interact layer) and ``use_pallas`` (K3, the per-token region
 attention).  A kernel wrapper runs its plain version on CPU tensors.
+The config is the port's own (``config.py``), field for field a subset
+of the JAX package's.
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from grounded_video_description_tpu.config import GVDConfig
+from grounded_video_description_torch.config import GVDConfig
 from grounded_video_description_torch.models import transformer as xf
 from grounded_video_description_torch.nn import (
     BiRNNParams, LSTMCellParams, batch_norm, birnn, dropout, embedding,
@@ -87,9 +89,6 @@ class GVDModel(nn.Module):
     def __init__(self, cfg: GVDConfig):
         super().__init__()
         cfg.validate()
-        if cfg.att_model != "topdown":
-            raise NotImplementedError(
-                "the transformer captioner is not ported yet")
         self.cfg = cfg
         # grounder head style (model.py:55-58): additive only for
         # region_attn_mode add/cat; 'mix'/'mix_mul'/'dp' -> dot product
@@ -337,8 +336,6 @@ class GVDModel(nn.Module):
         seqLogprobs (B, L) f32, att2_weights (B, L, R) — the pnt-masked
         region logits of each step — and sim_mat_static (B, C+1, R))."""
         cfg = self.cfg
-        if cfg.quantize_banks:
-            raise NotImplementedError("int8 banks are not ported yet")
         enc = self.encode(batch)
         pnt_mask = enc["pnt_mask"]
         B = pnt_mask.shape[0]

@@ -15,18 +15,14 @@ Module names follow the reference state dict
 
 from __future__ import annotations
 
-import math
 from typing import List
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
-from grounded_video_description_torch.nn import (
-    init_linear_, layer_norm_affine, linear,
-)
+from grounded_video_description_torch.nn import init_linear_
 from grounded_video_description_torch.ops.kernels.encoder_layer import (
-    EncoderLayerWeights, encoder_apply_fused, head_slices as _head_slices,
+    EncoderLayerWeights, fused_encoder_layer, fused_encoder_layer_plain,
 )
 
 
@@ -101,46 +97,16 @@ class ObjInteract(nn.Module):
         self.encoder = Encoder(d_model, d_hidden, n_layers)
 
 
-def _mha(p: MultiHeadParams, x: torch.Tensor, *,
-         n_heads: int) -> torch.Tensor:
-    """Self-attention at inference with the head-sequential schedule of
-    the long-KV branch (one (B, R, R) score tensor per head)."""
-    d_model = x.shape[-1]
-    scale = math.sqrt(d_model)
-    q = linear(x, p.wq.weight)
-    k = linear(x, p.wk.weight)
-    v = linear(x, p.wv.weight)
-    outs = []
-    for sl in _head_slices(d_model, n_heads):
-        scores = torch.einsum("bqd,bkd->bqk", q[..., sl], k[..., sl])
-        w = torch.softmax(scores / scale, dim=-1)
-        outs.append(torch.einsum("bqk,bkd->bqd", w, v[..., sl]))
-    return linear(torch.cat(outs, dim=-1), p.wo.weight)
-
-
-def _residual(ln: LayerNormParams, x, sub) -> torch.Tensor:
-    return layer_norm_affine(ln.gamma, ln.beta, x + sub, use_std=True)
-
-
-def _ff(p: FeedForwardParams, x: torch.Tensor) -> torch.Tensor:
-    h = F.relu(linear(x, p.linear1.weight, p.linear1.bias))
-    return linear(h, p.linear2.weight, p.linear2.bias)
-
-
 def encoder_apply(enc: Encoder, x: torch.Tensor, *, n_heads: int,
                   use_kernel: bool = False) -> List[torch.Tensor]:
-    """Per-layer encodings at inference (transformer.py:177-190).
-
-    use_kernel: one ``fused_encoder_layer`` per layer (K1 on a CUDA
-    tensor), as gvd.py:247-255 dispatches in the JAX package."""
-    if use_kernel:
-        return encoder_apply_fused([lp.weights() for lp in enc.layers], x,
-                                   n_heads=n_heads)
+    """Per-layer encodings at inference (transformer.py:177-190), one
+    ``fused_encoder_layer`` per layer as gvd.py:247-255 dispatches in the
+    JAX package.  Without ``use_kernel`` each layer is the kernel's plain
+    twin, ``fused_encoder_layer_plain`` (the head-sequential schedule of
+    transformer.py:211-234, scores and softmax in f32)."""
+    layer = fused_encoder_layer if use_kernel else fused_encoder_layer_plain
     encodings = []
     for lp in enc.layers:
-        a = _mha(lp.selfattn.layer, x, n_heads=n_heads)
-        x = _residual(lp.selfattn.layernorm, x, a)
-        x = _residual(lp.feedforward.layernorm, x,
-                      _ff(lp.feedforward.layer, x))
+        x = layer(x, lp.weights(), n_heads=n_heads)
         encodings.append(x)
     return encodings

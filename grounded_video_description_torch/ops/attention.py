@@ -26,6 +26,9 @@ from torch import nn
 
 from grounded_video_description_torch.nn import linear
 from grounded_video_description_torch.ops import MIN_VALUE
+from grounded_video_description_torch.ops.kernels.region_attention import (
+    fused_region_attention, fused_region_attention_plain,
+)
 
 
 def _lin(m: nn.Linear, x: torch.Tensor) -> torch.Tensor:
@@ -57,22 +60,21 @@ def region_attention(p: nn.Module, h: torch.Tensor,
     tanh), 'cat' (concatenated), 'dp' (dot product).
     Returns (att_res (B, rnn), grounding_logits (B, R), att_h).
 
-    use_kernel with modes add/mix runs K3 (``fused_region_attention``).
+    Modes add/mix are K3: ``fused_region_attention`` with ``use_kernel``,
+    else its plain twin ``fused_region_attention_plain`` (f32 arithmetic,
+    outputs in the input dtype).
     """
     att_h = _lin(p.h2att, h)                                  # (B, H)
 
-    if use_kernel and mode in ("add", "mix"):
-        from grounded_video_description_torch.ops.kernels.region_attention \
-            import fused_region_attention
-        att_res, grd = fused_region_attention(
-            p_pool_feats, att_h, pool_feats, p.alpha_net.weight,
-            p.alpha_net.bias, att_mask, pnt_mask)
+    if mode in ("add", "mix"):
+        fn = (fused_region_attention if use_kernel
+              else fused_region_attention_plain)
+        att_res, grd = fn(p_pool_feats, att_h, pool_feats,
+                          p.alpha_net.weight, p.alpha_net.bias, att_mask,
+                          pnt_mask)
         return att_res, grd, att_h
 
-    if mode in ("add", "mix"):
-        dot = torch.tanh(p_pool_feats + att_h[:, None, :])
-        scores = _lin(p.alpha_net, dot)[..., 0]
-    elif mode == "mix_mul":
+    if mode == "mix_mul":
         dot = torch.tanh(p_pool_feats * att_h[:, None, :])
         scores = _lin(p.alpha_net, dot)[..., 0]
     elif mode == "cat":

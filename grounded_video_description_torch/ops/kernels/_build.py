@@ -45,8 +45,8 @@ _SIGNATURES = {
     # dtype, p_pool, att_h, pool, alpha_w, alpha_b, att_mask, pnt_mask,
     # att_res, grd, B, R, H, D, stream
     "gvd_region_attention": [_I] + [_P] * 9 + [_I] * 4 + [_P],
-    # dtype, mode, gi, wh, bh, out, T, B, H, batch_tile, stream
-    "gvd_birnn_recurrence": [_I, _I] + [_P] * 4 + [_I] * 4 + [_P],
+    # dtype, mode, gi, wh, bh, out, T, B, H, stream
+    "gvd_birnn_recurrence": [_I, _I] + [_P] * 4 + [_I] * 3 + [_P],
     # dtype, A, W, bias, C, M, N, K, relu, stream
     "gvd_gemm": [_I] + [_P] * 4 + [_I] * 4 + [_P],
     # dtype, qkv, out, B, R, D, n_heads, inv_scale, stream

@@ -51,11 +51,11 @@ def birnn_recurrence_plain(gi: torch.Tensor, wh: torch.Tensor,
 
 
 def birnn_recurrence(gi: torch.Tensor, wh: torch.Tensor,
-                     bh: Optional[torch.Tensor], *, mode: str, hidden: int,
-                     batch_tile: int = 4) -> torch.Tensor:
+                     bh: Optional[torch.Tensor], *, mode: str,
+                     hidden: int) -> torch.Tensor:
     """Same contract as ``birnn_recurrence_plain``.  A CPU tensor takes
     the plain version; a CUDA tensor launches the kernel, one block per
-    (direction, ``batch_tile`` rows)."""
+    (direction, 4 batch rows)."""
     if not gi.is_cuda:
         return birnn_recurrence_plain(gi, wh, bh, mode=mode, hidden=hidden)
     req = _build.require
@@ -69,7 +69,6 @@ def birnn_recurrence(gi: torch.Tensor, wh: torch.Tensor,
         req(bh is not None and bh.shape == (2, G), "GRU needs bh (2, G)")
         req(bh.dtype == gi.dtype and bh.device == gi.device,
             "bh dtype/device")
-    req(batch_tile in (1, 2, 4, 8), f"batch_tile {batch_tile}")
 
     gi = gi.contiguous()
     wh = wh.contiguous()
@@ -78,7 +77,7 @@ def birnn_recurrence(gi: torch.Tensor, wh: torch.Tensor,
     code = _build.lib().gvd_birnn_recurrence(
         _build.dtype_code(gi), MODE_CODES[mode], gi.data_ptr(),
         wh.data_ptr(), bh_c.data_ptr() if bh_c is not None else None,
-        out.data_ptr(), T, B, hidden, batch_tile, _build.stream_of(gi))
+        out.data_ptr(), T, B, hidden, _build.stream_of(gi))
     _build.check(code, "birnn_recurrence")
     _build.launches["birnn_recurrence"] += 1
     return out

@@ -11,7 +11,8 @@ column range of the QKV buffer, so no packing is needed.
 ``fused_encoder_layer_plain`` is the same layer in plain PyTorch, with the
 kernel's numerics (scores, softmax and LayerNorm statistics in f32;
 activations stored in the input dtype between the pieces).  It serves CPU
-tensors and is the reference on the card.
+tensors, is the model's plain path (``models/transformer.py::
+encoder_apply`` without the kernel) and is the reference on the card.
 """
 
 from __future__ import annotations
@@ -139,14 +140,3 @@ def fused_encoder_layer(x: torch.Tensor, w: EncoderLayerWeights, *,
     out = _residual_ln(x1, f, vec(w.g2), vec(w.be2))
     _build.launches["encoder_layer"] += 1
     return out.reshape(B, R, D)
-
-
-def encoder_apply_fused(weights: List[EncoderLayerWeights], x: torch.Tensor,
-                        *, n_heads: int) -> List[torch.Tensor]:
-    """The per-layer encoding list, one ``fused_encoder_layer`` per layer
-    (counterpart of ``encoder_apply_fused``)."""
-    encodings = []
-    for w in weights:
-        x = fused_encoder_layer(x, w, n_heads=n_heads)
-        encodings.append(x)
-    return encodings

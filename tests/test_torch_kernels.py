@@ -22,7 +22,7 @@ from grounded_video_description_torch.ops.kernels import _build
 from grounded_video_description_torch.ops.kernels.birnn import (
     birnn_recurrence, birnn_recurrence_plain)
 from grounded_video_description_torch.ops.kernels.encoder_layer import (
-    encoder_apply_fused, fused_encoder_layer_plain)
+    fused_encoder_layer_plain)
 from grounded_video_description_torch.ops.kernels.region_attention import (
     fused_region_attention, fused_region_attention_plain)
 from grounded_video_description_torch.weights import encoder_state_dict
@@ -142,8 +142,8 @@ def test_encoder_layer_plain_matches_pallas(dtype):
             h = fused_encoder_layer_plain(h, w, n_heads=HEADS)
             got.append(h)
         _build.reset_launches()
-        via_wrapper = encoder_apply_fused(weights, _t(x, tdt),
-                                          n_heads=HEADS)
+        via_wrapper = txf.encoder_apply(enc, _t(x, tdt), n_heads=HEADS,
+                                        use_kernel=True)
     assert not _build.launches
     assert len(got) == len(ref) == 2
     for g, r, w in zip(got, ref, via_wrapper):
@@ -153,12 +153,16 @@ def test_encoder_layer_plain_matches_pallas(dtype):
 
 
 def test_encoder_kernel_twin_matches_head_sequential_encoder():
-    """The kernel's plain version and the model's plain encoder (the
-    head-sequential schedule) are the same function at f32."""
-    _, enc = _encoder_pair(64, 32, 2, 3)
-    x = torch.randn(3, 40, 64, generator=torch.Generator().manual_seed(0))
+    """The model's encoder, with and without the kernel flag (K1's plain
+    twin on CPU tensors either way), against the JAX package's
+    head-sequential XLA encoder at f32."""
+    params, enc = _encoder_pair(64, 32, 2, 3)
+    x = np.random.RandomState(0).randn(3, 40, 64).astype(np.float32)
+    ref = jxf.encoder_apply(params, jnp.asarray(x), n_heads=6, drop=0.0)
     with torch.no_grad():
-        a = txf.encoder_apply(enc, x, n_heads=6)
-        b = txf.encoder_apply(enc, x, n_heads=6, use_kernel=True)
-    for u, v in zip(a, b):
-        np.testing.assert_allclose(_np(u), _np(v), atol=2e-5)
+        a = txf.encoder_apply(enc, _t(x), n_heads=6)
+        b = txf.encoder_apply(enc, _t(x), n_heads=6, use_kernel=True)
+    assert len(a) == len(b) == len(ref) == 2
+    for u, v, r in zip(a, b, ref):
+        assert torch.equal(u, v)
+        np.testing.assert_allclose(_np(u), np.asarray(r), atol=2e-5)

@@ -1,8 +1,10 @@
-"""PyTorch port, the greedy-captioning slice: encode banks and
+"""PyTorch port, the greedy-captioning slice: the port's config and
+synthetic batches against the JAX package's, encode banks and
 sample_greedy against the JAX model on the same weights and batch (f32,
 CPU), the weights bridge, seeded init, and that the port and
 chip_smoke.py stay off JAX and off the CPU."""
 
+import dataclasses
 import os
 import subprocess
 import sys
@@ -13,11 +15,14 @@ import numpy as np
 import pytest
 import torch
 
-from grounded_video_description_tpu.config import tiny_test_config
-from grounded_video_description_tpu.data.synthetic import synthetic_batch
+from grounded_video_description_tpu import config as jconfig
+from grounded_video_description_tpu.data.synthetic import (
+    synthetic_batch as jax_synthetic_batch)
 from grounded_video_description_tpu.engine.checkpoint import (
     import_torch_bn_state, import_torch_checkpoint)
 from grounded_video_description_tpu.models import GVDModel as JaxModel
+from grounded_video_description_torch import config as tconfig
+from grounded_video_description_torch.data import synthetic_batch
 from grounded_video_description_torch.models import (
     GVDModel, batch_to_tensors)
 from grounded_video_description_torch.weights import from_jax_variables
@@ -33,8 +38,62 @@ COMBOS = [("bigru", "mix"), ("bilstm", "add")]
 
 
 def _cfg(t_attn_mode, region_attn_mode, **kw):
-    return tiny_test_config(obj_interact=True, t_attn_mode=t_attn_mode,
-                            region_attn_mode=region_attn_mode, **kw)
+    """The JAX package's tiny config."""
+    return jconfig.tiny_test_config(
+        obj_interact=True, t_attn_mode=t_attn_mode,
+        region_attn_mode=region_attn_mode, **kw)
+
+
+def _tcfg(jcfg):
+    """The port's config holding the same values as a JAX config."""
+    return tconfig.GVDConfig(**{
+        f.name: getattr(jcfg, f.name)
+        for f in dataclasses.fields(tconfig.GVDConfig)}).validate()
+
+
+_DERIVED = ("max_proposal", "vocab_size_padded", "fc_feat_size_full",
+            "vis_encoding_size", "pool_feat_size")
+# (tiny, overrides): the defaults, the flagship (bench.py), and tiny
+# configs like the ones the slice tests run
+_CONFIG_CASES = {
+    "defaults": (False, {}),
+    "flagship": (False, dict(vocab_size=4905, detect_size=431,
+                             obj_interact=True, use_pallas=True)),
+    "tiny-bigru-mix": (True, dict(obj_interact=True)),
+    "tiny-bilstm-add-both": (True, dict(
+        obj_interact=True, t_attn_mode="bilstm", region_attn_mode="add",
+        transfer_mode="both", vocab_pad_to=8)),
+}
+
+
+@pytest.mark.parametrize("case", list(_CONFIG_CASES))
+def test_config_and_synthetic_batch_match_jax_package(case):
+    """The port's own config and synthetic_batch are the JAX package's:
+    same field values and derived widths, same arrays for a seed."""
+    tiny, kw = _CONFIG_CASES[case]
+    if tiny:
+        jcfg = jconfig.tiny_test_config(**kw)
+        tcfg = tconfig.tiny_test_config(**kw)
+    else:
+        jcfg, tcfg = jconfig.GVDConfig(**kw), tconfig.GVDConfig(**kw)
+    jax_fields = {f.name for f in dataclasses.fields(jconfig.GVDConfig)}
+    for f in dataclasses.fields(tconfig.GVDConfig):
+        assert f.name in jax_fields, f.name
+        assert getattr(tcfg, f.name) == getattr(jcfg, f.name), f.name
+    for name in _DERIVED:
+        assert getattr(tcfg, name) == getattr(jcfg, name), name
+    if case == "defaults":
+        return
+    b = 2 if case == "flagship" else B
+    got, ref = synthetic_batch(tcfg, b, seed=3), jax_synthetic_batch(
+        jcfg, b, seed=3)
+    assert got.keys() == ref.keys()
+    for key in ref:
+        if key == "seg_id":
+            assert got[key] == ref[key]
+        else:
+            assert got[key].dtype == ref[key].dtype, key
+            np.testing.assert_array_equal(got[key], ref[key], err_msg=key)
 
 
 @pytest.fixture(scope="module", params=COMBOS, ids=lambda c: "-".join(c))
@@ -44,13 +103,15 @@ def jax_run(request):
     cfg = _cfg(*request.param, use_pallas=False)
     model = JaxModel(cfg)
     variables = model.init(jax.random.PRNGKey(0))
-    batch = synthetic_batch(cfg, B, seed=1)
-    jb = {k: jnp.asarray(v) for k, v in batch.items() if k != "seg_id"}
+    jb = {k: jnp.asarray(v) for k, v in jax_synthetic_batch(
+        cfg, B, seed=1).items() if k != "seg_id"}
     enc, _ = jax.jit(lambda v, b: model.encode(
         v["params"], v["state"], b, train=False))(variables, jb)
     out = jax.jit(model.sample_greedy)(variables, jb)
-    return dict(cfg=cfg, variables=jax.tree.map(np.asarray, variables),
-                batch=batch, enc=jax.tree.map(np.asarray, enc),
+    tcfg = _tcfg(cfg)
+    return dict(cfg=tcfg, variables=jax.tree.map(np.asarray, variables),
+                batch=synthetic_batch(tcfg, B, seed=1),
+                enc=jax.tree.map(np.asarray, enc),
                 out=[np.asarray(o) for o in out])
 
 
@@ -119,7 +180,7 @@ def test_weights_roundtrip_through_importer_is_identity(combo):
     variables["state"]["bn"]["mean"] = np.linspace(
         -1, 1, cfg.rnn_size).astype(np.float32)
     variables["state"]["bn"]["count"] = np.float32(7)
-    port = GVDModel(cfg)
+    port = GVDModel(_tcfg(cfg))
     port.load_state_dict(from_jax_variables(variables))   # strict
     sd = _RecordingDict(port.state_dict())
 
@@ -140,9 +201,10 @@ def test_seeded_init_distributions_and_reverse_bridge():
     """The port's own init: deterministic per seed, JAX's distributions,
     and its weights imported into JAX give the same greedy tokens."""
     cfg = _cfg("bigru", "mix")
-    a = GVDModel(cfg).init(torch.Generator().manual_seed(0))
-    b = GVDModel(cfg).init(torch.Generator().manual_seed(0))
-    c = GVDModel(cfg).init(torch.Generator().manual_seed(1))
+    tcfg = _tcfg(cfg)
+    a = GVDModel(tcfg).init(torch.Generator().manual_seed(0))
+    b = GVDModel(tcfg).init(torch.Generator().manual_seed(0))
+    c = GVDModel(tcfg).init(torch.Generator().manual_seed(1))
     for (k, va), vb in zip(a.state_dict().items(),
                            b.state_dict().values()):
         assert torch.equal(va, vb), k
@@ -162,16 +224,21 @@ def test_seeded_init_distributions_and_reverse_bridge():
     sd = a.state_dict()
     jvars = {"params": import_torch_checkpoint(sd, init["params"]),
              "state": import_torch_bn_state(sd, init["state"])}
-    batch = synthetic_batch(cfg, B, seed=4)
-    jb = {k: jnp.asarray(v) for k, v in batch.items() if k != "seg_id"}
+    jb = {k: jnp.asarray(v) for k, v in jax_synthetic_batch(
+        cfg, B, seed=4).items() if k != "seg_id"}
     jseq = np.asarray(jax.jit(jm.sample_greedy)(jvars, jb)[0])
-    seq = a.sample_greedy(batch_to_tensors(batch, "cpu"))[0]
+    seq = a.sample_greedy(batch_to_tensors(
+        synthetic_batch(tcfg, B, seed=4), "cpu"))[0]
     np.testing.assert_array_equal(seq.numpy(), jseq)
 
 
 def test_port_imports_no_jax():
+    """Neither the port nor chip_smoke.py imports JAX or the JAX
+    package."""
     code = (
         "import sys\n"
+        "import grounded_video_description_torch.config\n"
+        "import grounded_video_description_torch.data.synthetic\n"
         "import grounded_video_description_torch.models\n"
         "import grounded_video_description_torch.weights\n"
         "import grounded_video_description_torch.ops.kernels._build\n"
@@ -179,10 +246,9 @@ def test_port_imports_no_jax():
         "import grounded_video_description_torch.ops.kernels.encoder_layer\n"
         "import grounded_video_description_torch.ops.kernels."
         "region_attention\n"
-        "import grounded_video_description_tpu.data.synthetic\n"
         "import chip_smoke\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax'"
-        " or m.startswith('jax.'))\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in"
+        " ('jax', 'grounded_video_description_tpu'))\n"
         "assert not bad, bad\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=300)
