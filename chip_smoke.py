@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's greedy-captioning path on one NVIDIA GPU.
+"""Drive the PyTorch port's greedy-captioning path and its supervised
+train step on one NVIDIA GPU.
 
 Run from the root of a checkout, with no arguments:
 
@@ -8,12 +9,17 @@ Run from the root of a checkout, with no arguments:
 It refuses to run without a CUDA device.  It builds the port's CUDA
 kernels from ``grounded_video_description_torch/csrc``, holds each kernel
 against its plain PyTorch version at the flagship shapes in float32 and
-bfloat16, then runs ``GVDModel.sample_greedy`` at the flagship
+bfloat16 (K4, the training attention, with its gradients and at dropout
+0.2 and 0), then runs ``GVDModel.sample_greedy`` at the flagship
 configuration (bench.py's: vocab 4905, 431 detector classes,
 obj_interact, BiGRU, mix region attention; batch 100, 1000 ROIs, 480
 frames, 20 tokens; random weights from a seeded generator) once through
-the kernels and once on the plain path, and compares the two.  Any failed
-check ends the run with a non-zero exit.
+the kernels and once on the plain path, and compares the two.  Last it
+runs ``Trainer.train_step`` at the README's training flags (batch 240 in
+8 microbatches, w_att2 0.05, w_cls 0.1, Adam at 5e-4, clip 0.1): in f32
+with every dropout rate 0, one step through K4 against one on the plain
+attention; in bf16 at the flagship dropout rates, three timed steps on
+each path.  Any failed check ends the run with a non-zero exit.
 
 Output: human-readable lines, then the card's name and power limit, then
 one JSON line with each kernel's launches on the main path, its error
@@ -24,6 +30,7 @@ against the plain version and both times, and as the last line
 from __future__ import annotations
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -244,6 +251,158 @@ def phase_encoder_layer(dev, results):
                 max_abs_err=max(errs), ms=ms, plain_ms=plain_ms)
 
 
+def phase_attention_train(dev, results):
+    """K4 at the obj_interact training shapes: q/k/v (30, 1000, 1024) in
+    6 uneven heads, the microbatch of batch 240 in 8; f32 and bf16, drop
+    0.2 (the flagship's enc_drop) and 0.  The kernel's output and its
+    q/k/v gradients against the plain twin's autograd on the same seed,
+    and both passes timed alone."""
+    import torch
+    from grounded_video_description_torch.ops.kernels.attention_train \
+        import mha_probs_dropout, mha_probs_dropout_plain
+
+    Bm, heads = 30, 6
+    g = torch.Generator(device=dev).manual_seed(11)
+    base = [torch.randn(Bm, R, D_RNN, generator=g, device=dev)
+            for _ in range(4)]
+    seed = torch.tensor([0x9E3779B9], device=dev)
+    kw = dict(n_heads=heads, scale=D_RNN ** 0.5)
+    for dt in (torch.float32, torch.bfloat16):
+        name = str(dt).replace("torch.", "")
+        for drop in (0.2, 0.0):
+            q, k, v, w = (t.to(dt) for t in base)
+            runs = {}
+            for which, fn in (("kernel", mha_probs_dropout),
+                              ("plain", mha_probs_dropout_plain)):
+                leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+                out = fn(*leaves, seed, drop=drop, **kw)
+                grads = torch.autograd.grad(out, leaves, w,
+                                            retain_graph=True)
+                torch.cuda.synchronize()
+                fwd_ms = time_ms(lambda: fn(*leaves, seed, drop=drop, **kw),
+                                 5)
+                bwd_ms = time_ms(lambda: torch.autograd.grad(
+                    out, leaves, w, retain_graph=True), 5)
+                runs[which] = ([out.detach()] + list(grads), fwd_ms, bwd_ms)
+                del out, grads, leaves
+            (got, k_fwd, k_bwd), (ref, p_fwd, p_bwd) = (runs["kernel"],
+                                                         runs["plain"])
+            errs = {}
+            for part, a, b in zip(("out", "dq", "dk", "dv"), got, ref):
+                check(bool(torch.isfinite(a.float()).all()),
+                      f"K4 {name} drop {drop} {part} not finite")
+                if dt == torch.float32:
+                    # f32 sums over 1000 keys or queries in another
+                    # order: ~1e-6 expected
+                    errs[part] = max_err(a, b)
+                    check(errs[part] <= 1e-4,
+                          f"K4 f32 drop {drop} {part} err {errs[part]}")
+                else:
+                    errs[part] = check_bf16(a, b, f"K4 bf16 drop {drop} {part}")
+            print(f"K4 attention_train {name} drop {drop}: err "
+                  f"{ {p: f'{e:.3e}' for p, e in errs.items()} }; forward "
+                  f"kernel {k_fwd:.3f} ms, plain {p_fwd:.3f} ms; backward "
+                  f"kernel {k_bwd:.3f} ms, plain {p_bwd:.3f} ms", flush=True)
+            if drop > 0:
+                results[("attention_train_fwd", name)] = dict(
+                    max_abs_err=errs["out"], ms=k_fwd, plain_ms=p_fwd)
+                results[("attention_train_bwd", name)] = dict(
+                    max_abs_err=max(errs["dq"], errs["dk"], errs["dv"]),
+                    ms=k_bwd, plain_ms=p_bwd)
+            del got, ref
+            torch.cuda.empty_cache()
+
+
+def phase_train(dev):
+    """Trainer.train_step at the flagship training configuration, through
+    K4 ("pallas") and on the plain attention ("xla").  Returns the K4
+    launch counts of the bf16 kernel run's three timed steps."""
+    import torch
+    from grounded_video_description_torch.config import GVDConfig
+    from grounded_video_description_torch.data.synthetic import synthetic_batch
+    from grounded_video_description_torch.engine.trainer import (
+        Trainer, batch_to_device)
+    from grounded_video_description_torch.models import GVDModel
+    from grounded_video_description_torch.ops.kernels import _build
+
+    BT, ACCUM = 240, 8
+    base = GVDConfig(vocab_size=4905, detect_size=431, obj_interact=True,
+                     batch_size=BT, grad_accum=ACCUM, w_att2=0.05,
+                     w_cls=0.1, drop_prob_lm=0.5, enc_drop=0.2,
+                     learning_rate=5e-4, grad_clip=0.1,
+                     use_pallas=False).validate()
+    t0 = time.perf_counter()
+    state = GVDModel(base).init(torch.Generator().manual_seed(0)).state_dict()
+    batch = synthetic_batch(base, BT, seed=0)
+    print(f"train set-up (weights + batch) {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    terms = ("loss", "lm_loss", "att2_loss", "ground_loss", "cls_loss")
+    per_step = {"attention_train_fwd": 2 * ACCUM,   # 2 layers x 8
+                "attention_train_bwd": 2 * ACCUM}
+
+    def trainer_for(cfg):
+        model = GVDModel(cfg)
+        model.load_state_dict(state)
+        return Trainer(cfg, model.to(dev))
+
+    # (a) f32, every dropout rate 0: K4 against the plain attention
+    stats = {}
+    for impl in ("pallas", "xla"):
+        cfg = base.replace(attn_train_impl=impl, drop_prob_lm=0.0,
+                           loc_drop=0.0, enc_drop=0.0)
+        tr = trainer_for(cfg)
+        m = tr.train_step(batch_to_device(cfg, batch, dev),
+                          cfg.learning_rate)
+        stats[impl] = {k: float(v) for k, v in m.items()}
+        del tr
+        torch.cuda.empty_cache()
+    for k in terms:
+        a, b = stats["pallas"][k], stats["xla"][k]
+        check(abs(a - b) <= 1e-4 * abs(b), f"f32 step {k}: K4 {a} vs {b}")
+    a, b = stats["pallas"]["grad_norm"], stats["xla"]["grad_norm"]
+    check(abs(a - b) <= 1e-3 * abs(b), f"f32 step grad norm: K4 {a} vs {b}")
+    print("train f32 drop 0, K4 vs plain attention: "
+          + ", ".join(f"{k} {stats['pallas'][k]:.6f} / {stats['xla'][k]:.6f}"
+                      for k in terms + ("grad_norm",)), flush=True)
+
+    # (b) bf16 at the flagship dropout rates: three timed steps each
+    launches, rates = None, {}
+    for impl in ("pallas", "xla"):
+        cfg = base.replace(attn_train_impl=impl, dtype="bfloat16")
+        tr = trainer_for(cfg)
+        dev_batch = batch_to_device(cfg, batch, dev)
+        tr.train_step(dev_batch, cfg.learning_rate)          # warm-up
+        torch.cuda.synchronize()
+        counts, times = {}, []
+        for step in range(3):
+            _build.reset_launches()
+            t0 = time.perf_counter()
+            m = tr.train_step(dev_batch, cfg.learning_rate)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            got = dict(_build.launches)
+            expect = per_step if impl == "pallas" else {}
+            check(got == expect, f"bf16 {impl} step launches {got} != "
+                  f"{expect}")
+            for name, n in got.items():
+                counts[name] = counts.get(name, 0) + n
+            losses = {k: float(v) for k, v in m.items()}
+            check(all(math.isfinite(v) for v in losses.values()),
+                  f"bf16 {impl} step {step} losses {losses}")
+            print(f"train bf16 {impl} step {step}: " + ", ".join(
+                f"{k} {v:.5f}" for k, v in losses.items())
+                + f"; {times[-1]:.3f} s", flush=True)
+        rates[impl] = BT / statistics.median(times)
+        if impl == "pallas":
+            launches = counts
+        del tr, dev_batch
+        torch.cuda.empty_cache()
+    print(f"train bf16 segments/s (median of 3 steps): K4 "
+          f"{rates['pallas']:.2f}, plain attention {rates['xla']:.2f}",
+          flush=True)
+    return launches
+
+
 def phase_end_to_end(dev):
     """sample_greedy at the flagship configuration, through the kernels
     and on the plain path.  Returns the launch counts of the f32 kernel
@@ -343,7 +502,9 @@ def main() -> int:
     phase_region_attention(dev, results)
     phase_birnn(dev, results)
     phase_encoder_layer(dev, results)
+    phase_attention_train(dev, results)
     launches = phase_end_to_end(dev)
+    launches.update(phase_train(dev))
 
     rows = [("region_attention", "region_attention",
              "grounded_video_description_torch/csrc/region_attention.cu",
@@ -355,7 +516,15 @@ def main() -> int:
             ("encoder_layer", "encoder_layer",
              "grounded_video_description_torch/csrc/encoder_layer.cu",
              "grounded_video_description_tpu/ops/pallas/"
-             "encoder_layer.py:184")]
+             "encoder_layer.py:184"),
+            ("attention_train_fwd", "attention_train_fwd",
+             "grounded_video_description_torch/csrc/attention_train.cu",
+             "grounded_video_description_tpu/ops/pallas/"
+             "attention_train.py:163"),
+            ("attention_train_bwd", "attention_train_bwd",
+             "grounded_video_description_torch/csrc/attention_train.cu",
+             "grounded_video_description_tpu/ops/pallas/"
+             "attention_train.py:185")]
     kernels = []
     for name, key, source, replaces in rows:
         r = results[(key, "float32")]

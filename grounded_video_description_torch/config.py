@@ -1,16 +1,20 @@
 """Configuration of the port.
 
 The fields of ``grounded_video_description_tpu/config.py::GVDConfig``
-that the greedy-captioning slice reads, under the same names, with the
-same defaults and derived widths (tests/test_torch_slice.py holds the two
-equal).  The port keeps its own copy so that it runs where the JAX
-package is not installed.
+that the port reads (greedy captioning and the supervised train step),
+under the same names, with the same defaults and derived widths
+(tests/test_torch_slice.py holds the two equal).  The port keeps its own
+copy so that it runs where the JAX package is not installed.
 
-Three flags choose the hand-written kernels, as the JAX package's flags
-choose its Pallas kernels: ``use_pallas`` (K3, the per-token region
-attention), ``use_pallas_rnn`` (K2, the BiRNN recurrence) and
-``use_pallas_encoder`` (K1, the obj_interact layer).  A kernel runs only
-on CUDA tensors; on CPU tensors the flag takes the plain version.
+Flags choose the hand-written kernels, as the JAX package's flags choose
+its Pallas kernels: ``use_pallas`` (K3, the per-token region attention),
+``use_pallas_rnn`` (K2, the BiRNN recurrence) and ``use_pallas_encoder``
+(K1, the obj_interact layer) at inference, and ``attn_train_impl`` (K4,
+the obj_interact attention in training: "xla" plain attention, "pallas"
+the kernel's forward and backward, "hybrid" the plain forward and the
+kernel's backward).  A kernel runs only on CUDA tensors; on CPU tensors
+the flag takes the plain version.  Unlike the JAX package, which forces
+"xla" off the TPU, the port honours ``attn_train_impl`` on every device.
 """
 
 from __future__ import annotations
@@ -45,17 +49,41 @@ class GVDConfig:
     enable_BUTD: bool = False
     obj_interact: bool = False
 
-    # ---- decoding ----
+    # ---- loss weights (opts.py:70-73) ----
+    w_att2: float = 0.0
+    w_grd: float = 0.0
+    w_cls: float = 0.0
+    disable_caption: bool = False
+
+    # ---- optimization (opts.py:76-108) ----
+    batch_size: int = 10
+    grad_clip: float = 0.1
     drop_prob_lm: float = 0.5
     loc_drop: float = 0.5
+    enc_drop: float = 0.2     # context-enc / obj_interact dropout
     seq_per_img: int = 1
     seq_length: int = 20
+    optim: str = "adam"                 # sgd | adam | adamax
+    learning_rate: float = 5e-4
+    learning_rate_decay_start: int = 1
+    learning_rate_decay_every: int = 3
+    learning_rate_decay_rate: float = 0.8
+    optim_alpha: float = 0.9
+    optim_beta: float = 0.999
+    optim_epsilon: float = 1e-8
+    weight_decay: float = 0.0
+    finetune_lr_scale: float = 0.1      # ctx2pool_grd / vis_embed group
+    seed: int = 123
 
     # ---- execution ----
     dtype: str = "float32"              # compute dtype: float32 | bfloat16
     use_pallas: bool = False            # K3
     use_pallas_rnn: bool = True         # K2
     use_pallas_encoder: bool = True     # K1
+    attn_train_impl: str = "xla"        # K4: xla | pallas | hybrid
+    # sequential microbatches per train batch; loss terms are
+    # renormalized by the full batch's mask counts
+    grad_accum: int = 1
     # logit head width rounded up to a multiple of this; pad columns are
     # masked before the log-softmax
     vocab_pad_to: int = 1
@@ -121,6 +149,17 @@ class GVDConfig:
         if self.fc_feat_size != self.rgb_feat_size + self.motion_feat_size:
             raise ValueError(
                 "fc_feat_size must equal rgb_feat_size + motion_feat_size")
+        if self.attn_train_impl not in ("xla", "pallas", "hybrid"):
+            raise ValueError(
+                f"unknown attn_train_impl {self.attn_train_impl!r}")
+        if self.optim not in ("adam", "sgd", "adamax"):
+            raise ValueError(f"unknown optim {self.optim!r}")
+        if self.grad_accum < 1:
+            raise ValueError("grad_accum must be >= 1")
+        if self.batch_size % self.grad_accum:
+            raise ValueError(
+                f"batch_size {self.batch_size} must be divisible by "
+                f"grad_accum {self.grad_accum}")
         return self
 
     def replace(self, **kw) -> "GVDConfig":
@@ -145,11 +184,13 @@ def tiny_test_config(**overrides) -> GVDConfig:
         seg_info_size=8,
         seq_length=8,
         seq_per_img=1,
+        batch_size=2,
         vocab_size=50,
         detect_size=10,
         max_gt_box=6,
         drop_prob_lm=0.0,
         loc_drop=0.0,
+        enc_drop=0.0,
     )
     base.update(overrides)
     return GVDConfig(**base).validate()

@@ -49,6 +49,30 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+// Row stride, in floats, of a (rows, dh) f32 tile in shared memory: dh
+// rounded up to a multiple of 4, plus 4 when that is a multiple of 8, so
+// that the 16-byte reads of 8 consecutive rows hit distinct banks.
+__host__ __device__ constexpr int tile_ld(int dh) {
+  return ((dh + 3) / 4) % 2 ? (dh + 3) / 4 * 4 : (dh + 3) / 4 * 4 + 4;
+}
+
+// Rows [r0, r0 + n) of one head's dh columns into dst (n, ld) as f32; rows
+// at or past R and the pad columns up to dh4 are zero.  One warp per row,
+// lanes along the row.
+template <typename T>
+__device__ void load_tile_rows(float* dst, int ld, const T* src,
+                               size_t row_stride, int r0, int n, int R,
+                               int dh, int dh4) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int n_warps = blockDim.x >> 5;
+  for (int r = warp; r < n; r += n_warps) {
+    const bool ok = r0 + r < R;
+    const T* row = src + (size_t)(r0 + r) * row_stride;
+    for (int d = lane; d < dh4; d += 32)
+      dst[r * ld + d] = ok && d < dh ? to_f32(row[d]) : 0.0f;
+  }
+}
+
 // Sum (or max) over the whole block; every thread gets the result.
 // `scratch` holds at least 32 floats.  blockDim.x is a multiple of 32.
 template <bool IS_MAX>
@@ -62,6 +86,15 @@ __device__ float block_reduce(float v, float* scratch) {
   float r = lane < n_warps ? scratch[lane] : (IS_MAX ? -INFINITY : 0.0f);
   r = IS_MAX ? warp_max(r) : warp_sum(r);
   return r;
+}
+
+// Let `kern` take `smem` bytes of dynamic shared memory (above 48 KB a
+// kernel has to ask).
+template <typename K>
+cudaError_t allow_smem(K kern, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)smem);
 }
 
 }  // namespace gvd

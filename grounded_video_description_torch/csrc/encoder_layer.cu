@@ -191,13 +191,6 @@ gemm_bf16_wmma_kernel(const __nv_bfloat16* __restrict__ A,
   }
 }
 
-template <typename K>
-cudaError_t allow_smem(K kern, size_t smem) {
-  if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)smem);
-}
-
 // ------------------------------------------------------------- attention --
 // One block per (query tile of BQ = 64, head, batch row), 256 threads seen
 // as a 16 x 16 grid (tq, tk).  Thread (tq, tk) owns queries 4 tq + i of the
@@ -211,28 +204,8 @@ constexpr int BQ = 64, QPT = BQ / 16, BKEY = 64, ATT_THREADS = 256;
 constexpr int MAX_HEAD = 256;                     // widest head: NV = 4
 constexpr int ST_LD = BKEY + 1;                   // score-tile row stride
 
-__host__ __device__ constexpr int attention_ld(int dh) {
-  return ((dh + 3) / 4) % 2 ? (dh + 3) / 4 * 4 : (dh + 3) / 4 * 4 + 4;
-}
-
 __host__ __device__ constexpr size_t attention_smem(int ld) {
   return (size_t)(BQ * ld + BKEY * ld + BQ * ST_LD + 3 * BQ) * sizeof(float);
-}
-
-// rows [r0, r0 + n) of one head's columns into dst (n, ld) as f32; rows
-// past R and the pad columns up to the next multiple of 4 are zero.  One
-// warp per row, lanes along the row.
-template <typename T>
-__device__ void load_rows(float* dst, const T* src, size_t row_stride,
-                          int r0, int n, int R, int dh, int dh4) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int ld = attention_ld(dh);
-  for (int r = warp; r < n; r += ATT_THREADS / 32) {
-    const bool ok = r0 + r < R;
-    const T* row = src + (size_t)(r0 + r) * row_stride;
-    for (int d = lane; d < dh4; d += 32)
-      dst[r * ld + d] = ok && d < dh ? gvd::to_f32(row[d]) : 0.0f;
-  }
 }
 
 // qkv: (B, R, 3D) = [q | k | v]; head h spans columns [h*hs, min(h*hs+hs, D))
@@ -247,7 +220,7 @@ attention_kernel(const T* __restrict__ qkv, T* __restrict__ out, int R, int D,
   const int c0 = head * hs;
   const int dh = min(hs, D - c0);
   const int dh4 = (dh + 3) / 4 * 4;
-  const int ld = attention_ld(dh);
+  const int ld = gvd::tile_ld(dh);
   float* Qs = smem;                  // (BQ, ld)
   float* KVs = Qs + BQ * ld;         // (BKEY, ld): K tile, then V tile
   float* St = KVs + BKEY * ld;       // (BQ, ST_LD): scores, then probs
@@ -263,7 +236,7 @@ attention_kernel(const T* __restrict__ qkv, T* __restrict__ out, int R, int D,
     m_s[tid] = -INFINITY;
     l_s[tid] = 0.0f;
   }
-  load_rows(Qs, base, row_stride, q0, BQ, R, dh, dh4);
+  gvd::load_tile_rows(Qs, ld, base, row_stride, q0, BQ, R, dh, dh4);
 
   float acc[QPT][NV][4];
 #pragma unroll
@@ -275,7 +248,8 @@ attention_kernel(const T* __restrict__ qkv, T* __restrict__ out, int R, int D,
 
   for (int k0 = 0; k0 < R; k0 += BKEY) {
     __syncthreads();                 // KVs free (previous P V done)
-    load_rows(KVs, base + D, row_stride, k0, BKEY, R, dh, dh4);
+    gvd::load_tile_rows(KVs, ld, base + D, row_stride, k0, BKEY, R, dh,
+                         dh4);
     __syncthreads();
     float sc[QPT][4];
 #pragma unroll
@@ -326,7 +300,8 @@ attention_kernel(const T* __restrict__ qkv, T* __restrict__ out, int R, int D,
         m_s[q] = m_new;
       }
     }
-    load_rows(KVs, base + 2 * D, row_stride, k0, BKEY, R, dh, dh4);
+    gvd::load_tile_rows(KVs, ld, base + 2 * D, row_stride, k0, BKEY, R, dh,
+                         dh4);
     __syncthreads();
 
     const int kn = min(BKEY, R - k0);
@@ -379,8 +354,8 @@ attention_kernel(const T* __restrict__ qkv, T* __restrict__ out, int R, int D,
 template <typename T, int NV>
 int launch_attention(const void* qkv, void* out, int B, int R, int D, int hs,
                      float inv_scale, cudaStream_t s) {
-  const size_t smem = attention_smem(attention_ld(hs));
-  cudaError_t e = allow_smem(attention_kernel<T, NV>, smem);
+  const size_t smem = attention_smem(gvd::tile_ld(hs));
+  cudaError_t e = gvd::allow_smem(attention_kernel<T, NV>, smem);
   if (e != cudaSuccess) return (int)e;
   // torch.chunk makes ceil(D / hs) heads, which can be fewer than n_heads
   const int heads = (D + hs - 1) / hs;
@@ -466,7 +441,7 @@ extern "C" int gvd_residual_layer_norm(int dtype, const void* x,
                                        int D, float eps, void* stream) {
   const size_t smem = (size_t)D * sizeof(float);
   GVD_DISPATCH(dtype, T, {
-    cudaError_t e = allow_smem(residual_ln_kernel<T>, smem);
+    cudaError_t e = gvd::allow_smem(residual_ln_kernel<T>, smem);
     if (e != cudaSuccess) return (int)e;
     residual_ln_kernel<T><<<rows, LN_THREADS, smem, (cudaStream_t)stream>>>(
         (const T*)x, (const T*)y, (const float*)gamma, (const float*)beta,

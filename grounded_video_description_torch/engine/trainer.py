@@ -1,0 +1,179 @@
+"""Training engine of the port: the supervised MLE step.
+
+Counterpart of ``grounded_video_description_tpu/engine/trainer.py``
+(reference: main.py:197-311, 652-684): the four-loss weighted objective,
+a global-norm gradient clip, Adam / SGD (momentum 0.9) / Adamax with a
+0.1x learning rate on the transferred layers (``ctx2pool_grd``,
+``vis_embed``), the epoch learning-rate decay, and gradient accumulation
+over sequential microbatches that reproduces the full batch's gradient.
+
+The JAX package's optax chain (clip, torch-style L2, the base optimizer,
+the 0.1 scale on the transferred layers, -lr) is a torch optimizer with
+two parameter groups here; the clip runs before it, in ``train_step``,
+with optax's formula.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Iterable, List
+
+import torch
+
+from grounded_video_description_torch import losses as L
+from grounded_video_description_torch.config import GVDConfig
+from grounded_video_description_torch.models.gvd import (
+    GVDModel, batch_to_tensors)
+
+FINETUNE_KEYS = ("ctx2pool_grd", "vis_embed")
+# (loss, the mask count that is its masked-mean denominator)
+TERMS = (("lm_loss", "txt_count"), ("att2_loss", "roi_count"),
+         ("ground_loss", "roi_count"), ("cls_loss", "cls_count"))
+COUNTS = ("txt_count", "roi_count", "cls_count")
+
+
+def make_optimizer(cfg: GVDConfig, model: GVDModel) -> torch.optim.Optimizer:
+    """The optimizer of ``make_optimizer`` (trainer.py:76-99) without its
+    clip: torch-style L2 (``weight_decay``, added to the gradient before
+    the moments), then Adam / SGD / Adamax.  Group 1 holds the transferred
+    layers, whose learning rate is ``finetune_lr_scale`` times the base
+    one; each group's ``lr_scale`` says which.  Frozen parameters (the
+    LSTMs' zero ``bias_hh``) are left out."""
+    main, finetune = [], []
+    for name, p in model.named_parameters():
+        if p.requires_grad:
+            top = name.split(".")[0]
+            (finetune if top in FINETUNE_KEYS else main).append(p)
+    groups = [{"params": main, "lr_scale": 1.0},
+              {"params": finetune, "lr_scale": cfg.finetune_lr_scale}]
+    betas = (cfg.optim_alpha, cfg.optim_beta)
+    if cfg.optim == "adam":
+        return torch.optim.Adam(groups, lr=cfg.learning_rate, betas=betas,
+                                eps=cfg.optim_epsilon,
+                                weight_decay=cfg.weight_decay)
+    if cfg.optim == "sgd":
+        return torch.optim.SGD(groups, lr=cfg.learning_rate, momentum=0.9,
+                               weight_decay=cfg.weight_decay)
+    return torch.optim.Adamax(groups, lr=cfg.learning_rate, betas=betas,
+                              eps=cfg.optim_epsilon,
+                              weight_decay=cfg.weight_decay)
+
+
+def clip_by_global_norm(params: List[torch.Tensor],
+                        max_norm: float) -> torch.Tensor:
+    """optax.clip_by_global_norm on the ``.grad`` of ``params``, in
+    place: g * max_norm / |g| only where |g| >= max_norm (no epsilon, as
+    ``torch.nn.utils.clip_grad_norm_`` adds).  Returns |g| on the device,
+    with no host synchronisation."""
+    grads = [p.grad for p in params if p.grad is not None]
+    norm = torch.linalg.vector_norm(torch.stack(
+        [torch.linalg.vector_norm(g.float()) for g in grads]))
+    factor = torch.where(norm < max_norm, 1.0, max_norm / norm)
+    for g in grads:
+        g.mul_(factor.to(g.dtype))
+    return norm
+
+
+def batch_to_device(cfg: GVDConfig, batch: Dict,
+                    device) -> Dict[str, torch.Tensor]:
+    """``batch_to_tensors`` with the host-side cast of the JAX Trainer:
+    with bf16 compute the two feature banks (seg_feat, ppls_feat) are cast
+    to bf16 on the host, halving their transfer; the model casts them to
+    bf16 on arrival anyway.  Geometry (ppls, gt_boxes) stays f32 for the
+    IoU targets."""
+    host = batch_to_tensors(batch, "cpu")
+    if cfg.dtype == "bfloat16":
+        for k in ("seg_feat", "ppls_feat"):
+            host[k] = host[k].to(torch.bfloat16)
+    return {k: v.to(device) for k, v in host.items()}
+
+
+class Trainer:
+    """Holds the model, its optimizer and the dropout generator (on the
+    model's device, seeded with ``cfg.seed`` unless one is given)."""
+
+    def __init__(self, cfg: GVDConfig, model: GVDModel,
+                 generator: torch.Generator = None):
+        self.cfg = cfg
+        self.model = model
+        device = next(model.parameters()).device
+        self.generator = generator or torch.Generator(
+            device=device).manual_seed(cfg.seed)
+        self.optimizer = make_optimizer(cfg, model)
+        self.params = [p for g in self.optimizer.param_groups
+                       for p in g["params"]]
+
+    def lr_at_epoch(self, epoch: int) -> float:
+        """main.py:679-684: times decay_rate every decay_every epochs past
+        decay_start."""
+        cfg = self.cfg
+        lr = cfg.learning_rate
+        if cfg.learning_rate_decay_start >= 0:
+            for e in range(cfg.learning_rate_decay_start + 1, epoch + 1):
+                if (e - cfg.learning_rate_decay_start) \
+                        % cfg.learning_rate_decay_every == 0:
+                    lr *= cfg.learning_rate_decay_rate
+        return lr
+
+    def train_step(self, batch: Dict[str, torch.Tensor],
+                   lr: float) -> Dict[str, torch.Tensor]:
+        """One update on ``batch`` (tensors on the model's device) over
+        ``cfg.grad_accum`` sequential microbatches.
+
+        The supervision is computed once for the full batch and sliced per
+        microbatch.  Each microbatch's masked mean is scaled by its count
+        over the full batch's count and the scaled gradients are summed,
+        which is the full batch's gradient (trainer.py:209-306).  The
+        BatchNorm statistics are carried from one microbatch to the next.
+        Returns the loss terms summed over the microbatches (each the full
+        batch's value) and the global gradient norm before the clip, as
+        0-d tensors on the device."""
+        cfg, model = self.cfg, self.model
+        accum = cfg.grad_accum
+        sup = model.supervision(batch)
+        totals = {k: sup[k].clamp_min(1.0) for k in COUNTS}
+        sup_rows = {k: v for k, v in sup.items() if k not in COUNTS}
+
+        def part(t: torch.Tensor, i: int) -> torch.Tensor:
+            n = t.shape[0] // accum
+            return t[i * n:(i + 1) * n]
+
+        metrics = None
+        for i in range(accum):
+            losses, bn_state = model(
+                {k: part(v, i) for k, v in batch.items()}, mode="MLE",
+                train=True, generator=self.generator,
+                sup={k: part(v, i) for k, v in sup_rows.items()})
+            frac = {name: losses[name] * (losses[ck] / totals[ck])
+                    for name, ck in TERMS}
+            loss = L.total_loss(
+                frac["lm_loss"], frac["att2_loss"], frac["ground_loss"],
+                frac["cls_loss"], w_att2=cfg.w_att2, w_grd=cfg.w_grd,
+                w_cls=cfg.w_cls, disable_caption=cfg.disable_caption)
+            loss.backward()
+            model.set_bn_state(bn_state)
+            step = {"loss": loss.detach(),
+                    **{k: v.detach() for k, v in frac.items()}}
+            metrics = step if metrics is None else {
+                k: metrics[k] + step[k] for k in metrics}
+        metrics["grad_norm"] = clip_by_global_norm(self.params, cfg.grad_clip)
+        for group in self.optimizer.param_groups:
+            group["lr"] = lr * group["lr_scale"]
+        self.optimizer.step()
+        self.optimizer.zero_grad(set_to_none=True)
+        return metrics
+
+    def fit_epoch(self, loader: Iterable[Dict], epoch: int
+                  ) -> Dict[str, float]:
+        """One epoch over numpy batches: each goes to the device
+        (``batch_to_device``) and through ``train_step`` at the epoch's
+        learning rate.  Metrics are summed on the device and read once, at
+        the end, as means over the steps."""
+        device = next(self.model.parameters()).device
+        lr = self.lr_at_epoch(epoch)
+        total, n = None, 0
+        for batch in loader:
+            m = self.train_step(batch_to_device(self.cfg, batch, device), lr)
+            total = m if total is None else {k: total[k] + m[k]
+                                             for k in total}
+            n += 1
+        return {k: float(v) / n for k, v in (total or {}).items()}

@@ -1,41 +1,52 @@
-"""The Grounded-Video-Description model, PyTorch port: the inference
-path of greedy captioning.
+"""The Grounded-Video-Description model, PyTorch port: greedy captioning
+and the teacher-forced forward of training and grounding.
 
 Counterpart of ``grounded_video_description_tpu/models/gvd.py``: the
 encode path (model.py:302-409 / 504-568), the TopDown core
-(AttModel.py:134-164) and greedy UNK-suppressed sampling
-(model.py:492-624).  Beam search, the training forward and its losses,
-GRD mode and the transformer captioner are not ported yet.
+(AttModel.py:134-164), the MLE forward with its four losses and the GRD
+forward (model.py:283-489), and greedy UNK-suppressed sampling
+(model.py:492-624).  Beam search and the transformer captioner are not
+ported yet.
 
 Parameters are float32 and named after the reference state dict, so
 ``engine/checkpoint.py::import_torch_checkpoint`` of the JAX package
 reads a port ``state_dict()`` as it is.  Activations run in
 ``cfg.dtype``; weights are cast where they are used, as in the JAX
-package.  Three config flags select the hand-written kernels:
+package.  Config flags select the hand-written kernels: at inference
 ``use_pallas_rnn`` (K2, the BiRNN recurrence), ``use_pallas_encoder``
 (K1, the obj_interact layer) and ``use_pallas`` (K3, the per-token region
-attention).  A kernel wrapper runs its plain version on CPU tensors.
-The config is the port's own (``config.py``), field for field a subset
-of the JAX package's.
+attention), which have no backward and are off in training; in training
+``attn_train_impl`` (K4, the obj_interact attention).  A kernel wrapper
+runs its plain version on CPU tensors.  The config is the port's own
+(``config.py``), field for field a subset of the JAX package's.
+
+Training draws every dropout mask from one ``torch.Generator`` on the
+model's device, passed down explicitly; without one, dropout is the
+identity, as the JAX package's is without an rng.
 """
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from grounded_video_description_torch import losses as L
 from grounded_video_description_torch.config import GVDConfig
 from grounded_video_description_torch.models import transformer as xf
 from grounded_video_description_torch.nn import (
-    BiRNNParams, LSTMCellParams, batch_norm, birnn, dropout, embedding,
-    init_embedding_, init_linear_, layer_norm, linear, lstm_cell,
+    BiRNNParams, LSTMCellParams, batch_norm, batch_norm_train, birnn,
+    dropout, embedding, init_embedding_, init_linear_, layer_norm, linear,
+    lstm_cell,
 )
 from grounded_video_description_torch.ops import (
     MIN_VALUE, grounder, region_attention, temporal_attention,
+)
+from grounded_video_description_torch.ops.geometry import (
+    bbox_overlaps, bbox_target, sim_mat_target,
 )
 
 
@@ -151,12 +162,26 @@ class GVDModel(nn.Module):
                 self.vis_classifiers_bias.zero_()
         return self
 
+    def set_bn_state(self, state: Optional[Dict[str, torch.Tensor]]):
+        """Carry the BatchNorm statistics a training forward returned
+        into the running buffers (a no-op for None)."""
+        if state is None:
+            return
+        bn = self.att_embed_aux[0]
+        with torch.no_grad():
+            for name, value in state.items():
+                getattr(bn, name).copy_(value)
+
     # ------------------------------------------------------------------ #
-    # shared encode path (model.py:302-409 / 504-568), inference
+    # shared encode path (model.py:302-409 / 504-568)
     # ------------------------------------------------------------------ #
 
-    @torch.no_grad()
-    def encode(self, batch: Dict[str, torch.Tensor]) -> Dict:
+    def encode(self, batch: Dict[str, torch.Tensor], *, train: bool = False,
+               generator: Optional[torch.Generator] = None) -> Dict:
+        """The attention banks.  In training, dropout at every site of the
+        JAX package's encode, BatchNorm on batch statistics (the new
+        running statistics under "bn_state", None at eval), the BiRNN
+        and the obj_interact encoder on their training paths."""
         cfg, dt = self.cfg, self.dtype
         segs_feat = batch["seg_feat"].to(dt)                  # (B, T, F)
         ppls = batch["ppls"].float()                          # (B, R, 7)
@@ -165,22 +190,22 @@ class GVDModel(nn.Module):
         sample_idx = batch["sample_idx"].long()               # (B, 2)
         pnt_mask = batch["pnt_mask"].bool()                   # (B, R+1)
         B, R = ppls.shape[:2]
-        drop = cfg.drop_prob_lm
+
+        def drop(x, rate=cfg.drop_prob_lm):
+            return dropout(x, rate, train=train, generator=generator)
 
         # fc feature: mean frame feat (LN) ++ segment-position info (LN)
         fc_raw = segs_feat.mean(dim=1)
-        seg_info = F.relu(_lin(self.seg_info_embed[0], num[:, 3:7]))
-        seg_info = dropout(seg_info, drop, train=False)
+        seg_info = drop(F.relu(_lin(self.seg_info_embed[0], num[:, 3:7])))
         fc_feats = torch.cat([layer_norm(fc_raw), layer_norm(seg_info)],
                              dim=-1)
 
         # region features through the (transferred) fc7 layer
-        g_pool_feats = F.relu(_lin(self.ctx2pool_grd[0], ppls_feat))
-        g_pool_feats = dropout(g_pool_feats, drop, train=False)
+        g_pool_feats = drop(F.relu(_lin(self.ctx2pool_grd[0], ppls_feat)))
 
         # visual-word embeddings for all classes (model.py:321-326)
         vis_word_embed = F.relu(self.vis_embed[0].weight)
-        vis_word_embed = dropout(vis_word_embed, drop, train=False).to(dt)
+        vis_word_embed = drop(vis_word_embed).to(dt)
         p_vis_word = vis_word_embed[None].expand(
             (B,) + tuple(vis_word_embed.shape))
 
@@ -199,7 +224,7 @@ class GVDModel(nn.Module):
                 [ppls[:, :, :4] / 720.0,
                  ppls[:, :, 4:5] / cfg.num_sampled_frm], dim=-1).to(dt)
             loc_feats = F.relu(_lin(self.loc_fc[0], loc_input))
-            loc_feats = dropout(loc_feats, cfg.loc_drop, train=False)
+            loc_feats = drop(loc_feats, cfg.loc_drop)
             label_feat = sim_mat_static.transpose(1, 2).to(dt)  # (B,R,C+1)
             # pool_embed(concat(LN(g), LN(loc), LN(label))) as three
             # column-block products: the (B, R, 2780) concat never exists
@@ -214,28 +239,32 @@ class GVDModel(nn.Module):
         else:
             pool_feats = F.relu(_lin(self.pool_embed[0], g_pool_feats))
 
-        fc_emb = F.relu(_lin(self.fc_embed[0], fc_feats))
-        fc_emb = dropout(fc_emb, drop, train=False)
-        pool_feats = dropout(pool_feats, drop, train=False)
+        fc_emb = drop(F.relu(_lin(self.fc_embed[0], fc_feats)))
+        pool_feats = drop(pool_feats)
 
         if cfg.obj_interact:
             pool_feats = xf.encoder_apply(
                 self.obj_interact.encoder, pool_feats, n_heads=6,
-                use_kernel=cfg.use_pallas_encoder)[-1]
+                use_kernel=cfg.use_pallas_encoder, train=train,
+                drop=cfg.enc_drop, generator=generator,
+                attn_train_impl=cfg.attn_train_impl)[-1]
 
         p_pool_feats = _lin(self.ctx2pool, pool_feats)
 
+        bn_state = None
         if cfg.att_input_mode in ("both", "featmap"):
             rgb = segs_feat[:, :, :cfg.rgb_feat_size]
             motion = segs_feat[:, :, cfg.rgb_feat_size:]
             conv = torch.cat([
-                dropout(F.relu(_lin(self.att_embed[0][0], rgb)), drop,
-                        train=False),
-                dropout(F.relu(_lin(self.att_embed[1][0], motion)), drop,
-                        train=False)], dim=-1)
-            conv = F.relu(batch_norm(self.att_embed_aux[0], conv))
-            conv = birnn(self.context_enc, conv,
-                         use_kernel=cfg.use_pallas_rnn)
+                drop(F.relu(_lin(self.att_embed[0][0], rgb))),
+                drop(F.relu(_lin(self.att_embed[1][0], motion)))], dim=-1)
+            if train:
+                conv, bn_state = batch_norm_train(self.att_embed_aux[0], conv)
+            else:
+                conv = batch_norm(self.att_embed_aux[0], conv)
+            conv = birnn(self.context_enc, F.relu(conv),
+                         use_kernel=cfg.use_pallas_rnn, train=train,
+                         drop=cfg.enc_drop, generator=generator)
             # zero frames outside the segment window (model.py:303-305)
             t_ids = torch.arange(cfg.t_attn_size,
                                  device=conv.device)[None, :]
@@ -259,6 +288,7 @@ class GVDModel(nn.Module):
             "sim_mat_static": sim_mat_static,       # class-softmaxed
             "sim_logits": sim_logits,               # pre-softmax
             "pnt_mask": pnt_mask,
+            "bn_state": bn_state,
         }
 
     # ------------------------------------------------------------------ #
@@ -266,8 +296,11 @@ class GVDModel(nn.Module):
     # ------------------------------------------------------------------ #
 
     def core_step(self, xt, fc_feats, conv_feats, p_conv_feats, pool_feats,
-                  p_pool_feats, att_mask, pnt_mask, state: CoreState):
+                  p_pool_feats, att_mask, pnt_mask, state: CoreState, *,
+                  train: bool = False,
+                  generator: Optional[torch.Generator] = None):
         cfg, core = self.cfg, self.core
+        use_k3 = cfg.use_pallas and not train     # K3 has no backward
         att_in = torch.cat([fc_feats, xt], dim=1)
         h_att, (h_att_, c_att) = lstm_cell(
             core.att_lstm, att_in, (state.h_att, state.c_att))
@@ -278,7 +311,7 @@ class GVDModel(nn.Module):
         att2, att2_weight, att_h = region_attention(
             core.attention2, h_att, pool_feats, p_pool_feats,
             att_mask[:, 1:], pnt_mask[:, 1:], mode=cfg.region_attn_mode,
-            use_kernel=cfg.use_pallas)
+            use_kernel=use_k3)
 
         if cfg.att_input_mode == "both":
             lang_in = att + att2
@@ -290,14 +323,15 @@ class GVDModel(nn.Module):
             att2_dual, _, _ = region_attention(
                 core.attention2_dual, h_att, pool_feats, p_pool_feats,
                 att_mask[:, 1:], pnt_mask[:, 1:], mode=cfg.region_attn_mode,
-                use_kernel=cfg.use_pallas)
+                use_kernel=use_k3)
             dual_p = torch.sigmoid(_lin(core.dual_pointer[0], h_att))
             lang_in = dual_p * att2 + (1.0 - dual_p) * att2_dual
 
         lang_lstm_in = torch.cat([lang_in, h_att], dim=1)
         h_lang, (h_lang_, c_lang) = lstm_cell(
             core.lang_lstm, lang_lstm_in, (state.h_lang, state.c_lang))
-        output = dropout(h_lang, cfg.drop_prob_lm, train=False)
+        output = dropout(h_lang, cfg.drop_prob_lm, train=train,
+                         generator=generator)
         return output, CoreState(h_att_, c_att, h_lang_, c_lang), \
             att2_weight, att_h
 
@@ -310,9 +344,17 @@ class GVDModel(nn.Module):
     # embeddings and the vocab head
     # ------------------------------------------------------------------ #
 
-    def embed_words(self, ids: torch.Tensor) -> torch.Tensor:
+    def embed_words(self, ids: torch.Tensor, *, train: bool = False,
+                    generator: Optional[torch.Generator] = None):
         x = F.relu(embedding(self.embed[0].weight, ids))
-        return dropout(x, self.cfg.drop_prob_lm, train=False).to(self.dtype)
+        return dropout(x, self.cfg.drop_prob_lm, train=train,
+                       generator=generator).to(self.dtype)
+
+    def embed_vis_words(self, ids: torch.Tensor, *, train: bool = False,
+                        generator: Optional[torch.Generator] = None):
+        x = F.relu(embedding(self.vis_embed[0].weight, ids))
+        return dropout(x, self.cfg.drop_prob_lm, train=train,
+                       generator=generator).to(self.dtype)
 
     def logit_logprobs(self, x: torch.Tensor) -> torch.Tensor:
         """Vocab log-probabilities; pad columns of the padded logit head
@@ -321,9 +363,168 @@ class GVDModel(nn.Module):
         V, Vp = self.cfg.vocab_size, self.cfg.vocab_size_padded
         logits = _lin(self.logit, x).float()
         if Vp > V:
-            logits[..., V:] = MIN_VALUE
+            # out of place: .float() of an f32 tensor is no copy
+            pad = torch.arange(Vp, device=logits.device) >= V
+            logits = logits.masked_fill(pad, MIN_VALUE)
         lp = torch.log_softmax(logits, dim=-1)
         return lp[..., :V] if Vp > V else lp
+
+    # ------------------------------------------------------------------ #
+    # MLE / GRD forward (model.py:283-489)
+    # ------------------------------------------------------------------ #
+
+    def supervision(self, batch: Dict[str, torch.Tensor]
+                    ) -> Dict[str, torch.Tensor]:
+        """Parameter-free supervision of the MLE losses and their mask
+        counts, from the batch alone (utils.py:293-328, model.py:342-355,
+        436-440).  Gradient accumulation computes it once for the full
+        batch and slices it per microbatch: the counts are the
+        denominators of the count renormalization.
+
+        Returns sim_target (B, K, R), roi_labels (sb, L, R), step_pnt
+        (sb, L, R+1), and f32 txt/roi/cls counts (sb = B * seq_per_img)."""
+        cfg = self.cfg
+        S, Lq = cfg.seq_per_img, cfg.seq_length
+        gt_seq = batch["gt_seq"].long()
+        B = gt_seq.shape[0]
+        sb = B * S
+        tgt = gt_seq[:, :S, :].reshape(sb, Lq)
+        # the txt mask counts the END position: [1, tgt[:-1] > 0]
+        txt_count = ((tgt[:, :Lq - 1] > 0).sum() + sb).float()
+        gt_boxes = batch["gt_boxes"].float()
+        mask_boxes = batch["mask_boxes"].bool()              # (B, S, K, L+1)
+        frm_mask = batch["frm_mask"].bool()                  # (B, R, K)
+        pnt_mask = batch["pnt_mask"].bool()                  # (B, R+1)
+        overlaps = bbox_overlaps(batch["ppls"].float(), gt_boxes,
+                                 frm_mask | pnt_mask[:, 1:, None])
+        sim_target = sim_mat_target(overlaps, gt_boxes[:, :, 5])
+
+        def expand(x):
+            return x.repeat_interleave(S, dim=0) if S > 1 else x
+
+        # ROI labels: the box mask of step t + 1 over every caption
+        # (utils.py:307-328 via model.py:431-433)
+        overlaps_sb = expand(overlaps)
+        mb = mask_boxes.reshape(sb, -1, Lq + 1)             # (sb, K, L+1)
+        roi_labels = torch.stack([bbox_target(mb[:, :, t + 1], overlaps_sb)
+                                  for t in range(Lq)], dim=1)  # (sb, L, R)
+        # proposals on no frame of the step's GT boxes (model.py:436-440),
+        # from the FIRST caption's box mask (a reference quirk)
+        bm0 = mask_boxes[:, 0, :, 1:]                         # (B, K, L)
+        no_frame = torch.stack(
+            [(~(bm0[:, None, :, t] | frm_mask)).sum(dim=2) <= 0
+             for t in range(Lq)], dim=1)                      # (B, L, R)
+        step_pnt = torch.cat(
+            [torch.zeros_like(no_frame[:, :, :1]), no_frame], dim=2)
+        step_pnt = step_pnt | pnt_mask[:, None, :]            # (B, L, R+1)
+        return {"txt_count": txt_count,
+                "roi_count": (roi_labels > 0).sum().float(),
+                "cls_count": (sim_target > 0).sum().float(),
+                "sim_target": sim_target, "roi_labels": roi_labels,
+                "step_pnt": expand(step_pnt)}
+
+    def batch_loss_counts(self, batch: Dict[str, torch.Tensor]
+                          ) -> Dict[str, torch.Tensor]:
+        """The mask counts of the MLE losses (the scalars of
+        ``supervision``)."""
+        sup = self.supervision(batch)
+        return {k: sup[k] for k in ("txt_count", "roi_count", "cls_count")}
+
+    def forward(self, batch: Dict[str, torch.Tensor], *, mode: str = "MLE",
+                train: bool = True,
+                generator: Optional[torch.Generator] = None,
+                sup: Optional[Dict[str, torch.Tensor]] = None):
+        """Teacher-forced pass over the first seq_per_img GT captions.
+
+        mode "MLE": returns (losses, bn_state): the four losses and their
+        mask counts, and the BatchNorm statistics after this batch (None
+        at eval or without the temporal encoder; ``set_bn_state`` carries
+        them).  ``sup``: ``supervision(batch)``, or the slice of the full
+        batch's that gradient accumulation passes.
+        mode "GRD": grounding on GT sentences at eval, without gradients:
+        returns sim_target, pred_cls (B, R) and the per-frame argmaxes
+        att2_ind / grd_ind (sb, L, num_sampled_frm)."""
+        if mode not in ("MLE", "GRD"):
+            raise ValueError(f"unknown mode {mode!r}")
+        if mode == "GRD":
+            with torch.no_grad():
+                return self._teacher_forced(batch, grd=True, train=False,
+                                            generator=None, sup=sup)
+        return self._teacher_forced(batch, grd=False, train=train,
+                                    generator=generator, sup=sup)
+
+    def _teacher_forced(self, batch, *, grd: bool, train: bool, generator,
+                        sup):
+        cfg = self.cfg
+        S, Lq = cfg.seq_per_img, cfg.seq_length
+        if sup is None:
+            sup = self.supervision(batch)
+        gt_seq = batch["gt_seq"].long()                       # (B, 10, L)
+        B = gt_seq.shape[0]
+        sb = B * S
+        dev = gt_seq.device
+        seq = torch.cat([torch.zeros((sb, 1), dtype=torch.long, device=dev),
+                         gt_seq[:, :S, :].reshape(sb, Lq)], dim=1)
+        iseq = batch["input_seq"].long().reshape(sb, Lq + 1, 4)
+
+        enc = self.encode(batch, train=train, generator=generator)
+
+        def expand(x):
+            return x.repeat_interleave(S, dim=0) if S > 1 else x
+
+        fc_feats, conv_feats, p_conv_feats, pool_feats, p_pool_feats, \
+            g_pool_feats, pnt_mask = (expand(enc[k]) for k in (
+                "fc_feats", "conv_feats", "p_conv_feats", "pool_feats",
+                "p_pool_feats", "g_pool_feats", "pnt_mask"))
+        # per-step pnt mask: proposals off the step's frames are masked
+        # too in MLE; GRD masks the padded proposals only
+        step_pnt = (pnt_mask[:, None].expand(sb, Lq, pnt_mask.shape[1])
+                    if grd else sup["step_pnt"])              # (sb, L, R+1)
+
+        # the decode steps (model.py:421-453)
+        xt_all = self.embed_words(seq[:, :Lq], train=train,
+                                  generator=generator)        # (sb, L, E)
+        state = self.init_state(sb, dev)
+        outs, att2s = [], []
+        for xt, step_mask in zip(xt_all.unbind(1), step_pnt.unbind(1)):
+            out, state, att2_w, _ = self.core_step(
+                xt, fc_feats, conv_feats, p_conv_feats, pool_feats,
+                p_pool_feats, pnt_mask, step_mask, state, train=train,
+                generator=generator)
+            outs.append(out)
+            att2s.append(att2_w)
+        att2_weights = torch.stack(att2s, dim=1)              # (sb, L, R)
+        decoded = self.logit_logprobs(torch.stack(outs, dim=1))
+
+        # grounding scorer over the target's visual words (model.py:467-480)
+        xt_clamp = (iseq[:, 1:Lq + 1, 0] - cfg.vocab_size).clamp_min(0)
+        xt_vis = self.embed_vis_words(xt_clamp, train=train,
+                                      generator=generator)
+        g_bias = (self.vis_classifiers_bias[xt_clamp][..., None]
+                  if hasattr(self, "vis_classifiers_bias") else 0.0)
+        ground_weights = grounder(
+            xt_vis, g_pool_feats,
+            pnt_mask[:, 1:] if grd else step_pnt[:, :, 1:],
+            g_bias + att2_weights,
+            alpha_net=(self.alpha_net if self.grounder_additive else None),
+            additive_cat=cfg.region_attn_mode == "cat")
+
+        if grd:
+            # per-frame argmax over proposals (model.py:487-489)
+            frames = (sb, Lq, cfg.num_sampled_frm, cfg.num_prop_per_frm)
+            return {"sim_target": sup["sim_target"],
+                    "pred_cls": enc["sim_mat_static"].argmax(dim=1),
+                    "att2_ind": att2_weights.reshape(frames).argmax(dim=-1),
+                    "grd_ind": ground_weights.reshape(frames).argmax(dim=-1)}
+        cls_loss, cls_count = L.cls_criterion_with_counts(
+            enc["sim_mat_static"], sup["sim_target"])
+        lm_loss, att2_loss, ground_loss, txt_count, roi_count = \
+            L.lm_criterion_with_counts(decoded, att2_weights, ground_weights,
+                                       seq[:, 1:Lq + 1], sup["roi_labels"])
+        return ({"lm_loss": lm_loss, "att2_loss": att2_loss,
+                 "ground_loss": ground_loss, "cls_loss": cls_loss,
+                 "txt_count": txt_count, "roi_count": roi_count,
+                 "cls_count": cls_count}, enc["bn_state"])
 
     # ------------------------------------------------------------------ #
     # greedy sampling (model.py:492-624)

@@ -15,15 +15,25 @@ Module names follow the reference state dict
 
 from __future__ import annotations
 
-from typing import List
+import math
+from typing import List, Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-from grounded_video_description_torch.nn import init_linear_
+from grounded_video_description_torch.nn import (
+    dropout, init_linear_, layer_norm_affine)
+from grounded_video_description_torch.ops.kernels.attention_train import (
+    draw_seed, mha_probs_dropout, mha_probs_dropout_hybrid)
 from grounded_video_description_torch.ops.kernels.encoder_layer import (
-    EncoderLayerWeights, fused_encoder_layer, fused_encoder_layer_plain,
+    LN_EPS, EncoderLayerWeights, fused_encoder_layer,
+    fused_encoder_layer_plain, head_slices,
 )
+
+# the K4 dispatch of the JAX package (models/transformer.py:157-159):
+# training self-attention over more than this many keys
+K4_MIN_KEYS = 256
 
 
 class LayerNormParams(nn.Module):
@@ -97,16 +107,92 @@ class ObjInteract(nn.Module):
         self.encoder = Encoder(d_model, d_hidden, n_layers)
 
 
+def _self_attention_train(w: EncoderLayerWeights, x: torch.Tensor, *,
+                          n_heads: int, drop: float,
+                          generator: Optional[torch.Generator],
+                          attn_train_impl: str) -> torch.Tensor:
+    """Multi-head self-attention in training (JAX ``transformer._mha``):
+    one shared scale sqrt(D), torch.chunk heads, dropout on the probs.
+
+    Over more than ``K4_MIN_KEYS`` keys, "pallas" runs K4's kernels
+    forward and backward, and "hybrid" K4's plain forward with its
+    backward kernels; both draw one seed per call from ``generator``.
+    Otherwise ("xla", or few keys) the heads run one after another in
+    plain PyTorch, scores and softmax in f32, with prob dropout drawn
+    from ``generator``."""
+    dt = x.dtype
+    D, R = x.shape[-1], x.shape[1]
+    scale = math.sqrt(D)
+    q = F.linear(x, w.wq.to(dt))
+    k = F.linear(x, w.wk.to(dt))
+    v = F.linear(x, w.wv.to(dt))
+    if attn_train_impl != "xla" and R > K4_MIN_KEYS:
+        prim = {"pallas": mha_probs_dropout,
+                "hybrid": mha_probs_dropout_hybrid}[attn_train_impl]
+        if generator is not None and drop > 0.0:
+            seed, rate = draw_seed(generator), drop
+        else:
+            seed, rate = torch.zeros(1, dtype=torch.int64,
+                                     device=x.device), 0.0
+        o = prim(q, k, v, seed, n_heads=n_heads, scale=scale, drop=rate)
+    else:
+        heads = []
+        for sl in head_slices(D, n_heads):
+            s = (q[..., sl].float() @ k[..., sl].float().transpose(1, 2)) \
+                * (1.0 / scale)
+            p = dropout(torch.softmax(s, dim=-1), drop, train=True,
+                        generator=generator)
+            heads.append((p @ v[..., sl].float()).to(dt))
+        o = torch.cat(heads, dim=-1)
+    return F.linear(o, w.wo.to(dt))
+
+
+def _encoder_layer_train(w: EncoderLayerWeights, x: torch.Tensor, *,
+                         n_heads: int, drop: float,
+                         generator: Optional[torch.Generator],
+                         attn_train_impl: str) -> torch.Tensor:
+    """One post-LN layer in training, with dropout at the JAX package's
+    three sites: the probs, the attention residual and the FFN residual
+    (transformer.py:237-268).  LayerNorm statistics in f32, as in K1."""
+    dt, f32 = x.dtype, torch.float32
+    a = _self_attention_train(w, x, n_heads=n_heads, drop=drop,
+                              generator=generator,
+                              attn_train_impl=attn_train_impl)
+    a = dropout(a, drop, train=True, generator=generator)
+    x1 = layer_norm_affine(w.g1, w.be1, x.to(f32) + a.to(f32), LN_EPS,
+                           use_std=True).to(dt)
+    f = F.linear(F.relu(F.linear(x1, w.w1.to(dt), w.b1.to(dt))),
+                 w.w2.to(dt), w.b2.to(dt))
+    f = dropout(f, drop, train=True, generator=generator)
+    return layer_norm_affine(w.g2, w.be2, x1.to(f32) + f.to(f32), LN_EPS,
+                             use_std=True).to(dt)
+
+
 def encoder_apply(enc: Encoder, x: torch.Tensor, *, n_heads: int,
-                  use_kernel: bool = False) -> List[torch.Tensor]:
-    """Per-layer encodings at inference (transformer.py:177-190), one
-    ``fused_encoder_layer`` per layer as gvd.py:247-255 dispatches in the
-    JAX package.  Without ``use_kernel`` each layer is the kernel's plain
-    twin, ``fused_encoder_layer_plain`` (the head-sequential schedule of
-    transformer.py:211-234, scores and softmax in f32)."""
-    layer = fused_encoder_layer if use_kernel else fused_encoder_layer_plain
+                  use_kernel: bool = False, train: bool = False,
+                  drop: float = 0.0,
+                  generator: Optional[torch.Generator] = None,
+                  attn_train_impl: str = "xla") -> List[torch.Tensor]:
+    """Per-layer encodings (transformer.py:177-190).
+
+    At inference: one ``fused_encoder_layer`` (K1) per layer with
+    ``use_kernel``, as gvd.py:247-255 dispatches in the JAX package, else
+    its plain twin ``fused_encoder_layer_plain`` (the head-sequential
+    schedule of transformer.py:211-234, scores and softmax in f32).
+
+    In training (``train``): the differentiable layer, with dropout at
+    ``drop`` from ``generator`` and the attention schedule
+    ``attn_train_impl`` ("xla", "pallas" or "hybrid"; see
+    ``_self_attention_train``)."""
     encodings = []
     for lp in enc.layers:
-        x = layer(x, lp.weights(), n_heads=n_heads)
+        if train:
+            x = _encoder_layer_train(lp.weights(), x, n_heads=n_heads,
+                                     drop=drop, generator=generator,
+                                     attn_train_impl=attn_train_impl)
+        elif use_kernel:
+            x = fused_encoder_layer(x, lp.weights(), n_heads=n_heads)
+        else:
+            x = fused_encoder_layer_plain(x, lp.weights(), n_heads=n_heads)
         encodings.append(x)
     return encodings

@@ -14,7 +14,7 @@ and bias; Embedding: N(0, 1); recurrent cells: U(+-1/sqrt(hidden))).
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -68,14 +68,18 @@ def embedding(weight: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
 class LSTMCellParams(nn.Module):
     """weight_ih (4H, in), weight_hh (4H, H), bias_ih, bias_hh — the
     reference's nn.LSTMCell names.  The JAX cell has one fused bias;
-    this port keeps it in ``bias_ih`` and leaves ``bias_hh`` at zero."""
+    this port keeps it in ``bias_ih`` and leaves ``bias_hh`` at zero.
+    ``bias_hh`` stays in the state dict but is frozen: were it trained,
+    it would get the same gradient as ``bias_ih``, so the fused bias
+    would move by twice the JAX step and count twice in the clip norm."""
 
     def __init__(self, in_dim: int, hidden: int):
         super().__init__()
         self.weight_ih = nn.Parameter(torch.empty(4 * hidden, in_dim))
         self.weight_hh = nn.Parameter(torch.empty(4 * hidden, hidden))
         self.bias_ih = nn.Parameter(torch.empty(4 * hidden))
-        self.bias_hh = nn.Parameter(torch.zeros(4 * hidden))
+        self.bias_hh = nn.Parameter(torch.zeros(4 * hidden),
+                                    requires_grad=False)
 
     def reset_parameters(self, generator: torch.Generator):
         hidden = self.weight_hh.shape[1]
@@ -116,7 +120,9 @@ def _gru_cell(x: torch.Tensor, h: torch.Tensor, w_ih: torch.Tensor,
 
 class BiRNNParams(nn.Module):
     """Parameters of a bidirectional nn.GRU / nn.LSTM under the names
-    torch gives them (``weight_ih_l{k}[_reverse]`` and so on)."""
+    torch gives them (``weight_ih_l{k}[_reverse]`` and so on).  The GRU
+    trains both biases, as the JAX cell does; the LSTM's ``bias_hh_*``
+    are frozen at zero, as in ``LSTMCellParams``."""
 
     def __init__(self, in_dim: int, hidden: int, num_layers: int,
                  mode: str):
@@ -136,7 +142,9 @@ class BiRNNParams(nn.Module):
                 self.register_parameter(
                     f"bias_ih_l{li}{sfx}", nn.Parameter(torch.empty(G)))
                 self.register_parameter(
-                    f"bias_hh_l{li}{sfx}", nn.Parameter(torch.zeros(G)))
+                    f"bias_hh_l{li}{sfx}",
+                    nn.Parameter(torch.zeros(G),
+                                 requires_grad=mode == "bigru"))
             d = 2 * hidden
 
     def reset_parameters(self, generator: torch.Generator):
@@ -188,14 +196,21 @@ def _scan_bidir(mode: str, w_ih, w_hh, b_ih, b_hh, xs: torch.Tensor,
     return out.transpose(0, 1)
 
 
-def birnn(rnn: BiRNNParams, x: torch.Tensor, *,
-          use_kernel: bool = False) -> torch.Tensor:
-    """Inference pass of the stacked bidirectional RNN: (B, T, D) ->
-    (B, T, 2H).  Dropout between layers is the identity at eval."""
+def birnn(rnn: BiRNNParams, x: torch.Tensor, *, use_kernel: bool = False,
+          train: bool = False, drop: float = 0.0,
+          generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """The stacked bidirectional RNN: (B, T, D) -> (B, T, 2H).
+
+    At eval, ``use_kernel`` runs each layer's recurrence through K2.  In
+    training the recurrence is K2's plain twin under autograd (K2 has no
+    backward; the JAX package trains with an XLA scan) and dropout at
+    ``drop`` falls between the layers."""
     out = x
     for li in range(rnn.num_layers):
         out = _scan_bidir(rnn.mode, *rnn.layer(li), out, rnn.hidden,
-                          use_kernel=use_kernel)
+                          use_kernel=use_kernel and not train)
+        if train and li < rnn.num_layers - 1:
+            out = dropout(out, drop, train=True, generator=generator)
     return out
 
 
@@ -239,12 +254,43 @@ def batch_norm(bn: nn.BatchNorm1d, x: torch.Tensor,
     return bn.weight.to(x.dtype) * y + bn.bias.to(x.dtype)
 
 
+def batch_norm_train(bn: nn.BatchNorm1d, x: torch.Tensor, *,
+                     momentum: float = 0.1, eps: float = 1e-5
+                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """BatchNorm of a (B, T, C) tensor in training: statistics of the
+    batch over (B, T) in f32.  Returns (y, new_state); new_state holds
+    the running statistics after this batch under ``bn``'s buffer names
+    (momentum 0.1, unbiased variance, count + 1), for the caller to
+    carry to the next batch.  ``bn`` itself is left as it is."""
+    x32 = x.float()
+    mean = x32.mean(dim=(0, 1))
+    var = x32.var(dim=(0, 1), unbiased=False)
+    n = x.shape[0] * x.shape[1]
+    with torch.no_grad():
+        unbiased = var * (n / max(n - 1, 1))
+        new_state = {
+            "running_mean": (1 - momentum) * bn.running_mean
+            + momentum * mean,
+            "running_var": (1 - momentum) * bn.running_var
+            + momentum * unbiased,
+            "num_batches_tracked": bn.num_batches_tracked + 1,
+        }
+    y = (x - mean.to(x.dtype)) * torch.rsqrt(var.to(x.dtype) + eps)
+    return bn.weight.to(x.dtype) * y + bn.bias.to(x.dtype), new_state
+
+
 # --------------------------------------------------------------------- #
 # dropout
 # --------------------------------------------------------------------- #
 
-def dropout(x: torch.Tensor, rate: float, *, train: bool) -> torch.Tensor:
-    """The identity at eval.  The training path is not ported yet."""
-    if train and rate > 0.0:
-        raise NotImplementedError("training-mode dropout is not ported")
-    return x
+def dropout(x: torch.Tensor, rate: float, *, train: bool,
+            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """JAX ``nn/core.py::dropout``: the identity at eval, at rate 0 or
+    without a generator; else each element is kept with probability
+    1 - rate, scaled by 1 / (1 - rate), and the result is in x's dtype.
+    The mask comes from ``generator``, which lives on x's device."""
+    if not train or rate <= 0.0 or generator is None:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, 0.0).to(x.dtype)

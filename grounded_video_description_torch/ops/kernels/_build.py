@@ -53,6 +53,12 @@ _SIGNATURES = {
     "gvd_attention": [_I, _P, _P, _I, _I, _I, _I, _F, _P],
     # dtype, x, y, gamma, beta, out, rows, D, eps, stream
     "gvd_residual_layer_norm": [_I] + [_P] * 5 + [_I, _I, _F, _P],
+    # dtype, q, k, v, out, lse, seed, B, R, D, n_heads, inv_scale, rate,
+    # stream
+    "gvd_attention_train_fwd": [_I] + [_P] * 6 + [_I] * 4 + [_F, _F, _P],
+    # dtype, q, k, v, out, dout, lse, seed, dq, dk, dv, delta, B, R, D,
+    # n_heads, inv_scale, rate, stream
+    "gvd_attention_train_bwd": [_I] + [_P] * 11 + [_I] * 4 + [_F, _F, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -134,3 +140,16 @@ def aligned16(t: torch.Tensor) -> torch.Tensor:
 def require(cond: bool, msg: str) -> None:
     if not cond:
         raise ValueError(msg)
+
+
+def refuse_grad(name: str, *tensors: Optional[torch.Tensor]) -> None:
+    """Raise if autograd would need a backward that the kernel ``name``
+    does not have: its outputs are written through raw pointers, so they
+    would carry no ``grad_fn`` and training would silently stop the
+    gradient there.  Wrappers call it before choosing a device."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name} is an inference kernel with no backward, and an input "
+            "requires grad: call it under torch.no_grad(), or take the "
+            "differentiable path (the model's train=True)")

@@ -1,0 +1,205 @@
+"""K4: the obj_interact self-attention in training, with dropout on the
+probabilities, forward and backward.
+
+Replaces ``grounded_video_description_tpu/ops/pallas/attention_train.py
+::mha_probs_dropout`` (``_fwd_kernel``, ``_bwd_kernel``) and
+``mha_probs_dropout_hybrid``.  The CUDA source is
+``csrc/attention_train.cu``: a flash-style forward that saves the row
+log-sum-exp, and a FlashAttention-2 backward that recomputes the probs,
+so q, k, v, the output and the log-sum-exp are the only residuals.
+
+Layout: q, k, v (B, R, D) with the heads as ``torch.chunk`` column
+ranges (171 x 5 + 169 at D = 1024), the port's layout, where the JAX
+primitive takes (B, H, R, d) with the heads zero-padded to one width.  A
+head's zero pad changes no product, so the two compute the same function.
+
+The dropout masks are the JAX kernel's bit for bit: ``uniform_hash`` is
+its counter hash in int64 arithmetic held to 32 bits, keyed by one seed
+per call (an int64 tensor on the device, of which the low 32 bits count)
+and salted per (batch row, head).  Scores, softmax and the softmax
+backward run in f32 in both dtypes, as the port's K1 does; the JAX
+primitive casts the scores to the compute dtype before its softmax.
+
+``mha_probs_dropout_plain`` is the same function in plain PyTorch, with
+materialized probs, the same masks and autograd for the backward.  CPU
+tensors take it, and it is the reference on the card.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from grounded_video_description_torch.ops.kernels import _build
+from grounded_video_description_torch.ops.kernels.encoder_layer import (
+    head_slices)
+
+MASK32 = 0xFFFFFFFF
+SITE_ATTN = 0x40000000
+MAX_HEAD = 192          # widest head the kernels take (csrc MAX_HEAD)
+
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """(x * c) mod 2**32 for int64 x in [0, 2**32), in two 16-bit halves
+    so that no partial product leaves int64."""
+    hi = ((x >> 16) * c) & 0xFFFF
+    return ((hi << 16) + (x & 0xFFFF) * c) & MASK32
+
+
+def _fmix32(x: torch.Tensor) -> torch.Tensor:
+    """The murmur3 finalizer on int64 tensors holding uint32 values."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x85EBCA6B)
+    x = x ^ (x >> 13)
+    x = _mul32(x, 0xC2B2AE35)
+    return x ^ (x >> 16)
+
+
+def uniform_hash(shape, seed: torch.Tensor, salt: torch.Tensor
+                 ) -> torch.Tensor:
+    """JAX ``encoder_layer_train.py::uniform_hash`` for a batch of salts.
+
+    shape (rows, cols); seed an int64 tensor of one element; salt an int64
+    tensor of any shape S.  Returns f32 uniforms in [0, 1) of shape
+    S + (rows, cols), element (..., i, j) from the counter i * cols + j."""
+    rows, cols = shape
+    dev = salt.device
+    ctr = (torch.arange(rows, device=dev)[:, None] * cols
+           + torch.arange(cols, device=dev)[None, :])
+    mix = _fmix32(((seed.reshape(()).long() & MASK32)
+                   + _fmix32(salt.long() & MASK32)) & MASK32)
+    h = _fmix32(ctr ^ mix[..., None, None])
+    return (h >> 8).float() * (1.0 / (1 << 24))
+
+
+def _salts(B: int, head: int, n_heads: int, device) -> torch.Tensor:
+    """JAX ``attention_train.py::_salt`` for every batch row of a head."""
+    return (SITE_ATTN + torch.arange(B, device=device) * max(n_heads, 8)
+            + head)
+
+
+def _head_scores(q, k, sl, inv_scale) -> torch.Tensor:
+    """q_h k_h^T * inv_scale of one head, in f32."""
+    return (q[..., sl].float() @ k[..., sl].float().transpose(1, 2)) \
+        * inv_scale
+
+
+def mha_probs_dropout_plain(q, k, v, seed, *, n_heads: int, scale: float,
+                            drop: float) -> torch.Tensor:
+    """q, k, v (B, R, D); seed an int64 tensor of one element.  Returns
+    the attention output (B, R, D) in q's dtype: per head
+    softmax(q_h k_h^T / scale) with dropout at ``drop`` on the probs
+    (kept where the hash is >= drop, scaled by 1 / (1 - drop)), times
+    v_h.  Differentiable by autograd."""
+    B, R, D = q.shape
+    inv_scale = 1.0 / scale
+    Rp = -(-R // 128) * 128
+    keep = 1.0 - drop
+    outs = []
+    for h, sl in enumerate(head_slices(D, n_heads)):
+        p = torch.softmax(_head_scores(q, k, sl, inv_scale), dim=-1)
+        if drop > 0.0:
+            u = uniform_hash((Rp, Rp), seed,
+                             _salts(B, h, n_heads, q.device))[:, :R, :R]
+            p = torch.where(u >= drop, p / keep, 0.0)
+        outs.append((p @ v[..., sl].float()).to(q.dtype))
+    return torch.cat(outs, dim=-1)
+
+
+def _check(q, k, v, seed, n_heads):
+    req = _build.require
+    req(q.dim() == 3, f"q must be (B, R, D), got {tuple(q.shape)}")
+    req(q.shape == k.shape == v.shape, "self-attention: q, k, v of one shape")
+    req(q.dtype == k.dtype == v.dtype, "q, k, v must share one dtype")
+    req(k.device == q.device and v.device == q.device
+        and seed.device == q.device, "all inputs must be on one device")
+    req(seed.dtype == torch.int64 and seed.numel() == 1,
+        "seed must be one int64")
+    req(-(-q.shape[-1] // n_heads) <= MAX_HEAD,
+        f"a head is at most {MAX_HEAD} wide")
+    _build.dtype_code(q)
+
+
+def _kernel_forward(q, k, v, seed, n_heads, scale, drop):
+    B, R, D = q.shape
+    out = torch.empty_like(q)
+    lse = torch.empty((B, len(head_slices(D, n_heads)), R),
+                      dtype=torch.float32, device=q.device)
+    code = _build.lib().gvd_attention_train_fwd(
+        _build.dtype_code(q), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        out.data_ptr(), lse.data_ptr(), seed.data_ptr(), B, R, D, n_heads,
+        1.0 / scale, drop, _build.stream_of(q))
+    _build.check(code, "attention_train_fwd")
+    _build.launches["attention_train_fwd"] += 1
+    return out, lse
+
+
+def _plain_forward(q, k, v, seed, n_heads, scale, drop):
+    """The plain forward of the hybrid schedule, with the row
+    log-sum-exp that the backward kernel reads."""
+    D = q.shape[-1]
+    out = mha_probs_dropout_plain(q, k, v, seed, n_heads=n_heads,
+                                  scale=scale, drop=drop)
+    lse = torch.stack([
+        torch.logsumexp(_head_scores(q, k, sl, 1.0 / scale), dim=-1)
+        for sl in head_slices(D, n_heads)], dim=1)
+    return out, lse
+
+
+class _AttentionTrain(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, seed, n_heads, scale, drop, plain_forward):
+        fwd = _plain_forward if plain_forward else _kernel_forward
+        out, lse = fwd(q, k, v, seed, n_heads, scale, drop)
+        ctx.save_for_backward(q, k, v, out, lse, seed)
+        ctx.args = (n_heads, scale, drop)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse, seed = ctx.saved_tensors
+        n_heads, scale, drop = ctx.args
+        B, R, D = q.shape
+        dout = dout.contiguous()
+        dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+        delta = torch.empty_like(lse)
+        code = _build.lib().gvd_attention_train_bwd(
+            _build.dtype_code(q), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            out.data_ptr(), dout.data_ptr(), lse.data_ptr(), seed.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(), B,
+            R, D, n_heads, 1.0 / scale, drop, _build.stream_of(q))
+        _build.check(code, "attention_train_bwd")
+        _build.launches["attention_train_bwd"] += 1
+        return dq, dk, dv, None, None, None, None, None
+
+
+def _dispatch(q, k, v, seed, n_heads, scale, drop, plain_forward):
+    if not q.is_cuda:
+        return mha_probs_dropout_plain(q, k, v, seed, n_heads=n_heads,
+                                       scale=scale, drop=drop)
+    _check(q, k, v, seed, n_heads)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    return _AttentionTrain.apply(q, k, v, seed, n_heads, float(scale),
+                                 float(drop), plain_forward)
+
+
+def mha_probs_dropout(q, k, v, seed, *, n_heads: int, scale: float,
+                      drop: float) -> torch.Tensor:
+    """Same contract as ``mha_probs_dropout_plain``.  A CPU tensor takes
+    the plain version; a CUDA tensor runs the forward kernel, and its
+    backward runs the backward kernels (one count each per call)."""
+    return _dispatch(q, k, v, seed, n_heads, scale, drop, False)
+
+
+def mha_probs_dropout_hybrid(q, k, v, seed, *, n_heads: int, scale: float,
+                             drop: float) -> torch.Tensor:
+    """The JAX package's hybrid schedule: the plain forward (same masks)
+    and the backward kernels.  A CPU tensor takes the plain version."""
+    return _dispatch(q, k, v, seed, n_heads, scale, drop, True)
+
+
+def draw_seed(generator: torch.Generator) -> torch.Tensor:
+    """One dropout seed for a layer call: an int64 in [0, 2**32) on the
+    generator's device, drawn without a host synchronisation."""
+    return torch.randint(0, 1 << 32, (1,), generator=generator,
+                         device=generator.device, dtype=torch.int64)
+

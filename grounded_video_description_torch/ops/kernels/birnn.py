@@ -4,8 +4,9 @@ Replaces ``grounded_video_description_tpu/ops/pallas/birnn.py
 ::birnn_recurrence`` and keeps its public layout.  The CUDA source is
 ``csrc/birnn.cu``; ``birnn_recurrence_plain`` is the same recurrence as a
 Python loop over time (f32 gate math and f32 carry, outputs in the input
-dtype), used for CPU tensors, on the model's plain path and as the
-reference on the card.
+dtype), used for CPU tensors, on the model's plain path, under autograd
+in training (the kernel has no backward) and as the reference on the
+card.
 """
 
 from __future__ import annotations
@@ -25,17 +26,20 @@ def birnn_recurrence_plain(gi: torch.Tensor, wh: torch.Tensor,
     """gi (T, 2, B, G) input projections (+bias), lane 1 time-reversed;
     wh (2, H, G); bh (2, G) for the GRU, None for the LSTM.
     Returns ys (T, 2, B, H), lane 1 still in reversed time."""
-    T, K, B, G = gi.shape
+    K, B = gi.shape[1:3]
     f32 = torch.float32
     whf = wh.to(f32)
+    bhf = bh.to(f32)[:, None, :] if mode == "bigru" else None
     h = torch.zeros((K, B, hidden), dtype=f32, device=gi.device)
     c = torch.zeros_like(h)
-    ys = torch.empty((T, K, B, hidden), dtype=gi.dtype, device=gi.device)
-    for t in range(T):
-        g_in = gi[t].to(f32)
+    ys = []
+    # one cast and one unbind for all steps: under autograd, gi[t] per
+    # step would give back a zero-filled gradient of all of gi, summed T
+    # times, and a cast per step doubles the small launches
+    for g_in in gi.to(f32).unbind(0):
         gh = torch.bmm(h, whf)                                 # (2, B, G)
         if mode == "bigru":
-            gh = gh + bh.to(f32)[:, None, :]
+            gh = gh + bhf
             ir, iz, in_ = g_in.chunk(3, dim=-1)
             hr, hz, hn = gh.chunk(3, dim=-1)
             r = torch.sigmoid(ir + hr)
@@ -46,8 +50,8 @@ def birnn_recurrence_plain(gi: torch.Tensor, wh: torch.Tensor,
             i, f, g, o = (g_in + gh).chunk(4, dim=-1)
             c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
             h = torch.sigmoid(o) * torch.tanh(c)
-        ys[t] = h
-    return ys
+        ys.append(h)
+    return torch.stack(ys).to(gi.dtype)
 
 
 def birnn_recurrence(gi: torch.Tensor, wh: torch.Tensor,
@@ -55,7 +59,9 @@ def birnn_recurrence(gi: torch.Tensor, wh: torch.Tensor,
                      hidden: int) -> torch.Tensor:
     """Same contract as ``birnn_recurrence_plain``.  A CPU tensor takes
     the plain version; a CUDA tensor launches the kernel, one block per
-    (direction, 4 batch rows)."""
+    (direction, 4 batch rows).  No backward: an input that requires grad
+    raises under grad mode."""
+    _build.refuse_grad("birnn_recurrence", gi, wh, bh)
     if not gi.is_cuda:
         return birnn_recurrence_plain(gi, wh, bh, mode=mode, hidden=hidden)
     req = _build.require

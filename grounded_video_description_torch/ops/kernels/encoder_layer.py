@@ -102,7 +102,9 @@ def _residual_ln(x: torch.Tensor, y: torch.Tensor, gamma, beta):
 def fused_encoder_layer(x: torch.Tensor, w: EncoderLayerWeights, *,
                         n_heads: int) -> torch.Tensor:
     """Same contract as ``fused_encoder_layer_plain``.  A CPU tensor takes
-    the plain version; a CUDA tensor launches the kernels."""
+    the plain version; a CUDA tensor launches the kernels.  No backward:
+    an input that requires grad raises under grad mode."""
+    _build.refuse_grad("fused_encoder_layer", x, *w)
     if not x.is_cuda:
         return fused_encoder_layer_plain(x, w, n_heads=n_heads)
     req = _build.require

@@ -40,7 +40,10 @@ def fused_region_attention(p_pool_feats, att_h, pool_feats, alpha_w,
                            alpha_b, att_mask, pnt_mask
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Same contract as ``fused_region_attention_plain``.  A CPU tensor
-    takes the plain version; a CUDA tensor launches the kernel."""
+    takes the plain version; a CUDA tensor launches the kernel.  No
+    backward: an input that requires grad raises under grad mode."""
+    _build.refuse_grad("region_attention", p_pool_feats, att_h, pool_feats,
+                       alpha_w, alpha_b)
     if not p_pool_feats.is_cuda:
         return fused_region_attention_plain(
             p_pool_feats, att_h, pool_feats, alpha_w, alpha_b, att_mask,

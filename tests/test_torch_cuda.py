@@ -1,5 +1,6 @@
 """PyTorch port, on a CUDA card only: each hand-written kernel against its
-plain PyTorch version, at small unaligned shapes, f32 and bf16.
+plain PyTorch version, at small unaligned shapes, f32 and bf16 (K4 also
+its gradients).
 
 The machine with the card has no JAX, so this file imports none, and is
 run there without the repository's conftest (which imports JAX):
@@ -21,6 +22,8 @@ from grounded_video_description_torch.ops.kernels.encoder_layer import (
     _gemm, fused_encoder_layer, fused_encoder_layer_plain)
 from grounded_video_description_torch.ops.kernels.region_attention import (
     fused_region_attention, fused_region_attention_plain)
+from grounded_video_description_torch.ops.kernels.attention_train import (
+    mha_probs_dropout, mha_probs_dropout_hybrid, mha_probs_dropout_plain)
 
 DTYPES = [torch.float32, torch.bfloat16]
 
@@ -155,3 +158,43 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
                                torch.zeros(2, 5, dtype=torch.bool,
                                            device=dev))
     assert not _build.launches
+
+
+def _k4_inputs(dev, dtype, seed):
+    """R = 300 (not a multiple of the 64-row tiles; Rp = 384), D = 96 in
+    six heads of 16, and a random output cotangent."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v, w = (torch.randn(3, 300, 96, generator=g, device=dev)
+                  for _ in range(4))
+    return [t.to(dtype) for t in (q, k, v)], w.to(dtype)
+
+
+def _k4_run(fn, qkv, w, seed, drop):
+    leaves = [t.detach().clone().requires_grad_(True) for t in qkv]
+    out = fn(*leaves, seed, n_heads=6, scale=96 ** 0.5, drop=drop)
+    (out.float() * w.float()).sum().backward()
+    return [out.detach()] + [t.grad for t in leaves]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("drop", [0.0, 0.3])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_attention_train_kernel(dev, dtype, drop):
+    """K4 forward and q/k/v gradients against the plain twin's autograd on
+    the same seed and masks; f32 within 1e-4 (sums of 300 terms in another
+    order), bf16 at the bf16 bar.  The hybrid schedule (plain forward,
+    kernel backward) too, and a second call gives the same bits."""
+    qkv, w = _k4_inputs(dev, dtype, 5)
+    seed = torch.tensor([0xDEADBEEF], device=dev)
+    ref = _k4_run(mha_probs_dropout_plain, qkv, w, seed, drop)
+    got = _k4_run(mha_probs_dropout, qkv, w, seed, drop)
+    again = _k4_run(mha_probs_dropout, qkv, w, seed, drop)
+    hyb = _k4_run(mha_probs_dropout_hybrid, qkv, w, seed, drop)
+    torch.cuda.synchronize()
+    assert _build.launches["attention_train_fwd"] == 2
+    assert _build.launches["attention_train_bwd"] == 3
+    for name, a, b, c, r in zip(("out", "dq", "dk", "dv"), got, again, hyb,
+                                ref):
+        assert torch.equal(a, b), name
+        assert _within(a, r, dtype), name
+        assert _within(c, r, dtype), name

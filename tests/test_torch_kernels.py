@@ -22,7 +22,7 @@ from grounded_video_description_torch.ops.kernels import _build
 from grounded_video_description_torch.ops.kernels.birnn import (
     birnn_recurrence, birnn_recurrence_plain)
 from grounded_video_description_torch.ops.kernels.encoder_layer import (
-    fused_encoder_layer_plain)
+    fused_encoder_layer, fused_encoder_layer_plain)
 from grounded_video_description_torch.ops.kernels.region_attention import (
     fused_region_attention, fused_region_attention_plain)
 from grounded_video_description_torch.weights import encoder_state_dict
@@ -166,3 +166,29 @@ def test_encoder_kernel_twin_matches_head_sequential_encoder():
     for u, v, r in zip(a, b, ref):
         assert torch.equal(u, v)
         np.testing.assert_allclose(_np(u), np.asarray(r), atol=2e-5)
+
+
+def test_inference_kernels_refuse_inputs_that_need_grad():
+    """K1, K2 and K3 have no backward: their outputs are written through
+    raw pointers and would carry no grad_fn.  Each wrapper raises under
+    grad mode when an input requires grad, on CPU tensors too (the check
+    comes before the device branch), and runs under no_grad."""
+    x, att, pnt = _region_inputs(2, 16, 8, 8, 1, False)
+    region = [_t(x["p_pool"]), _t(x["att_h"]), _t(x["pool"]),
+              _t(x["alpha_w"]), _t(x["alpha_b"])]
+    region[3].requires_grad_(True)
+    masks = (torch.from_numpy(att), torch.from_numpy(pnt))
+    gi, wh, bh = (None if a is None else _t(a)
+                  for a in _gi_inputs("bigru", 5, 2, 6, 4, 0))
+    gi.requires_grad_(True)
+    _, enc = _encoder_pair(12, 8, 1, 0)
+    w = enc.layers[0].weights()
+    calls = [
+        lambda: fused_region_attention(*region, *masks),
+        lambda: birnn_recurrence(gi, wh, bh, mode="bigru", hidden=4),
+        lambda: fused_encoder_layer(torch.zeros(1, 3, 12), w, n_heads=6)]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no backward"):
+            call()
+        with torch.no_grad():
+            call()

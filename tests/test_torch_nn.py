@@ -117,7 +117,10 @@ def test_batch_norm_eval_uses_running_statistics():
 
 
 def test_dropout_is_identity_at_eval():
+    """The identity at eval, and in training at rate 0 or without a
+    generator (the JAX package's dropout without an rng)."""
     x = torch.randn(4, 5)
-    assert tcore.dropout(x, 0.5, train=False) is x
-    with pytest.raises(NotImplementedError):
-        tcore.dropout(x, 0.5, train=True)
+    g = torch.Generator().manual_seed(0)
+    assert tcore.dropout(x, 0.5, train=False, generator=g) is x
+    assert tcore.dropout(x, 0.0, train=True, generator=g) is x
+    assert tcore.dropout(x, 0.5, train=True) is x

@@ -63,6 +63,11 @@ _CONFIG_CASES = {
     "tiny-bilstm-add-both": (True, dict(
         obj_interact=True, t_attn_mode="bilstm", region_attn_mode="add",
         transfer_mode="both", vocab_pad_to=8)),
+    # the README's training flags, with K4 in training
+    "flagship-train": (False, dict(
+        vocab_size=4905, detect_size=431, obj_interact=True, batch_size=240,
+        grad_accum=8, w_att2=0.05, w_cls=0.1, attn_train_impl="pallas",
+        dtype="bfloat16")),
 }
 
 
@@ -125,8 +130,11 @@ def _port(ref, kernels):
 
 @pytest.mark.parametrize("kernels", [False, True])
 def test_encode_banks_match_jax(jax_run, kernels):
-    enc = _port(jax_run, kernels).encode(
-        batch_to_tensors(jax_run["batch"], "cpu"))
+    """Under no_grad, as sample_greedy runs it: the kernels have no
+    backward, and their wrappers refuse inputs that require grad."""
+    with torch.no_grad():
+        enc = _port(jax_run, kernels).encode(
+            batch_to_tensors(jax_run["batch"], "cpu"))
     for key in ("fc_feats", "conv_feats", "p_conv_feats", "pool_feats",
                 "p_pool_feats", "g_pool_feats", "sim_mat_static",
                 "sim_logits"):
@@ -246,6 +254,11 @@ def test_port_imports_no_jax():
         "import grounded_video_description_torch.ops.kernels.encoder_layer\n"
         "import grounded_video_description_torch.ops.kernels."
         "region_attention\n"
+        "import grounded_video_description_torch.ops.kernels."
+        "attention_train\n"
+        "import grounded_video_description_torch.ops.geometry\n"
+        "import grounded_video_description_torch.losses\n"
+        "import grounded_video_description_torch.engine.trainer\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in"
         " ('jax', 'grounded_video_description_tpu'))\n"
