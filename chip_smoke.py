@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's greedy-captioning path and its supervised
-train step on one NVIDIA GPU.
+"""Drive the PyTorch port's greedy captioning, its evaluation entry point
+and its supervised train step on one NVIDIA GPU.
 
 Run from the root of a checkout, with no arguments:
 
@@ -10,16 +10,22 @@ It refuses to run without a CUDA device.  It builds the port's CUDA
 kernels from ``grounded_video_description_torch/csrc``, holds each kernel
 against its plain PyTorch version at the flagship shapes in float32 and
 bfloat16 (K4, the training attention, with its gradients and at dropout
-0.2 and 0), then runs ``GVDModel.sample_greedy`` at the flagship
+0.2 and 0; K6, the whole greedy decode, on the banks of one encoded
+batch), then runs ``GVDModel.sample_greedy`` at the flagship
 configuration (bench.py's: vocab 4905, 431 detector classes,
 obj_interact, BiGRU, mix region attention; batch 100, 1000 ROIs, 480
 frames, 20 tokens; random weights from a seeded generator) once through
-the kernels and once on the plain path, and compares the two.  Last it
-runs ``Trainer.train_step`` at the README's training flags (batch 240 in
-8 microbatches, w_att2 0.05, w_cls 0.1, Adam at 5e-4, clip 0.1): in f32
-with every dropout rate 0, one step through K4 against one on the plain
-attention; in bf16 at the flagship dropout rates, three timed steps on
-each path.  Any failed check ends the run with a non-zero exit.
+the kernels and once on the plain path, and compares the two.  Then the
+evaluator at the same configuration with the README's eval flags
+(``Evaluator.evaluate`` and ``eval_grounding_gt`` over two batches of
+100, the reference files made from the batches in a temporary directory)
+through K6, K7, K2 and K3 (K1 off by the grounding guard) and on the
+plain path, in f32 and bf16.  Last it runs ``Trainer.train_step`` at the
+README's training flags (batch 240 in 8 microbatches, w_att2 0.05, w_cls
+0.1, Adam at 5e-4, clip 0.1): in f32 with every dropout rate 0, one step
+through K4 against one on the plain attention; in bf16 at the flagship
+dropout rates, three timed steps on each path.  Any failed check ends
+the run with a non-zero exit.
 
 Output: human-readable lines, then the card's name and power limit, then
 one JSON line with each kernel's launches on the main path, its error
@@ -82,6 +88,30 @@ def check_bf16(got, ref, what: str) -> float:
           f"{what}: |diff| {float(diff.flatten()[i])} at |ref| "
           f"{float(r.abs().flatten()[i])} over 0.02 + 0.02 |ref|")
     return float(diff.max())
+
+
+def flagship():
+    """The flagship inference configuration (bench.py's) and its random
+    weights from a seeded generator, shared by the phases that run the
+    model."""
+    import torch
+    from grounded_video_description_torch.config import GVDConfig
+    from grounded_video_description_torch.models import GVDModel
+    base = GVDConfig(vocab_size=4905, detect_size=431, seq_per_img=1,
+                     drop_prob_lm=0.5, obj_interact=True, use_pallas=True,
+                     use_pallas_rnn=True, use_pallas_encoder=True).validate()
+    t0 = time.perf_counter()
+    state = GVDModel(base).init(torch.Generator().manual_seed(0)).state_dict()
+    print(f"flagship weights {time.perf_counter() - t0:.1f} s", flush=True)
+    return base, state
+
+
+def model_of(cfg, state, dev):
+    """A model of ``cfg`` with the weights ``state``, on ``dev``."""
+    from grounded_video_description_torch.models import GVDModel
+    m = GVDModel(cfg)
+    m.load_state_dict(state)
+    return m.to(dev).eval()
 
 
 def phase_region_attention(dev, results):
@@ -403,33 +433,21 @@ def phase_train(dev):
     return launches
 
 
-def phase_end_to_end(dev):
+def phase_end_to_end(dev, base, state):
     """sample_greedy at the flagship configuration, through the kernels
     and on the plain path.  Returns the launch counts of the f32 kernel
     run."""
     import torch
-    from grounded_video_description_torch.config import GVDConfig
     from grounded_video_description_torch.data.synthetic import synthetic_batch
-    from grounded_video_description_torch.models import (
-        GVDModel, batch_to_tensors)
+    from grounded_video_description_torch.models import batch_to_tensors
     from grounded_video_description_torch.ops.kernels import _build
 
-    base = GVDConfig(vocab_size=4905, detect_size=431, seq_per_img=1,
-                     drop_prob_lm=0.5, obj_interact=True, use_pallas=True,
-                     use_pallas_rnn=True, use_pallas_encoder=True).validate()
-    t0 = time.perf_counter()
-    state = GVDModel(base).init(torch.Generator().manual_seed(0)).state_dict()
     batch = batch_to_tensors(synthetic_batch(base, B, seed=0), dev)
-    print(f"e2e set-up (weights + batch) {time.perf_counter() - t0:.1f} s",
-          flush=True)
 
     def model_for(dtype: str, kernels: bool):
-        cfg = base.replace(dtype=dtype, use_pallas=kernels,
-                           use_pallas_rnn=kernels,
-                           use_pallas_encoder=kernels)
-        m = GVDModel(cfg)
-        m.load_state_dict(state)
-        return m.to(dev).eval()
+        return model_of(base.replace(dtype=dtype, use_pallas=kernels,
+                                     use_pallas_rnn=kernels,
+                                     use_pallas_encoder=kernels), state, dev)
 
     launches = None
     for dtype in ("float32", "bfloat16"):
@@ -473,6 +491,318 @@ def phase_end_to_end(dev):
     return launches
 
 
+def phase_decode_kernel(dev, results, base, state):
+    """K6 at the flagship shapes: the banks of one encoded batch of B
+    (T = 480 frames, R = 1000 ROIs, a random fifth of them under the pnt
+    mask), 20 steps, vocab 4905; the kernel against its plain twin (the
+    step loop, K3 off) on the same banks, in f32 and bf16."""
+    import torch
+    from grounded_video_description_torch.data.synthetic import synthetic_batch
+    from grounded_video_description_torch.models import batch_to_tensors
+    from grounded_video_description_torch.ops.kernels.decode_scan import (
+        greedy_decode_fused, greedy_decode_fused_plain)
+
+    batch = batch_to_tensors(synthetic_batch(base, B, seed=0), dev)
+    g = torch.Generator(device=dev).manual_seed(17)
+    pnt = batch["pnt_mask"].bool().clone()
+    pnt[:, 1:] |= torch.rand(B, R, generator=g, device=dev) < 0.2
+    L = base.seq_length
+    for dt in ("float32", "bfloat16"):
+        m = model_of(base.replace(dtype=dt, use_pallas=False), state, dev)
+        with torch.no_grad():
+            enc = m.encode(batch)
+            got = greedy_decode_fused(m, enc, pnt)
+            ref = greedy_decode_fused_plain(m, enc, pnt)
+            torch.cuda.synchronize()
+            for name, a, b in zip(("seq", "logprobs", "att2"), got, ref):
+                check(a.dtype == b.dtype and a.shape == b.shape,
+                      f"K6 {dt} {name}: {a.dtype} {tuple(a.shape)} vs "
+                      f"{b.dtype} {tuple(b.shape)}")
+                check(bool(torch.isfinite(a.float()).all()),
+                      f"K6 {dt} {name} not finite")
+            (seq_k, lp_k, a_k), (seq_p, lp_p, a_p) = got, ref
+            same = seq_k == seq_p
+            agree = float(same.float().mean())
+            masked = pnt[:, None, 1:].expand(B, L, R)
+            for side, a in (("kernel", a_k), ("plain", a_p)):
+                check(bool((a[masked].float() < -1e7).all()),
+                      f"K6 {dt} {side}: a masked grounding logit >= -1e7")
+            if dt == "float32":
+                # a step's logprob is compared where the tokens agree up to
+                # it, its grounding logits where they agree before it
+                upto = same.int().cumprod(dim=1).bool()
+                before = torch.cat([torch.ones_like(upto[:, :1]),
+                                    upto[:, :-1]], dim=1)
+                live = before[..., None] & ~masked
+                e_lp = max_err(lp_k[upto], lp_p[upto])
+                e_grd = max_err(a_k[live], a_p[live])
+                # f32 sums of 1024-wide products and softmaxes over 480 and
+                # 1000 in another order: ~1e-6 expected
+                check(agree >= 0.99, f"K6 f32 token agreement {agree}")
+                check(e_lp <= 1e-3, f"K6 f32 logprob err {e_lp}")
+                check(e_grd <= 1e-3, f"K6 f32 grounding logit err {e_grd}")
+            else:
+                e_lp = check_bf16(lp_k[:, 0], lp_p[:, 0], "K6 bf16 step-0 "
+                                  "logprob")
+                e_grd = check_bf16(a_k[:, 0], a_p[:, 0], "K6 bf16 step-0 "
+                                   "grounding logits")
+            ms = time_ms(lambda: greedy_decode_fused(m, enc, pnt), 5)
+            plain_ms = time_ms(lambda: greedy_decode_fused_plain(m, enc, pnt),
+                               3)
+        print(f"K6 decode_scan {dt}: token agreement {agree:.4f}, logprob "
+              f"err {e_lp:.3e}, grounding logit err {e_grd:.3e}; kernel "
+              f"{ms:.3f} ms, plain {plain_ms:.3f} ms", flush=True)
+        results[("decode_scan", dt)] = dict(
+            max_abs_err=max(e_lp, e_grd), ms=ms, plain_ms=plain_ms)
+        del m, enc, got, ref
+        torch.cuda.empty_cache()
+
+
+def phase_flash_mha(dev, results):
+    """K7 at the obj_interact inference shapes: q/k/v (B * 6, R, 171), the
+    six heads of 1024 zero-padded to 171 each, q pre-scaled by
+    1/sqrt(1024); f32 and bf16."""
+    import torch
+    from grounded_video_description_torch.ops.kernels.mha import (
+        flash_self_attention, flash_self_attention_plain)
+
+    N, d = B * 6, -(-D_RNN // 6)
+    g = torch.Generator(device=dev).manual_seed(13)
+    base = [torch.randn(N, R, d, generator=g, device=dev) for _ in range(3)]
+    base[0] /= math.sqrt(D_RNN)
+    for dt in (torch.float32, torch.bfloat16):
+        name = str(dt).replace("torch.", "")
+        q, k, v = (t.to(dt) for t in base)
+        got = flash_self_attention(q, k, v)
+        ref = flash_self_attention_plain(q, k, v)
+        torch.cuda.synchronize()
+        check(got.dtype == dt and got.shape == (N, R, d), "K7 output")
+        check(bool(torch.isfinite(got.float()).all()), "K7 not finite")
+        if dt == torch.float32:
+            err = max_err(got, ref)
+            # softmax-weighted means of unit-scale rows over 1000 keys, in
+            # f32 in another order: ~1e-7 expected
+            check(err <= 1e-5, f"K7 f32 err {err}")
+        else:
+            err = check_bf16(got, ref, "K7 bf16")
+        ms = time_ms(lambda: flash_self_attention(q, k, v), 5)
+        plain_ms = time_ms(lambda: flash_self_attention_plain(q, k, v), 5)
+        print(f"K7 flash_self_attention {name} ({N} x {R} x {d}): err "
+              f"{err:.3e}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms",
+              flush=True)
+        results[("flash_self_attention", name)] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain_ms)
+        del got, ref, q, k, v
+    torch.cuda.empty_cache()
+
+
+def eval_vocab(cfg):
+    """A synthetic dic_anet.json of the flagship's sizes: words w1 ..
+    w4903 and UNK (ids 1 .. 4904), the first 431 words the detection
+    classes, every word its own lemma."""
+    from grounded_video_description_torch.data.vocab import VocabTables
+    words = [f"w{i}" for i in range(1, cfg.vocab_size - 1)] + ["UNK"]
+    return VocabTables({
+        "ix_to_word": {str(i + 1): w for i, w in enumerate(words)},
+        "wtod": {w: i for i, w in enumerate(words[:cfg.detect_size])},
+        "wtol": {w: w for w in words}})
+
+
+def eval_references(root, cfg, vocab, batches):
+    """The files the evaluator reads, made from the batches: the grounding
+    reference (timestamps and, per GT box, its class, frame, box and word
+    position), the split file and one densecap reference (the GT
+    captions).  Returns the config fields that name them."""
+    ann, dense = {}, {}
+    for batch in batches:
+        for b, seg_id in enumerate(batch["seg_id"]):
+            vid, seg = seg_id.split("_segment_")
+            seg = str(int(seg))
+            iseq = batch["input_seq"][b, 0, 1:]
+            objs = [(j, int(iseq[j, 0]) - cfg.vocab_size)
+                    for j in range(iseq.shape[0])
+                    if iseq[j, 0] > cfg.vocab_size]
+            boxes = {int(box[5]): box for box in batch["gt_boxes"][b][::-1]
+                     if box[5] > 0}
+            ts = [float(b), float(b) + 10.0]
+            ann.setdefault(vid, {"segments": {}})["segments"][seg] = {
+                "timestamps": ts,
+                "process_clss": [vocab.itod[c] for _, c in objs],
+                "frame_ind": [int(boxes[c][4]) for _, c in objs],
+                "process_bnd_box": [boxes[c][:4].tolist() for _, c in objs],
+                "process_idx": [j for j, _ in objs]}
+            words = [vocab.itow[str(int(w))] for w in batch["gt_seq"][b, 0]
+                     if w > 0]
+            d = dense.setdefault(vid, {"duration": 200.0, "timestamps": [],
+                                       "sentences": []})
+            d["timestamps"].append(ts)
+            d["sentences"].append(" ".join(words))
+    paths = {}
+    for key, obj in (("grd_reference", {"annotations": ann}),
+                     ("split_file", {"validation": sorted(ann)}),
+                     ("densecap_reference", dense)):
+        paths[key] = os.path.join(root, f"{key}.json")
+        with open(paths[key], "w") as f:
+            json.dump(obj, f)
+    return {"grd_reference": paths["grd_reference"],
+            "split_file": paths["split_file"],
+            "densecap_references": [paths["densecap_reference"]],
+            "data_path": root}
+
+
+def phase_eval(dev, base, state):
+    """The evaluation entry point at the flagship configuration with the
+    README's eval flags (language_eval, eval_obj_grounding,
+    eval_obj_grounding_gt; the port has no training loop to skip, so no
+    inference_only) and the grounding guard on:
+    ``Evaluator.evaluate`` and ``Evaluator.eval_grounding_gt`` over two
+    batches of B, through the kernels (K6, K7, K2, K3; K1 off by the
+    guard) and with every kernel flag off, in f32 and bf16.  Returns the
+    launch counts of the f32 kernel run."""
+    import tempfile
+    import torch
+    from grounded_video_description_torch.data.synthetic import synthetic_batch
+    from grounded_video_description_torch.engine.evaluator import (
+        Evaluator, grounding_eval_cfg)
+    from grounded_video_description_torch.ops.kernels import _build
+
+    vocab = eval_vocab(base)
+    batches = []
+    for i in range(2):
+        batch = synthetic_batch(base, B, seed=i)
+        batch["seg_id"] = [f"v_EVAL{i * B + b:04d}_segment_{b % 3:02d}"
+                           for b in range(B)]
+        batch["n_valid"] = B
+        batches.append(batch)
+    seg_ids = [s for batch in batches for s in batch["seg_id"]]
+    vids = {s.split("_segment_")[0] for s in seg_ids}
+    per_batch = {"evaluate": {"decode_scan": 1, "flash_self_attention": 2,
+                              "birnn_recurrence": 2},
+                 "grounding_gt": {"flash_self_attention": 2,
+                                  "region_attention": base.seq_length,
+                                  "birnn_recurrence": 2}}
+
+    def counted(counts):
+        """The batches, with the launch counts of each batch's work."""
+        for batch in batches:
+            _build.reset_launches()
+            yield batch
+            counts.append(dict(_build.launches))
+
+    launches = None
+    with tempfile.TemporaryDirectory() as root:
+        cfg0 = grounding_eval_cfg(base.replace(
+            language_eval=True, eval_obj_grounding=True,
+            eval_obj_grounding_gt=True, use_pallas_encoder=True,
+            pallas_encoder_grounding_guard=True, id="smoke",
+            **eval_references(root, base, vocab, batches)))
+        check(not cfg0.use_pallas_encoder, "the grounding guard left K1 on")
+        for dtype in ("float32", "bfloat16"):
+            runs = {}
+            for kernels in (True, False):
+                flags = dict(use_pallas=kernels, use_pallas_rnn=kernels,
+                             use_pallas_decode=kernels, use_pallas_mha=kernels)
+                m = model_of(cfg0.replace(dtype=dtype, **flags), state, dev)
+                ev = Evaluator(m.cfg, m, vocab)
+                gen, grd = [], []
+                generate, forward = ev.generate, m.forward
+
+                def recorded_generate(arrays):
+                    out = generate(arrays)
+                    gen.append(out)
+                    return out
+
+                def recorded_forward(batch, **kw):
+                    out = forward(batch, **kw)
+                    grd.append({k: out[k].cpu() for k in ("att2_ind",
+                                                          "grd_ind")})
+                    return out
+
+                ev.generate, m.forward = recorded_generate, recorded_forward
+                warm = {k: v for k, v in batches[0].items()
+                        if k not in ("seg_id", "n_valid")}
+                generate(warm)                       # warm-up, not counted
+                torch.cuda.synchronize()
+                out_dir = os.path.join(root, f"{dtype}-{kernels}")
+                counts = {"evaluate": [], "grounding_gt": []}
+                stats = ev.evaluate(counted(counts["evaluate"]),
+                                    out_dir=out_dir)
+                rate = stats["captions_per_sec"]
+                stats.update(ev.eval_grounding_gt(
+                    counted(counts["grounding_gt"]), out_dir=out_dir))
+                for call, got in counts.items():
+                    want = per_batch[call] if kernels else {}
+                    check(got == [want] * len(batches),
+                          f"{dtype} kernels={kernels} {call} launches per "
+                          f"batch {got} != {want}")
+                if kernels and dtype == "float32":
+                    launches = {}
+                    for got in counts.values():
+                        for c in got:
+                            for k, n in c.items():
+                                launches[k] = launches.get(k, 0) + n
+                for k, v in stats.items():
+                    check(isinstance(v, str) or math.isfinite(v),
+                          f"{dtype} kernels={kernels} stat {k} = {v}")
+                for key in ("CIDEr", "Bleu_4", "box_accu_att", "box_accu_grd",
+                            "cls_accu", "grd_f1_all"):
+                    check(key in stats, f"stat {key} missing")
+                check_eval_files(out_dir, m.cfg, seg_ids, vids)
+                runs[kernels] = (gen, grd, rate, stats)
+                print(f"eval {dtype} kernels={kernels}: captions/s "
+                      f"{rate:.2f}; CIDEr {stats['CIDEr']:.4f}, box_accu_att "
+                      f"{stats['box_accu_att']:.4f}, box_accu_grd "
+                      f"{stats['box_accu_grd']:.4f}, cls_accu "
+                      f"{stats['cls_accu']:.4f}", flush=True)
+                del m, ev
+                torch.cuda.empty_cache()
+            agree = eval_agreement(base, runs[True], runs[False])
+            print(f"eval {dtype} kernels vs plain agreement: " + ", ".join(
+                f"{k} {v:.4f}" for k, v in agree.items()), flush=True)
+            if dtype == "float32":
+                for k, v in agree.items():
+                    check(v >= 0.99, f"eval f32 {k} agreement {v}")
+    return launches
+
+
+def check_eval_files(out_dir, cfg, seg_ids, vids):
+    """The four JSONs parse and hold every segment."""
+    tag = f"{cfg.val_split}-{cfg.id}.json"
+    with open(os.path.join(out_dir, "densecap_results",
+                           f"densecap-{tag}")) as f:
+        dense = json.load(f)["results"]
+    check(set(dense) == vids
+          and sum(len(v) for v in dense.values()) == len(seg_ids),
+          "densecap JSON does not hold every segment")
+    for kind in ("attn-gen", "attn-gt", "grd-gt"):
+        with open(os.path.join(out_dir, "results",
+                               f"{kind}-sent-results-{tag}")) as f:
+            res = json.load(f)["results"]
+        got = {f"{v}_segment_{int(s):02d}" for v in res for s in res[v]}
+        check(got == set(seg_ids), f"{kind} JSON does not hold every segment")
+
+
+def eval_agreement(cfg, kernel_run, plain_run):
+    """Shares of equal caption tokens, per-frame argmax ROIs of the
+    generated words (att2_ind of evaluate) and GT-sentence att2_ind and
+    grd_ind between two evaluator runs."""
+    import numpy as np
+    frames = (-1, cfg.seq_length, cfg.num_sampled_frm, cfg.num_prop_per_frm)
+    out = {}
+    for key, get in (
+            ("tokens", lambda g, _: g["seq"]),
+            ("gen att2_ind",
+             lambda g, _: g["att2_weights"].reshape(frames).argmax(-1)),
+            ("gt att2_ind", lambda _, r: r["att2_ind"].numpy()),
+            ("gt grd_ind", lambda _, r: r["grd_ind"].numpy())):
+        a = np.concatenate([get(g, r) for g, r in
+                            zip(kernel_run[0], kernel_run[1])])
+        b = np.concatenate([get(g, r) for g, r in
+                            zip(plain_run[0], plain_run[1])])
+        out[key] = float((a == b).mean())
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -503,7 +833,13 @@ def main() -> int:
     phase_birnn(dev, results)
     phase_encoder_layer(dev, results)
     phase_attention_train(dev, results)
-    launches = phase_end_to_end(dev)
+    base, state = flagship()
+    phase_decode_kernel(dev, results, base, state)
+    phase_flash_mha(dev, results)
+    launches = phase_end_to_end(dev, base, state)
+    # K2 and K3 keep the greedy path's counts; K6 and K7 run on the eval
+    for name, n in phase_eval(dev, base, state).items():
+        launches.setdefault(name, n)
     launches.update(phase_train(dev))
 
     rows = [("region_attention", "region_attention",
@@ -524,7 +860,13 @@ def main() -> int:
             ("attention_train_bwd", "attention_train_bwd",
              "grounded_video_description_torch/csrc/attention_train.cu",
              "grounded_video_description_tpu/ops/pallas/"
-             "attention_train.py:185")]
+             "attention_train.py:185"),
+            ("decode_scan", "decode_scan",
+             "grounded_video_description_torch/csrc/decode_scan.cu",
+             "grounded_video_description_tpu/ops/pallas/decode_scan.py:325"),
+            ("flash_self_attention", "flash_self_attention",
+             "grounded_video_description_torch/csrc/attention_train.cu",
+             "grounded_video_description_tpu/ops/pallas/mha.py:70")]
     kernels = []
     for name, key, source, replaces in rows:
         r = results[(key, "float32")]

@@ -1,26 +1,37 @@
 """Configuration of the port.
 
 The fields of ``grounded_video_description_tpu/config.py::GVDConfig``
-that the port reads (greedy captioning and the supervised train step),
-under the same names, with the same defaults and derived widths
-(tests/test_torch_slice.py holds the two equal).  The port keeps its own
-copy so that it runs where the JAX package is not installed.
+that the port reads (greedy captioning, the supervised train step and
+the evaluator), under the same names, with the same defaults and derived
+widths (tests/test_torch_slice.py holds the two equal).  The port keeps
+its own copy so that it runs where the JAX package is not installed.
 
 Flags choose the hand-written kernels, as the JAX package's flags choose
-its Pallas kernels: ``use_pallas`` (K3, the per-token region attention),
-``use_pallas_rnn`` (K2, the BiRNN recurrence) and ``use_pallas_encoder``
-(K1, the obj_interact layer) at inference, and ``attn_train_impl`` (K4,
-the obj_interact attention in training: "xla" plain attention, "pallas"
-the kernel's forward and backward, "hybrid" the plain forward and the
-kernel's backward).  A kernel runs only on CUDA tensors; on CPU tensors
-the flag takes the plain version.  Unlike the JAX package, which forces
-"xla" off the TPU, the port honours ``attn_train_impl`` on every device.
+its Pallas kernels.  At inference: ``use_pallas`` (K3, the per-token
+region attention), ``use_pallas_rnn`` (K2, the BiRNN recurrence),
+``use_pallas_encoder`` (K1, the obj_interact layer), ``use_pallas_mha``
+(K7, the obj_interact self-attention when K1 is off) and
+``use_pallas_decode`` (K6, the whole greedy decode).  In training:
+``attn_train_impl`` (K4, the obj_interact attention: "xla" plain
+attention, "pallas" the kernel's forward and backward, "hybrid" the plain
+forward and the kernel's backward).  ``pallas_encoder_grounding_guard``
+turns K1 off in evaluations that score grounding
+(``engine/evaluator.py::grounding_eval_cfg``).  A kernel runs only on
+CUDA tensors; on CPU tensors the flag takes the plain version.  Unlike
+the JAX package, which turns its kernels off away from the TPU, the port
+honours every flag on every device.
+
+The evaluator's fields (``language_eval``, ``eval_obj_grounding``,
+``eval_obj_grounding_gt``, the reference files, ``val_split``, ``id``)
+are the JAX package's too; ``beam_size > 1`` and ``vis_attn`` are not
+ported and make the evaluator raise.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from dataclasses import dataclass
+from dataclasses import dataclass, field
+from typing import List
 
 
 @dataclass
@@ -75,12 +86,37 @@ class GVDConfig:
     finetune_lr_scale: float = 0.1      # ctx2pool_grd / vis_embed group
     seed: int = 123
 
+    beam_size: int = 1                  # > 1 is not ported (beam search)
+
+    # ---- evaluation (opts.py:111-155) ----
+    image_path: str = ""
+    data_path: str = "data"
+    id: str = ""
+    val_split: str = "validation"
+    densecap_references: List[str] = field(default_factory=lambda: [
+        "./data/anet/anet_entities_val_1.json",
+        "./data/anet/anet_entities_val_2.json",
+    ])
+    densecap_verbose: bool = False
+    grd_reference: str = "tools/anet_entities/data/anet_entities_cleaned_class_thresh50_trainval.json"
+    split_file: str = "tools/anet_entities/data/split_ids_anet_entities.json"
+    eval_obj_grounding_gt: bool = False
+    eval_obj_grounding: bool = False
+    vis_attn: bool = False              # not ported (utils/visualize.py)
+    val_images_use: int = -1
+    language_eval: bool = False
+
     # ---- execution ----
     dtype: str = "float32"              # compute dtype: float32 | bfloat16
     use_pallas: bool = False            # K3
     use_pallas_rnn: bool = True         # K2
+    use_pallas_mha: bool = False        # K7
     use_pallas_encoder: bool = True     # K1
+    use_pallas_decode: bool = False     # K6
     attn_train_impl: str = "xla"        # K4: xla | pallas | hybrid
+    # evaluations that score grounding run with K1 off
+    # (engine/evaluator.py::grounding_eval_cfg)
+    pallas_encoder_grounding_guard: bool = True
     # sequential microbatches per train batch; loss terms are
     # renormalized by the full batch's mask counts
     grad_accum: int = 1
@@ -93,6 +129,7 @@ class GVDConfig:
     detect_size: int = 0
     unk_idx: int = -1       # -1 -> vocab_size - 1 (UNK appended last)
     max_gt_box: int = 100
+    test_mode: bool = False
 
     @property
     def max_proposal(self) -> int:

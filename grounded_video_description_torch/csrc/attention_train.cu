@@ -32,6 +32,19 @@
 //    atomics, so a second call gives the same bits.
 // Scores, softmax and every backward elementwise chain run in f32 in both
 // dtypes; the products run on the f32 SIMT units (no wgmma or TMA yet).
+//
+// K7, the inference flash attention, is this forward too.
+// gvd_flash_self_attention replaces grounded_video_description_tpu/ops/
+// pallas/mha.py::flash_self_attention: softmax(q k^T) v per leading index
+// of (N, R, d) tensors, q pre-scaled, d odd (171 at flagship width).  It
+// launches fwd_kernel with B = N, one head of width d, inv_scale 1, the
+// dropout code compiled out (DROP = false) and no log-sum-exp written.
+// What bounds it on an H100: arithmetic, 2 R x R x d products per index
+// (N = 600, R = 1000, d = 171 at flagship width: ~0.4 TFLOP per layer) on
+// the f32 SIMT units; the (R, R) scores of the TPU kernel's VMEM never
+// exist here, the 64 x 64 score tile lives in shared memory.  Rows are
+// loaded element by element, so the odd row stride needs no padding, and
+// keys past R are masked to -inf.
 
 #include "common.cuh"
 
@@ -158,7 +171,7 @@ __device__ __forceinline__ void store_rows(T* dst, const float acc[TPT][NV][4],
 // One block per (query tile, head, row).  Thread (tq, tk) owns queries
 // 4 tq + i: keys tk + 16 j of each key tile for the scores, head dims
 // 4 tk + 64 jj + e for o.
-template <typename T, int NV>
+template <typename T, int NV, bool DROP>
 __global__ void __launch_bounds__(THREADS, 2)
 fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
            const T* __restrict__ v, T* __restrict__ out,
@@ -178,7 +191,7 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int lane = tid & 31, warp = tid >> 5;
   const size_t base = (size_t)b * R * D + c0;
   const int Rp = (R + 127) / 128 * 128;
-  const bool dropping = rate > 0.0f;
+  const bool dropping = DROP && rate > 0.0f;
   const float inv_keep = 1.0f / (1.0f - rate);
   const uint32_t mix = dropping ? head_mix(seed, b, head, n_heads) : 0u;
 
@@ -252,7 +265,7 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < TPT; ++i) inv_l[i] = 1.0f / l_s[tq * TPT + i];
   store_rows<T, NV>(out, acc, inv_l, base, q0 + tq * TPT, R, D, tk, dh);
-  if (tid < BQ && q0 + tid < R)
+  if (lse != nullptr && tid < BQ && q0 + tid < R)
     lse[((size_t)b * gridDim.y + head) * R + q0 + tid] =
         m_s[tid] + logf(l_s[tid]);
 }
@@ -449,15 +462,15 @@ bwd_q_kernel(const T* __restrict__ q, const T* __restrict__ k,
   store_rows<T, NV>(dq, adq, one, base, q0 + tq * TPT, R, D, tk, dh);
 }
 
-template <typename T, int NV>
+template <typename T, int NV, bool DROP = true>
 int launch_fwd(const void* q, const void* k, const void* v, void* out,
                float* lse, const long long* seed, int B, int R, int D, int hs,
                int n_heads, float inv_scale, float rate, cudaStream_t s) {
   const size_t smem = fwd_smem(gvd::tile_ld(hs));
-  cudaError_t e = gvd::allow_smem(fwd_kernel<T, NV>, smem);
+  cudaError_t e = gvd::allow_smem(fwd_kernel<T, NV, DROP>, smem);
   if (e != cudaSuccess) return (int)e;
   dim3 grid((R + BQ - 1) / BQ, (D + hs - 1) / hs, B);
-  fwd_kernel<T, NV><<<grid, THREADS, smem, s>>>(
+  fwd_kernel<T, NV, DROP><<<grid, THREADS, smem, s>>>(
       (const T*)q, (const T*)k, (const T*)v, (T*)out, lse, seed, R, D, hs,
       n_heads, inv_scale, rate);
   return (int)cudaGetLastError();
@@ -549,6 +562,28 @@ extern "C" int gvd_attention_train_bwd(int dtype, const void* q,
       default: return launch_bwd<T, 3>(q, k, v, out, dout, l, sd, dq, dk, dv,
                                        dl, B, R, D, hs, n_heads, inv_scale,
                                        rate, s);
+    }
+  });
+  return (int)cudaErrorInvalidValue;
+}
+
+// K7.  q, k, v, out: (N, R, d) contiguous, q pre-scaled; no dropout, no
+// log-sum-exp.
+extern "C" int gvd_flash_self_attention(int dtype, const void* q,
+                                        const void* k, const void* v,
+                                        void* out, int N, int R, int d,
+                                        void* stream) {
+  if (d > MAX_HEAD) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  GVD_DISPATCH(dtype, T, {
+    switch ((d + 63) / 64) {
+      case 1: return launch_fwd<T, 1, false>(q, k, v, out, nullptr, nullptr,
+                                             N, R, d, d, 1, 1.0f, 0.0f, s);
+      case 2: return launch_fwd<T, 2, false>(q, k, v, out, nullptr, nullptr,
+                                             N, R, d, d, 1, 1.0f, 0.0f, s);
+      default: return launch_fwd<T, 3, false>(q, k, v, out, nullptr,
+                                              nullptr, N, R, d, d, 1, 1.0f,
+                                              0.0f, s);
     }
   });
   return (int)cudaErrorInvalidValue;

@@ -1,0 +1,335 @@
+"""Evaluation entry point of the port.
+
+The port's copy of ``grounded_video_description_tpu/engine/evaluator.py``
+(reference: main.py:314-517 ``eval`` and main.py:89-194
+``eval_grounding``) and of ``main.py::grounding_eval_cfg``: greedy caption
+generation over the validation batches, the densecap submission JSON and
+its language metrics, localization on generated sentences (lemma-mapped
+words -> detection classes) and on GT sentences (attention and grounding
+argmax boxes, region-cls accuracy).  The JSON writers, the lemma mapping,
+the per-frame argmax reshape and the cls-accuracy aggregation are the JAX
+package's line for line, so the files come out byte-identical on the
+same model outputs (tests/test_torch_eval.py).
+
+Batches are the numpy dicts of the dataset loader; ``generate`` moves
+each to the model's device and calls ``GVDModel.sample_greedy`` or
+``GVDModel.forward(mode="GRD")`` directly (PyTorch runs eagerly: there is
+nothing to jit).  The model holds its weights, so unlike the JAX
+evaluator no ``variables`` are passed.  Not ported: beam search
+(``beam_size > 1``, ROADMAP Queue 1 item 11), the attention-overlay
+visualization (``vis_attn``, item 15) and a device mesh (item 13); each
+raises ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import time
+from collections import defaultdict
+from typing import Dict, List
+
+import numpy as np
+import torch
+
+from grounded_video_description_torch.config import GVDConfig
+from grounded_video_description_torch.data.vocab import decode_sequence
+from grounded_video_description_torch.models.gvd import (
+    GVDModel, batch_to_tensors)
+
+EXTERNAL_DATA = {"used": True, "details": "Object detector pre-trained on "
+                 "Visual Genome on object detection task."}
+
+
+def grounding_eval_cfg(cfg: GVDConfig) -> GVDConfig:
+    """The config the EVALUATOR should run with (``main.py::
+    grounding_eval_cfg``): with ``pallas_encoder_grounding_guard`` on and
+    a grounding eval active, K1 is off, because grounding metrics consume
+    region-attention argmaxes that a reordered encoder moves (the JAX
+    package measured -13% relative box_accu_att from its bf16 kernel,
+    GROUNDING_KERNEL_DELTA.json).  Returns ``cfg`` itself when no gating
+    applies."""
+    if (cfg.pallas_encoder_grounding_guard and cfg.use_pallas_encoder
+            and (cfg.eval_obj_grounding or cfg.eval_obj_grounding_gt)):
+        return cfg.replace(use_pallas_encoder=False)
+    return cfg
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    """A host copy; bf16 becomes f32, which keeps every value and
+    argmax."""
+    t = t.detach()
+    return (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
+
+
+class Evaluator:
+    def __init__(self, cfg: GVDConfig, model: GVDModel, vocab, mesh=None):
+        if mesh is not None:
+            raise NotImplementedError(
+                "a device mesh is not ported (ROADMAP Queue 1 item 13)")
+        self.cfg = cfg
+        self.model = model
+        self.vocab = vocab
+
+    def _device(self) -> torch.device:
+        return next(self.model.parameters()).device
+
+    # ------------------------------------------------------------------ #
+
+    def generate(self, batch_arrays) -> Dict[str, np.ndarray]:
+        if self.cfg.beam_size > 1:
+            raise NotImplementedError(
+                "beam search is not ported (ROADMAP Queue 1 item 11)")
+        batch = batch_to_tensors(batch_arrays, self._device())
+        seq, lps, att2_w, sim = self.model.sample_greedy(batch)
+        return {"seq": _numpy(seq), "logprobs": _numpy(lps),
+                "att2_weights": _numpy(att2_w), "sim_mat": _numpy(sim)}
+
+    # ------------------------------------------------------------------ #
+
+    def evaluate(self, loader, *, epoch: int = 0,
+                 out_dir: str = ".") -> Dict[str, float]:
+        """Generated-sentence eval: captions (+ language metrics) and
+        grounding on generated words (main.py:314-467)."""
+        cfg = self.cfg
+        os.makedirs(os.path.join(out_dir, "densecap_results"), exist_ok=True)
+        os.makedirs(os.path.join(out_dir, "results"), exist_ok=True)
+
+        with open(cfg.grd_reference) as f:
+            timestamp_file = json.load(f)
+
+        predictions = defaultdict(list)
+        grd_output: Dict = defaultdict(dict)
+        lemma_det_dict = {self.vocab.wtol[k]: i
+                          for k, i in self.vocab.wtod.items()
+                          if k in self.vocab.wtol}
+
+        n_caps = 0
+        t0 = time.time()
+        for batch in loader:
+            # optional cap on evaluated segments (opts.py:142-143)
+            if 0 < cfg.val_images_use <= n_caps:
+                break
+            n_valid = batch.get("n_valid", len(batch["seg_id"]))
+            seg_ids = batch["seg_id"][:n_valid]
+            arrays = {k: v for k, v in batch.items()
+                      if k not in ("seg_id", "n_valid")}
+            out = self.generate(arrays)
+            seq = out["seq"][:n_valid]
+            n_caps += n_valid
+
+            if cfg.eval_obj_grounding:
+                # per-frame argmax box per generated word
+                # (main.py:361-384)
+                att2_ind = out["att2_weights"][:n_valid].reshape(
+                    seq.shape[0], seq.shape[1], cfg.num_sampled_frm,
+                    cfg.num_prop_per_frm).argmax(-1)
+                ppls = np.array(arrays["ppls"]).reshape(
+                    -1, cfg.num_sampled_frm, cfg.num_prop_per_frm, 7)
+                for i in range(seq.shape[0]):
+                    vid_id, seg_idx = seg_ids[i].split("_segment_")
+                    seg_idx = str(int(seg_idx))
+                    tmp = {"clss": [], "idx_in_sent": [],
+                           "bbox_for_all_frames": []}
+                    for j in range(seq.shape[1]):
+                        w = int(seq[i, j])
+                        if w == 0:
+                            break
+                        lemma = self.vocab.wtol.get(
+                            self.vocab.itow[str(w)])
+                        if lemma in lemma_det_dict:
+                            boxes = [ppls[i, f, att2_ind[i, j, f], :4]
+                                     .tolist()
+                                     for f in range(cfg.num_sampled_frm)]
+                            tmp["bbox_for_all_frames"].append(boxes)
+                            tmp["clss"].append(
+                                self.vocab.itod[lemma_det_dict[lemma]])
+                            tmp["idx_in_sent"].append(j)
+                    grd_output[vid_id][seg_idx] = tmp
+
+            sents = decode_sequence(self.vocab.itow, seq)
+
+            # attention-overlay visualization (main.py:47-85, 402-410)
+            if cfg.vis_attn and cfg.image_path:
+                raise NotImplementedError(
+                    "vis_attn is not ported (ROADMAP Queue 1 item 15: "
+                    "utils/visualize.py)")
+
+            for k, sent in enumerate(sents):
+                vid_id, seg_idx = seg_ids[k].split("_segment_")
+                seg_idx = str(int(seg_idx))
+                ts = timestamp_file["annotations"][vid_id]["segments"][
+                    seg_idx]["timestamps"]
+                predictions[vid_id].append(
+                    {"sentence": sent,
+                     "timestamp": [round(t, 2) for t in ts]})
+
+        stats: Dict[str, float] = defaultdict(float)
+        stats["captions_per_sec"] = n_caps / max(time.time() - t0, 1e-9)
+
+        if cfg.language_eval:
+            submission = os.path.join(
+                out_dir, "densecap_results",
+                f"densecap-{cfg.val_split}-{cfg.id}.json")
+            with open(submission, "w") as f:
+                json.dump({"version": "VERSION 1.0",
+                           "results": predictions,
+                           "external_data": {
+                               "used": "true",
+                               "details": "Visual Genome for Faster "
+                                          "R-CNN pre-training"}}, f)
+            refs_exist = all(os.path.isfile(r)
+                             for r in cfg.densecap_references)
+            if refs_exist:
+                from grounded_video_description_torch.evalmetrics import (
+                    DensecapEvaluator)
+                from grounded_video_description_torch.evalmetrics.spice \
+                    import make_spice_fn
+                ev = DensecapEvaluator(
+                    ground_truth_filenames=cfg.densecap_references,
+                    prediction_filename=submission,
+                    tious=[0.3, 0.5, 0.7, 0.9], max_proposals=1000,
+                    verbose=cfg.densecap_verbose,
+                    spice_fn=make_spice_fn(data_path=cfg.data_path))
+                ev.evaluate()
+                for m, v in ev.scores.items():
+                    stats[m] = float(np.mean(v))
+                # which of the 3 scorer variants produced METEOR
+                stats["meteor_impl"] = ev.meteor_impl
+                print("\nResults Summary (lang eval):")
+                for m in ("Bleu_1", "Bleu_4", "METEOR", "CIDEr", "SPICE"):
+                    if m in stats:
+                        print(f"{m}: {stats[m] * 100:.3f}")
+
+        if cfg.eval_obj_grounding:
+            attn_file = os.path.join(
+                out_dir, "results",
+                f"attn-gen-sent-results-{cfg.val_split}-{cfg.id}.json")
+            with open(attn_file, "w") as f:
+                json.dump({"results": grd_output, "eval_mode": "gen",
+                           "external_data": EXTERNAL_DATA}, f)
+            if not cfg.test_mode and os.path.isfile(cfg.grd_reference) \
+                    and os.path.isfile(cfg.split_file):
+                from grounded_video_description_torch.evalmetrics import (
+                    GroundingEvaluator)
+                ev = GroundingEvaluator(
+                    reference_file=cfg.grd_reference,
+                    submission_file=attn_file,
+                    split_file=cfg.split_file,
+                    val_split=[cfg.val_split], iou_thresh=0.5)
+                for mode in ("all", "loc"):
+                    p, r, f1, ps, rs, fs = ev.grd_eval(mode=mode)
+                    stats[f"grd_prec_{mode}"] = p
+                    stats[f"grd_recall_{mode}"] = r
+                    stats[f"grd_f1_{mode}"] = f1
+
+        return dict(stats)
+
+    # ------------------------------------------------------------------ #
+
+    def eval_grounding_gt(self, loader, *, out_dir: str = "."
+                          ) -> Dict[str, float]:
+        """GT-sentence localization eval (main.py:89-194)."""
+        cfg = self.cfg
+        os.makedirs(os.path.join(out_dir, "results"), exist_ok=True)
+        att2_output: Dict = defaultdict(dict)
+        grd_output: Dict = defaultdict(dict)
+        vocab_in_split = set()
+        cls_pairs: List[np.ndarray] = []
+
+        for batch in loader:
+            n_valid = batch.get("n_valid", len(batch["seg_id"]))
+            seg_ids = batch["seg_id"][:n_valid]
+            arrays = {k: v for k, v in batch.items()
+                      if k not in ("seg_id", "n_valid")}
+            out = self.model.forward(
+                batch_to_tensors(arrays, self._device()), mode="GRD")
+            att2_ind = _numpy(out["att2_ind"])[:n_valid]  # (B, L, n_frm)
+            grd_ind = _numpy(out["grd_ind"])[:n_valid]
+            sim_target = _numpy(out["sim_target"])[:n_valid]  # (B, K, R)
+            pred_cls = _numpy(out["pred_cls"])[:n_valid]      # (B, R)
+            input_seq = np.array(arrays["input_seq"])[:n_valid]
+            ppls = np.array(arrays["ppls"]).reshape(
+                -1, cfg.num_sampled_frm, cfg.num_prop_per_frm, 7)
+
+            # region-cls hit/miss pairs (model.py:351-355)
+            for b in range(sim_target.shape[0]):
+                mask = sim_target[b] > 0
+                if mask.any():
+                    tgt = sim_target[b][mask]
+                    prd = np.broadcast_to(
+                        pred_cls[b][None, :], sim_target[b].shape)[mask]
+                    cls_pairs.append(np.stack([tgt, prd], axis=1))
+
+            obj_mask = input_seq[:, 0, 1:, 0] > cfg.vocab_size
+            for i in range(obj_mask.shape[0]):
+                vid_id, seg_idx = seg_ids[i].split("_segment_")
+                seg_idx = str(int(seg_idx))
+                res_a = {"clss": [], "idx_in_sent": [],
+                         "bbox_for_all_frames": []}
+                res_g = {"clss": [], "idx_in_sent": [],
+                         "bbox_for_all_frames": []}
+                for j in range(obj_mask.shape[1]):
+                    if not obj_mask[i, j]:
+                        continue
+                    cls_name = self.vocab.itod[
+                        int(input_seq[i, 0, j + 1, 0]) - cfg.vocab_size]
+                    vocab_in_split.add(cls_name)
+                    boxes_a = [ppls[i, f, att2_ind[i, j, f], :4].tolist()
+                               for f in range(cfg.num_sampled_frm)]
+                    boxes_g = [ppls[i, f, grd_ind[i, j, f], :4].tolist()
+                               for f in range(cfg.num_sampled_frm)]
+                    for res, boxes in ((res_a, boxes_a), (res_g, boxes_g)):
+                        res["clss"].append(cls_name)
+                        res["idx_in_sent"].append(j)
+                        res["bbox_for_all_frames"].append(boxes)
+                att2_output[vid_id][seg_idx] = res_a
+                grd_output[vid_id][seg_idx] = res_g
+
+        attn_file = os.path.join(
+            out_dir, "results",
+            f"attn-gt-sent-results-{cfg.val_split}-{cfg.id}.json")
+        grd_file = os.path.join(
+            out_dir, "results",
+            f"grd-gt-sent-results-{cfg.val_split}-{cfg.id}.json")
+        for path, results in ((attn_file, att2_output),
+                              (grd_file, grd_output)):
+            with open(path, "w") as f:
+                json.dump({"results": results, "eval_mode": "GT",
+                           "external_data": EXTERNAL_DATA}, f)
+
+        if cfg.test_mode:
+            print("[WARNING] Grounding eval unavailable for the test set; "
+                  "submit results/grd-gt-sent-*.json to the eval server.")
+            return {"box_accu_att": 0.0, "box_accu_grd": 0.0,
+                    "cls_accu": 0.0}
+
+        # classification accuracy across classes (main.py:166-171)
+        cls_accu = 0.0
+        if cls_pairs and vocab_in_split:
+            pairs = np.concatenate(cls_pairs, axis=0)
+            per_class = defaultdict(list)
+            for tgt, prd in pairs:
+                per_class[int(tgt)].append(float(tgt == prd))
+            cls_accu = sum(np.mean(v) for v in per_class.values()) \
+                / len(vocab_in_split)
+
+        stats = {"box_accu_att": 0.0, "box_accu_grd": 0.0,
+                 "cls_accu": cls_accu}
+        if os.path.isfile(cfg.grd_reference) \
+                and os.path.isfile(cfg.split_file):
+            from grounded_video_description_torch.evalmetrics import (
+                GroundingEvaluator)
+            ev = GroundingEvaluator(
+                reference_file=cfg.grd_reference, submission_file=attn_file,
+                split_file=cfg.split_file, val_split=[cfg.val_split],
+                iou_thresh=0.5)
+            stats["box_accu_att"] = ev.gt_grd_eval()
+            ev.import_sub(grd_file)
+            stats["box_accu_grd"] = ev.gt_grd_eval()
+            print("\nResults Summary (GT sent):")
+            print(f"attention / grounding box accuracy: "
+                  f"{stats['box_accu_att']:.4f} / "
+                  f"{stats['box_accu_grd']:.4f}")
+            print(f"classification accuracy: {cls_accu:.4f}\n")
+        return stats

@@ -14,9 +14,11 @@ reads a port ``state_dict()`` as it is.  Activations run in
 ``cfg.dtype``; weights are cast where they are used, as in the JAX
 package.  Config flags select the hand-written kernels: at inference
 ``use_pallas_rnn`` (K2, the BiRNN recurrence), ``use_pallas_encoder``
-(K1, the obj_interact layer) and ``use_pallas`` (K3, the per-token region
-attention), which have no backward and are off in training; in training
-``attn_train_impl`` (K4, the obj_interact attention).  A kernel wrapper
+(K1, the obj_interact layer), ``use_pallas_mha`` (K7, the obj_interact
+self-attention when K1 is off), ``use_pallas`` (K3, the per-token region
+attention) and ``use_pallas_decode`` (K6, the whole greedy decode), which
+have no backward and are off in training; in training ``attn_train_impl``
+(K4, the obj_interact attention).  A kernel wrapper
 runs its plain version on CPU tensors.  The config is the port's own
 (``config.py``), field for field a subset of the JAX package's.
 
@@ -47,6 +49,9 @@ from grounded_video_description_torch.ops import (
 )
 from grounded_video_description_torch.ops.geometry import (
     bbox_overlaps, bbox_target, sim_mat_target,
+)
+from grounded_video_description_torch.ops.kernels.decode_scan import (
+    greedy_decode_fused, greedy_decode_fused_plain,
 )
 
 
@@ -245,7 +250,8 @@ class GVDModel(nn.Module):
         if cfg.obj_interact:
             pool_feats = xf.encoder_apply(
                 self.obj_interact.encoder, pool_feats, n_heads=6,
-                use_kernel=cfg.use_pallas_encoder, train=train,
+                use_kernel=cfg.use_pallas_encoder,
+                use_mha=cfg.use_pallas_mha, train=train,
                 drop=cfg.enc_drop, generator=generator,
                 attn_train_impl=cfg.attn_train_impl)[-1]
 
@@ -535,37 +541,24 @@ class GVDModel(nn.Module):
                       ) -> Tuple[torch.Tensor, ...]:
         """UNK-suppressed greedy decode.  Returns (seq (B, L) int32,
         seqLogprobs (B, L) f32, att2_weights (B, L, R) — the pnt-masked
-        region logits of each step — and sim_mat_static (B, C+1, R))."""
+        region logits of each step, in the compute dtype — and
+        sim_mat_static (B, C+1, R)).
+
+        With ``use_pallas_decode``, ``att_input_mode`` both and
+        ``region_attn_mode`` add or mix, the decode is one K6 launch
+        (``greedy_decode_fused``; any batch size, where the TPU kernel's
+        tile needed B % 4 == 0); otherwise the step loop
+        ``greedy_decode_fused_plain``.  Both give the same outputs,
+        dtypes and shapes."""
         cfg = self.cfg
         enc = self.encode(batch)
         pnt_mask = enc["pnt_mask"]
-        B = pnt_mask.shape[0]
-        dev = pnt_mask.device
-        state = self.init_state(B, dev)
-        tok = torch.zeros((B,), dtype=torch.long, device=dev)
-        toks, lps, att2s = [], [], []
-        for _ in range(cfg.seq_length):
-            xt = self.embed_words(tok)
-            out, state, att2_w, _ = self.core_step(
-                xt, enc["fc_feats"], enc["conv_feats"], enc["p_conv_feats"],
-                enc["pool_feats"], enc["p_pool_feats"], pnt_mask, pnt_mask,
-                state)
-            logprobs = self.logit_logprobs(out)
-            # UNK-suppressed argmax (model.py:589-594): two argmaxes,
-            # ties go to the first index
-            i1 = logprobs.argmax(dim=1)
-            v1 = logprobs.gather(1, i1[:, None])[:, 0]
-            masked = logprobs.scatter(1, i1[:, None], MIN_VALUE)
-            i2 = masked.argmax(dim=1)
-            v2 = masked.gather(1, i2[:, None])[:, 0]
-            use_first = i1 != self.unk_idx
-            tok = torch.where(use_first, i1, i2)
-            toks.append(tok)
-            lps.append(torch.where(use_first, v1, v2))
-            att2s.append(att2_w)
-        seq = torch.stack(toks, dim=1).to(torch.int32)
-        return (seq, torch.stack(lps, dim=1), torch.stack(att2s, dim=1),
-                enc["sim_mat_static"])
+        decode = (greedy_decode_fused
+                  if (cfg.use_pallas_decode and cfg.att_input_mode == "both"
+                      and cfg.region_attn_mode in ("add", "mix"))
+                  else greedy_decode_fused_plain)
+        seq, seq_lp, att2 = decode(self, enc, pnt_mask)
+        return seq, seq_lp, att2, enc["sim_mat_static"]
 
 
 def batch_to_tensors(batch: Dict, device) -> Dict[str, torch.Tensor]:

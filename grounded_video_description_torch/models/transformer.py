@@ -28,12 +28,14 @@ from grounded_video_description_torch.ops.kernels.attention_train import (
     draw_seed, mha_probs_dropout, mha_probs_dropout_hybrid)
 from grounded_video_description_torch.ops.kernels.encoder_layer import (
     LN_EPS, EncoderLayerWeights, fused_encoder_layer,
-    fused_encoder_layer_plain, head_slices,
+    fused_encoder_layer_plain, head_slices, layer_tail,
 )
+from grounded_video_description_torch.ops.kernels.mha import (
+    flash_self_attention)
 
-# the K4 dispatch of the JAX package (models/transformer.py:157-159):
-# training self-attention over more than this many keys
-K4_MIN_KEYS = 256
+# the K4 and K7 dispatch of the JAX package (models/transformer.py:157-159,
+# 179-180): self-attention over more than this many keys
+KERNEL_MIN_KEYS = 256
 
 
 class LayerNormParams(nn.Module):
@@ -114,7 +116,7 @@ def _self_attention_train(w: EncoderLayerWeights, x: torch.Tensor, *,
     """Multi-head self-attention in training (JAX ``transformer._mha``):
     one shared scale sqrt(D), torch.chunk heads, dropout on the probs.
 
-    Over more than ``K4_MIN_KEYS`` keys, "pallas" runs K4's kernels
+    Over more than ``KERNEL_MIN_KEYS`` keys, "pallas" runs K4's kernels
     forward and backward, and "hybrid" K4's plain forward with its
     backward kernels; both draw one seed per call from ``generator``.
     Otherwise ("xla", or few keys) the heads run one after another in
@@ -126,7 +128,7 @@ def _self_attention_train(w: EncoderLayerWeights, x: torch.Tensor, *,
     q = F.linear(x, w.wq.to(dt))
     k = F.linear(x, w.wk.to(dt))
     v = F.linear(x, w.wv.to(dt))
-    if attn_train_impl != "xla" and R > K4_MIN_KEYS:
+    if attn_train_impl != "xla" and R > KERNEL_MIN_KEYS:
         prim = {"pallas": mha_probs_dropout,
                 "hybrid": mha_probs_dropout_hybrid}[attn_train_impl]
         if generator is not None and drop > 0.0:
@@ -168,17 +170,46 @@ def _encoder_layer_train(w: EncoderLayerWeights, x: torch.Tensor, *,
                              use_std=True).to(dt)
 
 
+def _encoder_layer_flash(w: EncoderLayerWeights, x: torch.Tensor, *,
+                         n_heads: int) -> torch.Tensor:
+    """One layer at inference with its self-attention through K7, as the
+    JAX package's ``_mha`` runs ``flash_self_attention``
+    (transformer.py:179-193): the heads zero-padded to one width
+    (1024 -> 6 x 171, ``_split_heads``) as (B * heads, R, width), q
+    divided by sqrt(D), merged and sliced back to D before ``wo``.  A
+    head's zero pad changes no product.  The rest of the layer is
+    ``fused_encoder_layer_plain``'s."""
+    dt = x.dtype
+    B, R, D = x.shape
+    width = -(-D // n_heads)
+
+    def heads_first(t):
+        t = F.pad(t, (0, width * n_heads - D))
+        return t.reshape(B, R, n_heads, width).transpose(1, 2).reshape(
+            B * n_heads, R, width)
+
+    q, k, v = (heads_first(F.linear(x, m.to(dt)))
+               for m in (w.wq, w.wk, w.wv))
+    o = flash_self_attention(q / math.sqrt(D), k, v)
+    o = o.reshape(B, n_heads, R, width).transpose(1, 2).reshape(
+        B, R, n_heads * width)[..., :D]
+    return layer_tail(x, F.linear(o, w.wo.to(dt)), w)
+
+
 def encoder_apply(enc: Encoder, x: torch.Tensor, *, n_heads: int,
-                  use_kernel: bool = False, train: bool = False,
-                  drop: float = 0.0,
+                  use_kernel: bool = False, use_mha: bool = False,
+                  train: bool = False, drop: float = 0.0,
                   generator: Optional[torch.Generator] = None,
                   attn_train_impl: str = "xla") -> List[torch.Tensor]:
     """Per-layer encodings (transformer.py:177-190).
 
     At inference: one ``fused_encoder_layer`` (K1) per layer with
-    ``use_kernel``, as gvd.py:247-255 dispatches in the JAX package, else
-    its plain twin ``fused_encoder_layer_plain`` (the head-sequential
-    schedule of transformer.py:211-234, scores and softmax in f32).
+    ``use_kernel``, as gvd.py:247-255 dispatches in the JAX package;
+    otherwise, with ``use_mha`` and more than ``KERNEL_MIN_KEYS`` regions,
+    the layer with its self-attention through ``flash_self_attention``
+    (K7, gvd.py:266-270); else K1's plain twin
+    ``fused_encoder_layer_plain`` (the head-sequential schedule of
+    transformer.py:211-234, scores and softmax in f32).
 
     In training (``train``): the differentiable layer, with dropout at
     ``drop`` from ``generator`` and the attention schedule
@@ -192,6 +223,8 @@ def encoder_apply(enc: Encoder, x: torch.Tensor, *, n_heads: int,
                                      attn_train_impl=attn_train_impl)
         elif use_kernel:
             x = fused_encoder_layer(x, lp.weights(), n_heads=n_heads)
+        elif use_mha and x.shape[1] > KERNEL_MIN_KEYS:
+            x = _encoder_layer_flash(lp.weights(), x, n_heads=n_heads)
         else:
             x = fused_encoder_layer_plain(x, lp.weights(), n_heads=n_heads)
         encodings.append(x)

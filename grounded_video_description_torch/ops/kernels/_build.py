@@ -59,6 +59,12 @@ _SIGNATURES = {
     # dtype, q, k, v, out, dout, lse, seed, dq, dk, dv, delta, B, R, D,
     # n_heads, inv_scale, rate, stream
     "gvd_attention_train_bwd": [_I] + [_P] * 11 + [_I] * 4 + [_F, _F, _P],
+    # dtype, q, k, v, out, N, R, d, stream
+    "gvd_flash_self_attention": [_I] + [_P] * 4 + [_I] * 3 + [_P],
+    # dtype, 4 banks and the pnt mask, 13 weights, 10 state buffers,
+    # 3 outputs (see csrc/decode_scan.cu), B, T, R, H, A, E, V, Vp, L,
+    # unk, stream
+    "gvd_greedy_decode": [_I] + [_P] * 31 + [_I] * 10 + [_P],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -80,7 +86,8 @@ def _nvcc() -> str:
 
 def build() -> Path:
     """Compile csrc/*.cu into _build/libgvd_kernels-<hash>.so unless
-    that file exists already; returns its path."""
+    that file exists already; returns its path.  One nvcc per source,
+    all started together, then one link."""
     sources = sorted(CSRC_DIR.glob("*.cu")) + sorted(CSRC_DIR.glob("*.cuh"))
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for s in sources:
@@ -90,12 +97,32 @@ def build() -> Path:
     if so.is_file():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{h.hexdigest()[:16]}.{os.getpid()}"
+    nvcc = _nvcc()
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    jobs = []
+    for s in sources:
+        if s.suffix != ".cu":
+            continue
+        obj = BUILD_DIR / f"{s.stem}-{tag}.o"
+        cmd = [nvcc, *compile_flags, "-c", "-o", str(obj), str(s)]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    failed = []
+    for cmd, _, proc in jobs:
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)}\n{out}")
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in sources if s.suffix == ".cu"]]
+    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *[str(j[1]) for j in jobs]]
     proc = subprocess.run(cmd, capture_output=True, text=True)
+    for _, obj, _ in jobs:
+        obj.unlink()
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
                            f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
     os.replace(tmp, so)
     return so

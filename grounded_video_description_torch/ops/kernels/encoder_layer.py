@@ -65,7 +65,15 @@ def fused_encoder_layer_plain(x: torch.Tensor, w: EncoderLayerWeights, *,
         s = (q[..., sl].to(f32) @ k[..., sl].to(f32).transpose(1, 2)) \
             * inv_scale
         heads.append((torch.softmax(s, dim=-1) @ v[..., sl].to(f32)).to(dt))
-    a = F.linear(torch.cat(heads, dim=-1), w.wo.to(dt))
+    return layer_tail(x, F.linear(torch.cat(heads, dim=-1), w.wo.to(dt)), w)
+
+
+def layer_tail(x: torch.Tensor, a: torch.Tensor,
+               w: EncoderLayerWeights) -> torch.Tensor:
+    """The layer after its self-attention ``a`` (output projection
+    applied): residual + LayerNorm, ReLU FFN, residual + LayerNorm, with
+    the statistics in f32."""
+    dt, f32 = x.dtype, torch.float32
     x1 = layer_norm_affine(w.g1, w.be1, x.to(f32) + a.to(f32), LN_EPS,
                            use_std=True).to(dt)
     hdn = F.relu(F.linear(x1, w.w1.to(dt), w.b1.to(dt)))

@@ -1,6 +1,6 @@
 """PyTorch port, on a CUDA card only: each hand-written kernel against its
 plain PyTorch version, at small unaligned shapes, f32 and bf16 (K4 also
-its gradients).
+its gradients; K6 on a tiny model of the flagship's shape).
 
 The machine with the card has no JAX, so this file imports none, and is
 run there without the repository's conftest (which imports JAX):
@@ -14,6 +14,10 @@ import numpy as np
 import pytest
 import torch
 
+from grounded_video_description_torch.config import tiny_test_config
+from grounded_video_description_torch.data import synthetic_batch
+from grounded_video_description_torch.models import (
+    GVDModel, batch_to_tensors)
 from grounded_video_description_torch.models.transformer import Encoder
 from grounded_video_description_torch.ops.kernels import _build
 from grounded_video_description_torch.ops.kernels.birnn import (
@@ -24,6 +28,10 @@ from grounded_video_description_torch.ops.kernels.region_attention import (
     fused_region_attention, fused_region_attention_plain)
 from grounded_video_description_torch.ops.kernels.attention_train import (
     mha_probs_dropout, mha_probs_dropout_hybrid, mha_probs_dropout_plain)
+from grounded_video_description_torch.ops.kernels.decode_scan import (
+    greedy_decode_fused, greedy_decode_fused_plain)
+from grounded_video_description_torch.ops.kernels.mha import (
+    flash_self_attention, flash_self_attention_plain)
 
 DTYPES = [torch.float32, torch.bfloat16]
 
@@ -198,3 +206,95 @@ def test_attention_train_kernel(dev, dtype, drop):
         assert torch.equal(a, b), name
         assert _within(a, r, dtype), name
         assert _within(c, r, dtype), name
+
+
+def _decode_setup(dev, dtype):
+    """A tiny model of the flagship's shape (obj_interact, BiGRU, mix,
+    att_input_mode both), B = 5 (no multiple of the TPU kernel's tile of
+    4), R = 300 with a random fifth under the pnt mask, and its banks
+    (encoded on the plain path)."""
+    cfg = tiny_test_config(obj_interact=True, num_prop_per_frm=75,
+                           vocab_size=300, detect_size=20,
+                           use_pallas_rnn=False, use_pallas_encoder=False,
+                           dtype=str(dtype).replace("torch.", ""))
+    model = GVDModel(cfg).init(torch.Generator().manual_seed(6))
+    model = model.to(dev).eval()
+    batch = batch_to_tensors(synthetic_batch(cfg, 5, seed=7), dev)
+    g = torch.Generator(device=dev).manual_seed(8)
+    pnt = batch["pnt_mask"].bool().clone()
+    pnt[:, 1:] |= torch.rand(pnt[:, 1:].shape, generator=g, device=dev) < 0.2
+    with torch.no_grad():
+        enc = model.encode(batch)
+    return model, enc, pnt
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_decode_scan_kernel(dev, dtype):
+    """K6 against the plain step loop: f32 tokens identical, logprobs and
+    live grounding logits within 1e-4 (sums of 64- and 96-wide products
+    in another order); bf16 at the bf16 bar on step 0, where both start
+    from the same state.  Masked grounding logits are MIN_VALUE on both
+    sides, and a second launch gives the same bits."""
+    model, enc, pnt = _decode_setup(dev, dtype)
+    with torch.no_grad():
+        ref = greedy_decode_fused_plain(model, enc, pnt)
+        got = greedy_decode_fused(model, enc, pnt)
+        again = greedy_decode_fused(model, enc, pnt)
+    torch.cuda.synchronize()
+    assert _build.launches["decode_scan"] == 2
+    for a, b, r in zip(got, again, ref):
+        assert torch.equal(a, b)
+        assert a.dtype == r.dtype and a.shape == r.shape
+    masked = pnt[:, None, 1:].expand_as(got[2])
+    assert bool((got[2][masked].float() < -1e7).all())
+    assert bool((ref[2][masked].float() < -1e7).all())
+    if dtype == torch.float32:
+        assert torch.equal(got[0], ref[0])
+        assert _within(got[1], ref[1], dtype)
+        assert _within(got[2][~masked], ref[2][~masked], dtype)
+    else:
+        assert _within(got[1][:, 0], ref[1][:, 0], dtype)
+        assert _within(got[2][:, 0], ref[2][:, 0], dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_self_attention_kernel(dev, dtype):
+    """K7 at R = 300 (no multiple of the 64-key tiles) and d = 171 (an odd
+    row stride): f32 within 1e-5, bf16 at the bf16 bar; a second launch
+    gives the same bits."""
+    g = torch.Generator(device=dev).manual_seed(9)
+    q, k, v = (torch.randn(4, 300, 171, generator=g, device=dev).to(dtype)
+               for _ in range(3))
+    q = q / 32.0
+    ref = flash_self_attention_plain(q, k, v)
+    got = flash_self_attention(q, k, v)
+    again = flash_self_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert _build.launches["flash_self_attention"] == 2
+    assert got.dtype == dtype and got.shape == (4, 300, 171)
+    assert torch.equal(got, again)
+    assert _within(got, ref, dtype, f32_atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_inference_wrappers_reject_device_mixes_and_grad(dev):
+    """K6 and K7 raise on inputs split between the CPU and the card, and
+    on inputs that need grad under grad mode, before any launch."""
+    q = torch.zeros(2, 5, 3, device=dev)
+    with pytest.raises(ValueError):
+        flash_self_attention(q, q.cpu(), q)
+    with pytest.raises(RuntimeError, match="no backward"):
+        flash_self_attention(q.clone().requires_grad_(True), q, q)
+    model, enc, pnt = _decode_setup(dev, torch.float32)
+    with torch.no_grad():
+        with pytest.raises(ValueError):
+            greedy_decode_fused(model.cpu(), enc, pnt)
+        model.to(dev)
+        with pytest.raises(ValueError):
+            greedy_decode_fused(model, {k: v.cpu() if torch.is_tensor(v)
+                                        else v for k, v in enc.items()}, pnt)
+    with pytest.raises(RuntimeError, match="no backward"):
+        greedy_decode_fused(model, enc, pnt)
+    assert not _build.launches

@@ -68,6 +68,14 @@ _CONFIG_CASES = {
         vocab_size=4905, detect_size=431, obj_interact=True, batch_size=240,
         grad_accum=8, w_att2=0.05, w_cls=0.1, attn_train_impl="pallas",
         dtype="bfloat16")),
+    # the README's evaluation flags, with K6 and K7
+    "flagship-eval": (False, dict(
+        vocab_size=4905, detect_size=431, obj_interact=True,
+        language_eval=True, eval_obj_grounding=True,
+        eval_obj_grounding_gt=True, use_pallas=True, use_pallas_decode=True,
+        use_pallas_mha=True, id="flagship", val_split="testing",
+        densecap_references=["ref.json"], grd_reference="grd.json",
+        split_file="split.json", data_path="d", val_images_use=200)),
 }
 
 
@@ -259,6 +267,17 @@ def test_port_imports_no_jax():
         "import grounded_video_description_torch.ops.geometry\n"
         "import grounded_video_description_torch.losses\n"
         "import grounded_video_description_torch.engine.trainer\n"
+        "import grounded_video_description_torch.engine.evaluator\n"
+        "import grounded_video_description_torch.data.vocab\n"
+        "import grounded_video_description_torch.evalmetrics.bleu\n"
+        "import grounded_video_description_torch.evalmetrics.cider\n"
+        "import grounded_video_description_torch.evalmetrics.densecap\n"
+        "import grounded_video_description_torch.evalmetrics.grounding\n"
+        "import grounded_video_description_torch.evalmetrics.meteor\n"
+        "import grounded_video_description_torch.evalmetrics.spice\n"
+        "import grounded_video_description_torch.evalmetrics.tokenizer\n"
+        "import grounded_video_description_torch.ops.kernels.decode_scan\n"
+        "import grounded_video_description_torch.ops.kernels.mha\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in"
         " ('jax', 'grounded_video_description_tpu'))\n"
