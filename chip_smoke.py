@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's greedy captioning, its evaluation entry point
-and its supervised train step on one NVIDIA GPU.
+"""Drive the PyTorch port's greedy captioning, its evaluation entry point,
+its supervised train step and its training driver on one NVIDIA GPU.
 
 Run from the root of a checkout, with no arguments:
 
@@ -9,9 +9,11 @@ Run from the root of a checkout, with no arguments:
 It refuses to run without a CUDA device.  It builds the port's CUDA
 kernels from ``grounded_video_description_torch/csrc``, holds each kernel
 against its plain PyTorch version at the flagship shapes in float32 and
-bfloat16 (K4, the training attention, with its gradients and at dropout
-0.2 and 0; K6, the whole greedy decode, on the banks of one encoded
-batch), then runs ``GVDModel.sample_greedy`` at the flagship
+bfloat16 (K4, the training attention, and K5, the whole obj_interact
+training layer, with their gradients and at dropout 0.2 and 0; K6, the
+whole greedy decode, on the banks of one encoded batch), each with its
+bound and, where one PyTorch call computes the same function, that
+call's time, then runs ``GVDModel.sample_greedy`` at the flagship
 configuration (bench.py's: vocab 4905, 431 detector classes,
 obj_interact, BiGRU, mix region attention; batch 100, 1000 ROIs, 480
 frames, 20 tokens; random weights from a seeded generator) once through
@@ -23,14 +25,19 @@ through K6, K7, K2 and K3 (K1 off by the grounding guard) and on the
 plain path, in f32 and bf16.  Last it runs ``Trainer.train_step`` at the
 README's training flags (batch 240 in 8 microbatches, w_att2 0.05, w_cls
 0.1, Adam at 5e-4, clip 0.1): in f32 with every dropout rate 0, one step
-through K4 against one on the plain attention; in bf16 at the flagship
-dropout rates, three timed steps on each path.  Any failed check ends
-the run with a non-zero exit.
+through K5 and one through K4 against one on the plain attention; in
+bf16 at the flagship dropout rates, three timed steps on each path, in
+turns.  Last the training driver (``grounded_video_description_torch.
+main.run``): two epochs of one bf16 step through K5, each validated over
+one batch of 100, checkpointed into a temporary directory, then resumed
+from the latest checkpoint by a second run.  Any failed check ends the
+run with a non-zero exit.
 
 Output: human-readable lines, then the card's name and power limit, then
 one JSON line with each kernel's launches on the main path, its error
-against the plain version and both times, and as the last line
-``{"ok": true, "device": {...}}``.
+against the plain version, its time, its plain version's, its bound and
+the library call's, and as the last line ``{"ok": true, "device":
+{...}}``.
 """
 
 from __future__ import annotations
@@ -72,6 +79,24 @@ def time_ms(fn, iters: int) -> float:
 
 def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
+
+
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}   # H100 SXM, dense
+PEAK_BYTES = 3.35e12
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def bound(flops: float, n_bytes: float, dtype: str) -> dict:
+    """The least time the card could take for work of ``flops`` operations
+    (at the peak rate of ``dtype``: f32 outside the tensor cores, bf16 on
+    them) moving ``n_bytes`` (each input read once, each output written
+    once), and which of the two bounds it."""
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], n_bytes / PEAK_BYTES
+    return dict(bound_ms=1e3 * max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes")
 
 
 def check_bf16(got, ref, what: str) -> float:
@@ -154,11 +179,17 @@ def phase_region_attention(dev, results):
         ms = time_ms(lambda: fused_region_attention(*args), 20)
         plain_ms = time_ms(lambda: fused_region_attention_plain(*args), 20)
         name = str(dt).replace("torch.", "")
+        # per ROI: tanh(p_pool + att_h) . alpha_w (4 ops a column), then the
+        # weighted sum of its pool row
+        b = bound(B * R * (4 * H_ATT + 2 * D_RNN),
+                  nbytes(*args, res_k, grd_k), name)
         print(f"K3 region_attention {name}: att_res err {e_res:.3e} "
               f"grd err {e_grd:.3e}; kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms", flush=True)
+              f"{plain_ms:.4f} ms, bound {b['bound_ms']:.4f} ms "
+              f"({b['bound_by']})", flush=True)
         results[("region_attention", name)] = dict(
-            max_abs_err=max(e_res, e_grd), ms=ms, plain_ms=plain_ms)
+            max_abs_err=max(e_res, e_grd), ms=ms, plain_ms=plain_ms,
+            library_ms=None, **b)
 
 
 def phase_birnn(dev, results):
@@ -170,12 +201,12 @@ def phase_birnn(dev, results):
 
     g = torch.Generator(device=dev).manual_seed(5)
     H = D_RNN // 2
-    bound = 1.0 / H ** 0.5
+    limit = 1.0 / H ** 0.5
     for mode, n_gates in (("bigru", 3), ("bilstm", 4)):
         G = n_gates * H
         gi0 = torch.randn(T_FRAMES, 2, B, G, generator=g, device=dev) * 0.5
-        wh0 = (torch.rand(2, H, G, generator=g, device=dev) * 2 - 1) * bound
-        bh0 = (torch.rand(2, G, generator=g, device=dev) * 2 - 1) * bound
+        wh0 = (torch.rand(2, H, G, generator=g, device=dev) * 2 - 1) * limit
+        bh0 = (torch.rand(2, G, generator=g, device=dev) * 2 - 1) * limit
         for dt in (torch.float32, torch.bfloat16):
             gi, wh = gi0.to(dt), wh0.to(dt)
             bh = bh0.to(dt) if mode == "bigru" else None
@@ -195,10 +226,31 @@ def phase_birnn(dev, results):
             ms = time_ms(lambda: birnn_recurrence(gi, wh, bh, **kw), 5)
             plain_ms = time_ms(lambda: birnn_recurrence_plain(
                 gi, wh, bh, **kw), 3)
+            # h W_hh for both lanes at every step
+            b = bound(2 * T_FRAMES * 2 * B * H * G,
+                      nbytes(gi, wh, ys_k, *([bh] if bh is not None else [])),
+                      name)
+            library_ms = None
+            if mode == "bigru":
+                # cuDNN's bidirectional GRU over the same sequence; it also
+                # computes the input projection that gi holds
+                gru = torch.nn.GRU(D_RNN, H, bidirectional=True).to(dev, dt)
+                # one weight buffer; PyTorch skips this for bf16, whose
+                # weights it then compacts at every call
+                gru.flatten_parameters()
+                xs = torch.randn(T_FRAMES, B, D_RNN, generator=g, device=dev,
+                                 dtype=dt)
+                with torch.no_grad():
+                    library_ms = time_ms(lambda: gru(xs), 5)
+                del gru, xs
             print(f"K2 birnn_recurrence {mode} {name}: err {err:.3e}; "
-                  f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms", flush=True)
+                  f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+                  f"{b['bound_ms']:.3f} ms ({b['bound_by']})"
+                  + (f", cuDNN GRU {library_ms:.3f} ms" if library_ms else ""),
+                  flush=True)
             results[(f"birnn_recurrence_{mode}", name)] = dict(
-                max_abs_err=err, ms=ms, plain_ms=plain_ms)
+                max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms, **b)
 
 
 def phase_encoder_layer(dev, results):
@@ -274,11 +326,16 @@ def phase_encoder_layer(dev, results):
                                                use_kernel=True), 3)
             plain_ms = time_ms(lambda: encoder_apply(enc, xin, n_heads=6),
                                3)
+            n_w = sum(nbytes(*w) for w in weights)
+            b = bound(2 * layer_flops(B, R, D_RNN, D_RNN // 2),
+                      2 * nbytes(xin) * 2 + n_w, name)
             print(f"K1 encoder_layer x2 {name}: per-layer err "
                   f"{[f'{e:.3e}' for e in errs]}; kernel {ms:.3f} ms, "
-                  f"plain {plain_ms:.3f} ms", flush=True)
+                  f"plain {plain_ms:.3f} ms, bound {b['bound_ms']:.3f} ms "
+                  f"({b['bound_by']})", flush=True)
             results[("encoder_layer", name)] = dict(
-                max_abs_err=max(errs), ms=ms, plain_ms=plain_ms)
+                max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+                library_ms=None, **b)
 
 
 def phase_attention_train(dev, results):
@@ -334,102 +391,346 @@ def phase_attention_train(dev, results):
                   f"kernel {k_fwd:.3f} ms, plain {p_fwd:.3f} ms; backward "
                   f"kernel {k_bwd:.3f} ms, plain {p_bwd:.3f} ms", flush=True)
             if drop > 0:
+                act = nbytes(q)
+                # forward: QK^T and PV; backward: QK^T again, dV, dP, dQ, dK
                 results[("attention_train_fwd", name)] = dict(
-                    max_abs_err=errs["out"], ms=k_fwd, plain_ms=p_fwd)
+                    max_abs_err=errs["out"], ms=k_fwd, plain_ms=p_fwd,
+                    **bound(4 * Bm * R * R * D_RNN, 4 * act, name))
                 results[("attention_train_bwd", name)] = dict(
                     max_abs_err=max(errs["dq"], errs["dk"], errs["dv"]),
-                    ms=k_bwd, plain_ms=p_bwd)
+                    ms=k_bwd, plain_ms=p_bwd,
+                    **bound(10 * Bm * R * R * D_RNN, 8 * act, name))
+                print(f"K4 {name}: bound forward " + ", backward ".join(
+                    f"{results[(k, name)]['bound_ms']:.3f} ms "
+                    f"({results[(k, name)]['bound_by']})" for k in (
+                        "attention_train_fwd", "attention_train_bwd")),
+                      flush=True)
+            else:
+                lib_fwd, lib_bwd = sdpa_ms(q, k, v, w, heads, D_RNN ** -0.5)
+                results[("attention_train_fwd", name)]["library_ms"] = lib_fwd
+                results[("attention_train_bwd", name)]["library_ms"] = lib_bwd
+                print(f"K4 {name}: scaled_dot_product_attention at drop 0, "
+                      f"forward {lib_fwd:.3f} ms, backward {lib_bwd:.3f} ms",
+                      flush=True)
             del got, ref
             torch.cuda.empty_cache()
 
 
-def phase_train(dev):
-    """Trainer.train_step at the flagship training configuration, through
-    K4 ("pallas") and on the plain attention ("xla").  Returns the K4
-    launch counts of the bf16 kernel run's three timed steps."""
+def sdpa_ms(q, k, v, w, heads, scale):
+    """Forward and backward ms of one ``scaled_dot_product_attention`` on
+    q, k, v (B, R, D) cut into ``heads`` heads of ceil(D / heads) (the
+    last one zero-padded, which changes no output column), with the
+    cotangent w.  The library call is timed only, never used by the
+    port."""
     import torch
+    import torch.nn.functional as F
+    Bq, Rq, D = q.shape
+    hs = -(-D // heads)
+
+    def split(t):
+        t = F.pad(t, (0, heads * hs - D))
+        return t.view(Bq, Rq, heads, hs).transpose(1, 2).contiguous()
+
+    leaves = [split(t).requires_grad_(True) for t in (q, k, v)]
+    cot = split(w)
+
+    def fwd():
+        return F.scaled_dot_product_attention(*leaves, scale=scale)
+
+    out = fwd()
+    fwd_ms = time_ms(fwd, 5)
+    bwd_ms = time_ms(lambda: torch.autograd.grad(out, leaves, cot,
+                                                 retain_graph=True), 5)
+    return fwd_ms, bwd_ms
+
+
+def layer_gemm_flops(Bm, R_, D, F_):
+    """Operations of the QKV, Wo and FFN products of one obj_interact
+    layer on (Bm, R_, D): 2 per multiply-add."""
+    return 2 * Bm * R_ * (4 * D * D + 2 * D * F_)
+
+
+def layer_flops(Bm, R_, D, F_):
+    """One layer's forward: its products and QK^T and PV over every head
+    (the heads tile D)."""
+    return layer_gemm_flops(Bm, R_, D, F_) + 4 * Bm * R_ * R_ * D
+
+
+def phase_encoder_layer_train(dev, results):
+    """K5 at the obj_interact training shapes: x (30, 1000, 1024), six
+    uneven heads, FFN 512, the microbatch of batch 240 in 8; f32 and bf16,
+    drop 0.2 (the flagship's enc_drop) and 0.  The output and the 13
+    gradients (x and the 12 layer tensors) against the plain twin's
+    autograd on the same seed and masks, both passes timed alone, and the
+    peak memory of one forward + backward on each side."""
+    import torch
+    from grounded_video_description_torch.models.transformer import Encoder
+    import torch.nn.functional as F
+    from grounded_video_description_torch.ops.kernels import (
+        encoder_layer_train as k5)
+    from grounded_video_description_torch.ops.kernels.encoder_layer_train \
+        import (attention_sublayer_plain, fused_encoder_layer_train,
+                fused_encoder_layer_train_plain)
+
+    Bm, Fh = 30, D_RNN // 2
+    g = torch.Generator().manual_seed(19)
+    enc = Encoder(D_RNN, Fh, 1)
+    enc.reset_parameters(g)
+    with torch.no_grad():          # non-trivial LayerNorm affines
+        for ln in (enc.layers[0].selfattn.layernorm,
+                   enc.layers[0].feedforward.layernorm):
+            ln.gamma.add_(0.1 * torch.randn(D_RNN, generator=g))
+            ln.beta.add_(0.1 * torch.randn(D_RNN, generator=g))
+    enc = enc.to(dev)
+    lw = list(enc.layers[0].weights())
+    x0 = torch.randn(Bm, R, D_RNN, generator=g).to(dev)
+    cot = torch.randn(Bm, R, D_RNN, generator=g).to(dev)
+    seed = torch.tensor([0x9E3779B9], device=dev)
+    # the backward: two products per forward product (q, k, v and o are
+    # saved), and the attention's five (QK^T again, dV, dP, dQ, dK)
+    flops_fwd = layer_flops(Bm, R, D_RNN, Fh)
+    flops_bwd = (2 * layer_gemm_flops(Bm, R, D_RNN, Fh)
+                 + 10 * Bm * R * R * D_RNN)
+    w_bytes = nbytes(*lw)
+    parts = ("out", "dx") + tuple(
+        f"d{n}" for n in ("wq", "wk", "wv", "wo", "w1", "b1", "w2", "b2",
+                          "g1", "be1", "g2", "be2"))
+    for dt in (torch.float32, torch.bfloat16):
+        name = str(dt).replace("torch.", "")
+        act = nbytes(x0.to(dt))
+        # forward: x in, out; backward: x and the cotangent in, dx out;
+        # each with the f32 weights in (and their f32 gradients out)
+        bound_fwd = bound(flops_fwd, 2 * act + w_bytes, name)
+        bound_bwd = bound(flops_bwd, 3 * act + 2 * w_bytes, name)
+        for drop in (0.2, 0.0):
+            x, w = x0.to(dt), cot.to(dt)
+            runs = {}
+            for which, fn in (("kernel", fused_encoder_layer_train),
+                              ("plain", fused_encoder_layer_train_plain)):
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                held = torch.cuda.memory_allocated()
+                xl = x.clone().requires_grad_(True)
+                leaves = [xl] + lw
+
+                def fwd():
+                    return fn(xl, enc.layers[0].weights(), seed, n_heads=6,
+                              drop=drop)
+
+                out = fwd()
+                grads = torch.autograd.grad(out, leaves, w,
+                                            retain_graph=True)
+                torch.cuda.synchronize()
+                peak_mb = (torch.cuda.max_memory_allocated() - held) / 2**20
+                fwd_ms = time_ms(fwd, 3)
+                bwd_ms = time_ms(lambda: torch.autograd.grad(
+                    out, leaves, w, retain_graph=True), 3)
+                runs[which] = ([out.detach()] + list(grads), fwd_ms, bwd_ms,
+                               peak_mb)
+                del out, grads, xl, leaves
+            (got, k_fwd, k_bwd, k_mb), (ref, p_fwd, p_bwd, p_mb) = (
+                runs["kernel"], runs["plain"])
+            # ReLU ties: an FFN pre-activation within rounding of 0 can take
+            # the other branch in the kernel's summation order than in the
+            # twin's, which changes that token's dx row and that unit's dW1
+            # row and db1 entry by a whole term, not a rounding.  Those
+            # rows are found by comparing the two sides' branches (the
+            # kernel's saved FFN activation against the twin's
+            # pre-activation) and held only in the relative norm below.
+            with torch.no_grad():
+                lw_ = enc.layers[0].weights()
+                hid_k = k5._kernel_forward(x, lw_, seed, 6, drop)[1][7]
+                x1 = attention_sublayer_plain(x, lw_, seed, n_heads=6,
+                                              drop=drop)
+                z = (F.linear(x1.to(dt).float(), lw_.w1.to(dt).float())
+                     + lw_.b1)
+                tie = ((hid_k.float() > 0) != (z.flatten(0, 1) > 0)).view(
+                    Bm, R, Fh)
+                tie_tokens = tie.any(-1, keepdim=True)       # (Bm, R, 1)
+                tie_units = tie.flatten(0, 1).any(0)         # (Fh,)
+                del hid_k, x1, z, tie
+            n_tok, n_unit = int(tie_tokens.sum()), int(tie_units.sum())
+            # f32: the branches differ only where z is within ~1e-6 of 0;
+            # bf16: also where x1 rounds to the other side of a bf16 value
+            # (one in ~2000 elements), which moves z by ~1e-4
+            tie_cap = 1000 if dt == torch.float32 else 20
+            check(n_tok <= Bm * R // tie_cap,
+                  f"K5 {name} drop {drop}: {n_tok} tokens at a ReLU tie")
+            held = {"dx": ~tie_tokens, "dw1": ~tie_units[:, None],
+                    "db1": ~tie_units}
+            errs, rel = {}, {}
+            for part, a, b in zip(parts, got, ref):
+                check(a.dtype == b.dtype and a.shape == b.shape,
+                      f"K5 {name} drop {drop} {part}: {a.dtype} "
+                      f"{tuple(a.shape)} vs {b.dtype} {tuple(b.shape)}")
+                check(bool(torch.isfinite(a.float()).all()),
+                      f"K5 {name} drop {drop} {part} not finite")
+                rel[part] = float((a.float() - b.float()).norm()
+                                  / b.float().norm())
+                keep = held.get(part)
+                if keep is not None:
+                    keep = keep.expand_as(a)
+                    a, b = a[keep], b[keep]
+                if dt == torch.float32:
+                    # f32 sums of 1024-wide products (and of 30000 rows for
+                    # the weight gradients) in another order, relative to
+                    # the tensor's largest magnitude; the whole tensor,
+                    # ties included, within the same bars in relative norm
+                    errs[part] = max_err(a, b)
+                    tol = 1e-4 if part == "out" else 1e-3
+                    bar = tol * float(b.abs().max())
+                    check(errs[part] <= bar, f"K5 f32 drop {drop} {part} "
+                          f"err {errs[part]} > {bar}")
+                    check(rel[part] <= tol, f"K5 f32 drop {drop} {part} "
+                          f"relative norm error {rel[part]}")
+                elif part == "out":
+                    errs[part] = check_bf16(a, b, f"K5 bf16 drop {drop} out")
+                else:
+                    # a gradient sums up to 30000 rows of bf16 products: the
+                    # bf16 bar on the tensor scaled to a largest magnitude
+                    # of 1 (0.02 of that magnitude + 0.02 |ref|)
+                    scale = float(b.abs().max())
+                    errs[part] = scale * check_bf16(
+                        a / scale, b / scale, f"K5 bf16 drop {drop} {part} "
+                        f"(scaled by {scale:.4g})")
+            print(f"K5 encoder_layer_train {name} drop {drop}: ReLU ties "
+                  f"{n_tok} tokens, {n_unit} units; max err out "
+                  f"{errs['out']:.3e}, grads {max(errs.values()):.3e} "
+                  f"({max(errs, key=errs.get)}), relative norm "
+                  f"{max(rel.values()):.2e} ({max(rel, key=rel.get)}); "
+                  f"forward kernel {k_fwd:.3f} "
+                  f"ms, plain {p_fwd:.3f} ms (bound "
+                  f"{bound_fwd['bound_ms']:.3f}); backward kernel "
+                  f"{k_bwd:.3f} ms, plain {p_bwd:.3f} ms (bound "
+                  f"{bound_bwd['bound_ms']:.3f}); peak MB of forward + "
+                  f"backward: kernel {k_mb:.0f}, plain {p_mb:.0f}",
+                  flush=True)
+            if drop > 0:
+                results[("encoder_layer_train_fwd", name)] = dict(
+                    max_abs_err=errs["out"], ms=k_fwd, plain_ms=p_fwd,
+                    library_ms=None, peak_mb=k_mb, plain_peak_mb=p_mb,
+                    **bound_fwd)
+                results[("encoder_layer_train_bwd", name)] = dict(
+                    max_abs_err=max(v for k, v in errs.items()
+                                    if k != "out"),
+                    ms=k_bwd, plain_ms=p_bwd, library_ms=None, **bound_bwd)
+            del got, ref
+            torch.cuda.empty_cache()
+
+
+TRAIN_PATHS = {                 # name: the config fields that choose it
+    "K5": dict(use_pallas_encoder_train=True),
+    "K4": dict(attn_train_impl="pallas"),
+    "plain": dict(attn_train_impl="xla"),
+}
+
+
+def train_config():
+    """The README's training flags at flagship width: batch 240 in 8
+    microbatches, w_att2 0.05, w_cls 0.1, Adam at 5e-4, clip 0.1, the
+    flagship dropout rates."""
     from grounded_video_description_torch.config import GVDConfig
+    return GVDConfig(vocab_size=4905, detect_size=431, obj_interact=True,
+                     batch_size=240, grad_accum=8, w_att2=0.05, w_cls=0.1,
+                     drop_prob_lm=0.5, enc_drop=0.2, learning_rate=5e-4,
+                     grad_clip=0.1, use_pallas=False).validate()
+
+
+def phase_train(dev, state):
+    """Trainer.train_step at the flagship training configuration through
+    K5 (``use_pallas_encoder_train``), K4 (``attn_train_impl="pallas"``)
+    and the plain attention: in f32 with every dropout 0 one step each,
+    K5 and K4 against plain; in bf16 at the flagship rates a warm-up and
+    three timed steps each, taken in turns (K5, K4, plain, then the
+    reverse), with each step's launch counts checked.  Returns the
+    launch counts of the bf16 K4 and K5 runs' timed steps."""
+    import torch
     from grounded_video_description_torch.data.synthetic import synthetic_batch
     from grounded_video_description_torch.engine.trainer import (
         Trainer, batch_to_device)
     from grounded_video_description_torch.models import GVDModel
     from grounded_video_description_torch.ops.kernels import _build
 
-    BT, ACCUM = 240, 8
-    base = GVDConfig(vocab_size=4905, detect_size=431, obj_interact=True,
-                     batch_size=BT, grad_accum=ACCUM, w_att2=0.05,
-                     w_cls=0.1, drop_prob_lm=0.5, enc_drop=0.2,
-                     learning_rate=5e-4, grad_clip=0.1,
-                     use_pallas=False).validate()
+    base = train_config()
+    BT, ACCUM = base.batch_size, base.grad_accum
     t0 = time.perf_counter()
-    state = GVDModel(base).init(torch.Generator().manual_seed(0)).state_dict()
     batch = synthetic_batch(base, BT, seed=0)
-    print(f"train set-up (weights + batch) {time.perf_counter() - t0:.1f} s",
+    print(f"train set-up (batch) {time.perf_counter() - t0:.1f} s",
           flush=True)
     terms = ("loss", "lm_loss", "att2_loss", "ground_loss", "cls_loss")
-    per_step = {"attention_train_fwd": 2 * ACCUM,   # 2 layers x 8
-                "attention_train_bwd": 2 * ACCUM}
+    per_step = {                    # 2 layers x 8 microbatches
+        "K5": {"encoder_layer_train_fwd": 2 * ACCUM,
+               "encoder_layer_train_bwd": 2 * ACCUM},
+        "K4": {"attention_train_fwd": 2 * ACCUM,
+               "attention_train_bwd": 2 * ACCUM},
+        "plain": {}}
 
     def trainer_for(cfg):
         model = GVDModel(cfg)
         model.load_state_dict(state)
         return Trainer(cfg, model.to(dev))
 
-    # (a) f32, every dropout rate 0: K4 against the plain attention
+    # (a) f32, every dropout rate 0: K5 and K4 against the plain attention
     stats = {}
-    for impl in ("pallas", "xla"):
-        cfg = base.replace(attn_train_impl=impl, drop_prob_lm=0.0,
-                           loc_drop=0.0, enc_drop=0.0)
+    for name, flags in TRAIN_PATHS.items():
+        cfg = base.replace(drop_prob_lm=0.0, loc_drop=0.0, enc_drop=0.0,
+                           **flags)
         tr = trainer_for(cfg)
+        _build.reset_launches()
         m = tr.train_step(batch_to_device(cfg, batch, dev),
                           cfg.learning_rate)
-        stats[impl] = {k: float(v) for k, v in m.items()}
+        stats[name] = {k: float(v) for k, v in m.items()}
+        check(dict(_build.launches) == per_step[name],
+              f"f32 {name} step launches {dict(_build.launches)}")
         del tr
         torch.cuda.empty_cache()
-    for k in terms:
-        a, b = stats["pallas"][k], stats["xla"][k]
-        check(abs(a - b) <= 1e-4 * abs(b), f"f32 step {k}: K4 {a} vs {b}")
-    a, b = stats["pallas"]["grad_norm"], stats["xla"]["grad_norm"]
-    check(abs(a - b) <= 1e-3 * abs(b), f"f32 step grad norm: K4 {a} vs {b}")
-    print("train f32 drop 0, K4 vs plain attention: "
-          + ", ".join(f"{k} {stats['pallas'][k]:.6f} / {stats['xla'][k]:.6f}"
-                      for k in terms + ("grad_norm",)), flush=True)
+    for name in ("K5", "K4"):
+        for k in terms:
+            a, b = stats[name][k], stats["plain"][k]
+            check(abs(a - b) <= 1e-4 * abs(b),
+                  f"f32 step {k}: {name} {a} vs {b}")
+        a, b = stats[name]["grad_norm"], stats["plain"]["grad_norm"]
+        check(abs(a - b) <= 1e-3 * abs(b),
+              f"f32 step grad norm: {name} {a} vs {b}")
+        print(f"train f32 drop 0, {name} vs plain attention: " + ", ".join(
+            f"{k} {stats[name][k]:.6f} / {stats['plain'][k]:.6f}"
+            for k in terms + ("grad_norm",)), flush=True)
 
-    # (b) bf16 at the flagship dropout rates: three timed steps each
-    launches, rates = None, {}
-    for impl in ("pallas", "xla"):
-        cfg = base.replace(attn_train_impl=impl, dtype="bfloat16")
+    # (b) bf16 at the flagship dropout rates, the timed steps in turns
+    runs = {}
+    for name, flags in TRAIN_PATHS.items():
+        cfg = base.replace(dtype="bfloat16", **flags)
         tr = trainer_for(cfg)
         dev_batch = batch_to_device(cfg, batch, dev)
         tr.train_step(dev_batch, cfg.learning_rate)          # warm-up
         torch.cuda.synchronize()
-        counts, times = {}, []
-        for step in range(3):
+        runs[name] = (cfg, tr, dev_batch, [], {})
+    order = list(TRAIN_PATHS)
+    for step in range(3):
+        for name in (order if step % 2 == 0 else order[::-1]):
+            cfg, tr, dev_batch, times, counts = runs[name]
             _build.reset_launches()
             t0 = time.perf_counter()
             m = tr.train_step(dev_batch, cfg.learning_rate)
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
             got = dict(_build.launches)
-            expect = per_step if impl == "pallas" else {}
-            check(got == expect, f"bf16 {impl} step launches {got} != "
-                  f"{expect}")
-            for name, n in got.items():
-                counts[name] = counts.get(name, 0) + n
+            check(got == per_step[name],
+                  f"bf16 {name} step launches {got} != {per_step[name]}")
+            for k, n in got.items():
+                counts[k] = counts.get(k, 0) + n
             losses = {k: float(v) for k, v in m.items()}
             check(all(math.isfinite(v) for v in losses.values()),
-                  f"bf16 {impl} step {step} losses {losses}")
-            print(f"train bf16 {impl} step {step}: " + ", ".join(
+                  f"bf16 {name} step {step} losses {losses}")
+            print(f"train bf16 {name} step {step}: " + ", ".join(
                 f"{k} {v:.5f}" for k, v in losses.items())
                 + f"; {times[-1]:.3f} s", flush=True)
-        rates[impl] = BT / statistics.median(times)
-        if impl == "pallas":
-            launches = counts
-        del tr, dev_batch
-        torch.cuda.empty_cache()
-    print(f"train bf16 segments/s (median of 3 steps): K4 "
-          f"{rates['pallas']:.2f}, plain attention {rates['xla']:.2f}",
-          flush=True)
+    rates = {name: BT / statistics.median(r[3]) for name, r in runs.items()}
+    print("train bf16 segments/s (median of 3 steps, in turns): " + ", ".join(
+        f"{name} {rate:.2f}" for name, rate in rates.items()), flush=True)
+    launches = {**runs["K4"][4], **runs["K5"][4]}
+    del runs
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -549,13 +850,40 @@ def phase_decode_kernel(dev, results, base, state):
             ms = time_ms(lambda: greedy_decode_fused(m, enc, pnt), 5)
             plain_ms = time_ms(lambda: greedy_decode_fused_plain(m, enc, pnt),
                                3)
+            banks = [enc[k] for k in ("conv_feats", "p_conv_feats",
+                                      "pool_feats", "p_pool_feats")]
+            b = bound(decode_flops(m, B, T_FRAMES, R, L),
+                      nbytes(*banks, pnt, *m.core.parameters(),
+                             *m.logit.parameters(), *m.embed.parameters(),
+                             *got), dt)
         print(f"K6 decode_scan {dt}: token agreement {agree:.4f}, logprob "
               f"err {e_lp:.3e}, grounding logit err {e_grd:.3e}; kernel "
-              f"{ms:.3f} ms, plain {plain_ms:.3f} ms", flush=True)
+              f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+              f"{b['bound_ms']:.3f} ms ({b['bound_by']})", flush=True)
         results[("decode_scan", dt)] = dict(
-            max_abs_err=max(e_lp, e_grd), ms=ms, plain_ms=plain_ms)
+            max_abs_err=max(e_lp, e_grd), ms=ms, plain_ms=plain_ms,
+            library_ms=None, **b)
         del m, enc, got, ref
         torch.cuda.empty_cache()
+
+
+def decode_flops(model, B_, T_, R_, L):
+    """Operations of a greedy decode of L steps: per step and row, the two
+    LSTM cells (the fc part of the attention LSTM's input is computed once,
+    before the steps), both h2att projections and the vocabulary head, 2
+    per multiply-add; the temporal and region attentions (3 ops per score
+    column, 2 per weighted-sum column).  The next-token embedding is a
+    gather, not counted."""
+    core, H = model.core, model.cfg.rnn_size
+    A = model.cfg.att_hid_size
+    mats = (core.att_lstm.weight_ih.numel() - 4 * H * H
+            + core.att_lstm.weight_hh.numel()
+            + core.lang_lstm.weight_ih.numel()
+            + core.lang_lstm.weight_hh.numel()
+            + core.attention.h2att.weight.numel()
+            + core.attention2.h2att.weight.numel()
+            + model.logit.weight.numel())
+    return L * (2 * B_ * mats + B_ * (T_ + R_) * (3 * A + 2 * H))
 
 
 def phase_flash_mha(dev, results):
@@ -563,6 +891,7 @@ def phase_flash_mha(dev, results):
     six heads of 1024 zero-padded to 171 each, q pre-scaled by
     1/sqrt(1024); f32 and bf16."""
     import torch
+    import torch.nn.functional as F
     from grounded_video_description_torch.ops.kernels.mha import (
         flash_self_attention, flash_self_attention_plain)
 
@@ -587,11 +916,17 @@ def phase_flash_mha(dev, results):
             err = check_bf16(got, ref, "K7 bf16")
         ms = time_ms(lambda: flash_self_attention(q, k, v), 5)
         plain_ms = time_ms(lambda: flash_self_attention_plain(q, k, v), 5)
+        q4, k4, v4 = (t[:, None] for t in (q, k, v))
+        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, scale=1.0), 5)
+        b = bound(4 * N * R * R * d, nbytes(q, k, v, got), name)
         print(f"K7 flash_self_attention {name} ({N} x {R} x {d}): err "
-              f"{err:.3e}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms",
-              flush=True)
+              f"{err:.3e}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+              f"scaled_dot_product_attention {lib_ms:.3f} ms, bound "
+              f"{b['bound_ms']:.3f} ms ({b['bound_by']})", flush=True)
         results[("flash_self_attention", name)] = dict(
-            max_abs_err=err, ms=ms, plain_ms=plain_ms)
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+            **b)
         del got, ref, q, k, v
     torch.cuda.empty_cache()
 
@@ -765,6 +1100,138 @@ def phase_eval(dev, base, state):
     return launches
 
 
+def phase_driver(dev, state):
+    """The port's training entry point, ``grounded_video_description_torch
+    .main.run``, at flagship width with in-memory loaders (the card's
+    machine has no h5py for the on-disk dataset): bf16, K5 on, the
+    README's training flags; two epochs of one 240-segment step each,
+    each validated over one batch of 100 through ``evaluate`` (K6, K7,
+    K2) and ``eval_grounding_gt`` (K7, K2, K3; K1 off by the grounding
+    guard), with the eval phase's synthetic vocabulary and references,
+    checkpoints into a temporary directory.  Then a second trainer of
+    other weights restores the latest checkpoint (model, optimizer and
+    generator state bit-identical to the saved ones) and a second ``run``
+    goes on from epoch 2.  Returns the first run's launch counts."""
+    import tempfile
+    import torch
+    from grounded_video_description_torch import main as driver
+    from grounded_video_description_torch.data.synthetic import synthetic_batch
+    from grounded_video_description_torch.engine.checkpoint import (
+        STATE_FILE, CheckpointManager)
+    from grounded_video_description_torch.engine.evaluator import (
+        Evaluator, grounding_eval_cfg)
+    from grounded_video_description_torch.engine.trainer import Trainer
+    from grounded_video_description_torch.models import GVDModel
+    from grounded_video_description_torch.ops.kernels import _build
+    from grounded_video_description_torch.utils.logging import MetricLogger
+
+    base = train_config().replace(
+        dtype="bfloat16", use_pallas_encoder_train=True, use_pallas=True,
+        use_pallas_rnn=True, use_pallas_decode=True, use_pallas_mha=True,
+        use_pallas_encoder=True, pallas_encoder_grounding_guard=True,
+        language_eval=True, eval_obj_grounding=True,
+        eval_obj_grounding_gt=True, id="driver", val_every_epoch=1,
+        max_epochs=2)
+    train_batch = synthetic_batch(base, base.batch_size, seed=0)
+    val = synthetic_batch(base, B, seed=1)
+    val["seg_id"] = [f"v_DRV{b:04d}_segment_{b % 3:02d}" for b in range(B)]
+    val["n_valid"] = B
+    vocab = eval_vocab(base)
+    layers = 2 * base.grad_accum          # 2 layers x 8 microbatches
+    per_epoch = {"encoder_layer_train_fwd": layers,
+                 "encoder_layer_train_bwd": layers, "decode_scan": 1,
+                 "flash_self_attention": 4, "birnn_recurrence": 4,
+                 "region_attention": base.seq_length}
+
+    def trainer_for(cfg, weights):
+        model = GVDModel(cfg)
+        model.load_state_dict(weights)
+        return Trainer(cfg, model.to(dev))
+
+    with tempfile.TemporaryDirectory() as root:
+        cfg = base.replace(checkpoint_path=os.path.join(root, "save"),
+                           **eval_references(root, base, vocab, [val]))
+        eval_cfg = grounding_eval_cfg(cfg)
+        check(not eval_cfg.use_pallas_encoder, "the grounding guard left K1 on")
+        out_dir = os.path.join(root, "out")
+        ckpt = CheckpointManager(cfg.checkpoint_path)
+
+        def run(cfg, trainer, infos):
+            evaluator = Evaluator(eval_cfg, driver.sharing_model(
+                trainer.model, eval_cfg), vocab)
+            return driver.run(cfg, trainer, evaluator, [train_batch], [val],
+                              ckpt, MetricLogger(), infos, out_dir=out_dir)
+
+        trainer = trainer_for(cfg, state)
+        _build.reset_launches()
+        records = run(cfg, trainer, {"epoch": 0, "best_val_score": None})
+        torch.cuda.synchronize()
+        launches = dict(_build.launches)
+        want = {k: 2 * n for k, n in per_epoch.items()}
+        check(launches == want, f"driver launches {launches} != {want}")
+        check([r["epoch"] for r in records] == [0, 1]
+              and records[0]["best"], f"driver records {records}")
+        for r in records:
+            stats = r["stats"]
+            for key in ("CIDEr", "Bleu_4", "box_accu_att", "box_accu_grd",
+                        "cls_accu"):
+                check(key in stats and math.isfinite(stats[key]),
+                      f"driver epoch {r['epoch']} stat {key}")
+            print(f"driver epoch {r['epoch']}: train {r['train_s']:.3f} s, "
+                  f"validation {r['val_s']:.3f} s, save {r['save_s']:.3f} s;"
+                  f" CIDEr {stats['CIDEr']:.4f}, best {r['best']}",
+                  flush=True)
+        check_eval_files(out_dir, eval_cfg, val["seg_id"],
+                         {s.split("_segment_")[0] for s in val["seg_id"]})
+        with open(os.path.join(cfg.checkpoint_path, "infos.json")) as f:
+            infos = json.load(f)
+        check(infos["epoch"] == 2 and infos["step"] == 2
+              and sorted(infos["histories"]["val"]) == ["0", "1"],
+              f"driver infos {infos}")
+        check(os.path.isdir(os.path.join(cfg.checkpoint_path, "model-best")),
+              "no model-best")
+
+        # crash recovery: other weights, then the latest checkpoint
+        other = GVDModel(cfg).init(torch.Generator().manual_seed(1))
+        resumed = trainer_for(cfg, other.state_dict())
+        t0 = time.perf_counter()
+        infos = CheckpointManager(cfg.checkpoint_path).restore(
+            resumed, load_best=False)
+        restore_s = time.perf_counter() - t0
+        blob = torch.load(os.path.join(cfg.checkpoint_path, "model",
+                                       STATE_FILE), map_location=dev,
+                          weights_only=True)
+        for (k, a), b, c in zip(resumed.model.state_dict().items(),
+                                blob["model"].values(),
+                                trainer.model.state_dict().values()):
+            check(torch.equal(a, b) and torch.equal(a, c),
+                  f"restored {k} differs")
+        sa, sb = (resumed.optimizer.state_dict(),
+                  trainer.optimizer.state_dict())
+        check(sa["param_groups"] == sb["param_groups"], "optimizer groups")
+        for i, st in sb["state"].items():
+            for k, v in st.items():
+                check(torch.equal(sa["state"][i][k], v),
+                      f"restored optimizer state {i} {k} differs")
+        check(torch.equal(resumed.generator.get_state(),
+                          trainer.generator.get_state()), "generator state")
+        check(resumed.step == 2 and infos["epoch"] == 2,
+              f"restored step {resumed.step}, infos {infos}")
+        del trainer, other, blob
+        torch.cuda.empty_cache()
+        records = run(cfg.replace(max_epochs=3), resumed, infos)
+        check([r["epoch"] for r in records] == [2],
+              f"resumed run records {records}")
+        print(f"driver resumed at epoch 2 (restore {restore_s:.3f} s, model, "
+              f"optimizer and generator bit-identical): train "
+              f"{records[0]['train_s']:.3f} s, validation "
+              f"{records[0]['val_s']:.3f} s, save {records[0]['save_s']:.3f} "
+              f"s", flush=True)
+        del resumed
+        torch.cuda.empty_cache()
+    return launches
+
+
 def check_eval_files(out_dir, cfg, seg_ids, vids):
     """The four JSONs parse and hold every segment."""
     tag = f"{cfg.val_split}-{cfg.id}.json"
@@ -828,19 +1295,31 @@ def main() -> int:
     print(f"build {time.perf_counter() - t0:.1f} s -> "
           f"{os.path.relpath(so, ROOT)}", flush=True)
 
+    def timed(phase, *args):
+        t = time.perf_counter()
+        out = phase(*args)
+        print(f"{phase.__name__}: {time.perf_counter() - t:.1f} s",
+              flush=True)
+        return out
+
     results = {}
-    phase_region_attention(dev, results)
-    phase_birnn(dev, results)
-    phase_encoder_layer(dev, results)
-    phase_attention_train(dev, results)
+    timed(phase_region_attention, dev, results)
+    timed(phase_birnn, dev, results)
+    timed(phase_encoder_layer, dev, results)
+    timed(phase_attention_train, dev, results)
+    timed(phase_encoder_layer_train, dev, results)
     base, state = flagship()
-    phase_decode_kernel(dev, results, base, state)
-    phase_flash_mha(dev, results)
-    launches = phase_end_to_end(dev, base, state)
+    timed(phase_decode_kernel, dev, results, base, state)
+    timed(phase_flash_mha, dev, results)
+    launches = timed(phase_end_to_end, dev, base, state)
     # K2 and K3 keep the greedy path's counts; K6 and K7 run on the eval
-    for name, n in phase_eval(dev, base, state).items():
+    for name, n in timed(phase_eval, dev, base, state).items():
         launches.setdefault(name, n)
-    launches.update(phase_train(dev))
+    # K4 counts from the train step; K5 from the training driver
+    launches.update(timed(phase_train, dev, state))
+    driver = timed(phase_driver, dev, state)
+    for name in ("encoder_layer_train_fwd", "encoder_layer_train_bwd"):
+        launches[name] = driver[name]
 
     rows = [("region_attention", "region_attention",
              "grounded_video_description_torch/csrc/region_attention.cu",
@@ -861,6 +1340,14 @@ def main() -> int:
              "grounded_video_description_torch/csrc/attention_train.cu",
              "grounded_video_description_tpu/ops/pallas/"
              "attention_train.py:185"),
+            ("encoder_layer_train_fwd", "encoder_layer_train_fwd",
+             "grounded_video_description_torch/csrc/encoder_layer_train.cu",
+             "grounded_video_description_tpu/ops/pallas/"
+             "encoder_layer_train.py:401"),
+            ("encoder_layer_train_bwd", "encoder_layer_train_bwd",
+             "grounded_video_description_torch/csrc/encoder_layer_train.cu",
+             "grounded_video_description_tpu/ops/pallas/"
+             "encoder_layer_train.py:459"),
             ("decode_scan", "decode_scan",
              "grounded_video_description_torch/csrc/decode_scan.cu",
              "grounded_video_description_tpu/ops/pallas/decode_scan.py:325"),
@@ -873,7 +1360,9 @@ def main() -> int:
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches[name],
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                        "plain_ms": r["plain_ms"], "dtype": "float32"})
+                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                        "bound_by": r["bound_by"],
+                        "library_ms": r["library_ms"], "dtype": "float32"})
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

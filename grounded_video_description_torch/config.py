@@ -24,18 +24,33 @@ honours every flag on every device.
 The evaluator's fields (``language_eval``, ``eval_obj_grounding``,
 ``eval_obj_grounding_gt``, the reference files, ``val_split``, ``id``)
 are the JAX package's too; ``beam_size > 1`` and ``vis_attn`` are not
-ported and make the evaluator raise.
+ported and make the evaluator raise.  So are the training driver's
+(``main.py``: the dataset files, the epoch loop, checkpointing, logging);
+``mesh_shape`` and ``coordinator_address`` are read only to refuse them.
+``from_cli`` parses flags named after these fields, so a JAX flag the
+port does not read is an argparse error.
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 from dataclasses import dataclass, field
-from typing import List
+from typing import List, Optional
 
 
 @dataclass
 class GVDConfig:
+    # ---- data input (opts.py:13-28) ----
+    path_opt: Optional[str] = None
+    input_json: str = ""
+    input_dic: str = ""
+    proposal_h5: str = ""
+    feature_root: str = ""
+    seg_feature_root: str = ""
+    glove_file: str = ""
+    packed_cache_dir: str = ""
+
     # ---- model dims (opts.py:38-64) ----
     rnn_size: int = 1024
     input_encoding_size: int = 512
@@ -47,6 +62,7 @@ class GVDConfig:
     t_attn_size: int = 480
     num_sampled_frm: int = 10
     num_prop_per_frm: int = 100
+    prop_thresh: float = 0.2
     glove_dim: int = 300
     loc_encoding_size: int = 300
     seg_info_size: int = 50
@@ -59,6 +75,7 @@ class GVDConfig:
 
     enable_BUTD: bool = False
     obj_interact: bool = False
+    exclude_bgd_det: bool = False
 
     # ---- loss weights (opts.py:70-73) ----
     w_att2: float = 0.0
@@ -67,6 +84,7 @@ class GVDConfig:
     disable_caption: bool = False
 
     # ---- optimization (opts.py:76-108) ----
+    max_epochs: int = 40
     batch_size: int = 10
     grad_clip: float = 0.1
     drop_prob_lm: float = 0.5
@@ -88,11 +106,14 @@ class GVDConfig:
 
     beam_size: int = 1                  # > 1 is not ported (beam search)
 
-    # ---- evaluation (opts.py:111-155) ----
+    # ---- run, checkpointing and evaluation (opts.py:111-155) ----
     image_path: str = ""
     data_path: str = "data"
+    start_from: Optional[str] = None
     id: str = ""
+    train_split: str = "training"
     val_split: str = "validation"
+    inference_only: bool = False
     densecap_references: List[str] = field(default_factory=lambda: [
         "./data/anet/anet_entities_val_1.json",
         "./data/anet/anet_entities_val_2.json",
@@ -104,7 +125,11 @@ class GVDConfig:
     eval_obj_grounding: bool = False
     vis_attn: bool = False              # not ported (utils/visualize.py)
     val_images_use: int = -1
+    val_every_epoch: int = 2
+    checkpoint_path: str = "save"
     language_eval: bool = False
+    load_best_score: int = 1
+    disp_interval: int = 100
 
     # ---- execution ----
     dtype: str = "float32"              # compute dtype: float32 | bfloat16
@@ -113,6 +138,7 @@ class GVDConfig:
     use_pallas_mha: bool = False        # K7
     use_pallas_encoder: bool = True     # K1
     use_pallas_decode: bool = False     # K6
+    use_pallas_encoder_train: bool = False   # K5; takes precedence over K4
     attn_train_impl: str = "xla"        # K4: xla | pallas | hybrid
     # evaluations that score grounding run with K1 off
     # (engine/evaluator.py::grounding_eval_cfg)
@@ -123,6 +149,12 @@ class GVDConfig:
     # logit head width rounded up to a multiple of this; pad columns are
     # masked before the log-softmax
     vocab_pad_to: int = 1
+    # a device mesh and multi-host runs are not ported: the driver refuses
+    # them (ROADMAP Queue 1 item 13)
+    mesh_shape: Optional[List[int]] = None
+    coordinator_address: Optional[str] = None
+    log_jsonl: Optional[str] = None     # metrics JSONL sink
+    tensorboard_dir: Optional[str] = None   # TensorBoard scalar mirror
 
     # ---- from the dataset ----
     vocab_size: int = 0
@@ -201,6 +233,49 @@ class GVDConfig:
 
     def replace(self, **kw) -> "GVDConfig":
         return dataclasses.replace(self, **kw)
+
+    @classmethod
+    def from_yaml(cls, path: str, **overrides) -> "GVDConfig":
+        """The fields of a YAML file (keys that are no field, and null
+        values, are skipped), then ``overrides``."""
+        import yaml
+
+        with open(path) as f:
+            raw = yaml.safe_load(f) or {}
+        known = {f.name for f in dataclasses.fields(cls)}
+        kw = {k: v for k, v in raw.items() if k in known and v is not None}
+        kw.update(overrides)
+        return cls(**kw)
+
+    @classmethod
+    def from_cli(cls, argv: Optional[List[str]] = None) -> "GVDConfig":
+        """Flags named after the fields (``--flag`` / ``--no-flag`` for a
+        bool), overlaid on the YAML of ``--path_opt``: YAML values override
+        the defaults, explicit flags override both, as in the JAX
+        package's ``GVDConfig.from_cli``."""
+        parser = argparse.ArgumentParser(
+            prog="python -m grounded_video_description_torch.main")
+        for f in dataclasses.fields(cls):
+            name = "--" + f.name
+            if f.type in ("bool", bool):
+                parser.add_argument(name,
+                                    action=argparse.BooleanOptionalAction,
+                                    default=None)
+            elif f.name in ("densecap_references", "mesh_shape"):
+                parser.add_argument(name, type=str, nargs="+", default=None)
+            else:
+                typ = {"int": int, "float": float}.get(f.type, str)
+                parser.add_argument(name, type=typ, default=None)
+        explicit = {k: v for k, v in vars(parser.parse_args(argv)).items()
+                    if v is not None}
+        if "mesh_shape" in explicit:
+            explicit["mesh_shape"] = [int(x) for x in explicit["mesh_shape"]]
+        path_opt = explicit.get("path_opt")
+        cfg = cls.from_yaml(path_opt) if path_opt else cls()
+        cfg = cfg.replace(**explicit)
+        cfg = cfg.replace(test_mode=cfg.val_split in ("testing",
+                                                      "hidden_test"))
+        return cfg.validate()
 
 
 def tiny_test_config(**overrides) -> GVDConfig:

@@ -9,6 +9,8 @@
 // (encoder_layer_train.py::uniform_hash): two murmur3 fmix32 passes over
 // (i * Rp + j) ^ fmix32(seed + fmix32(salt)), Rp = R rounded up to 128,
 // salt = 0x40000000 + b * max(n_heads, 8) + h, u = (hash >> 8) * 2^-24.
+// The salt's base and multiplier are arguments: K5 (encoder_layer_train.cu)
+// runs these kernels with its own prob site, 0x10000000 + b * 8 + h.
 // The masks are bit for bit the JAX kernel's, so both passes regenerate
 // them from (seed, b, h, i, j) and no mask is ever stored.
 //
@@ -53,31 +55,22 @@ namespace {
 constexpr int BQ = 64, BKEY = 64, TPT = 4, THREADS = 256;
 constexpr int MAX_HEAD = 192;          // NV <= 3; keeps the backward <= 227 KB
 constexpr int ST_LD = BKEY + 1;        // row stride of a 64 x 64 score tile
-constexpr uint32_t SITE_ATTN = 0x40000000u;
 
-__device__ __forceinline__ uint32_t fmix32(uint32_t x) {
-  x ^= x >> 16;
-  x *= 0x85EBCA6Bu;
-  x ^= x >> 13;
-  x *= 0xC2B2AE35u;
-  x ^= x >> 16;
-  return x;
-}
-
-// The per-(row, head) key of the dropout hash.
+// The per-(row, head) key of the dropout hash: salt = salt_base +
+// b * salt_mul + head (K4: 0x40000000, max(n_heads, 8); K5: 0x10000000, 8).
 __device__ __forceinline__ uint32_t head_mix(const long long* seed, int b,
-                                             int head, int n_heads) {
-  const uint32_t salt =
-      SITE_ATTN + (uint32_t)b * (uint32_t)max(n_heads, 8) + (uint32_t)head;
-  return fmix32((uint32_t)(unsigned long long)seed[0] + fmix32(salt));
+                                             int head, uint32_t salt_base,
+                                             int salt_mul) {
+  return gvd::salt_mix(seed, salt_base + (uint32_t)b * (uint32_t)salt_mul +
+                                 (uint32_t)head);
 }
 
 // 1 / (1 - rate) where prob (i, j) is kept, 0 where it is dropped.
 __device__ __forceinline__ float keep_scale(uint32_t mix, int i, int j,
                                             int Rp, float rate,
                                             float inv_keep) {
-  const uint32_t h = fmix32(((uint32_t)i * (uint32_t)Rp + (uint32_t)j) ^ mix);
-  const float u = (float)(h >> 8) * (1.0f / 16777216.0f);
+  const float u =
+      gvd::hash_uniform(mix, (uint32_t)i * (uint32_t)Rp + (uint32_t)j);
   return u >= rate ? inv_keep : 0.0f;
 }
 
@@ -176,7 +169,8 @@ __global__ void __launch_bounds__(THREADS, 2)
 fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
            const T* __restrict__ v, T* __restrict__ out,
            float* __restrict__ lse, const long long* __restrict__ seed, int R,
-           int D, int hs, int n_heads, float inv_scale, float rate) {
+           int D, int hs, uint32_t salt_base, int salt_mul, float inv_scale,
+           float rate) {
   extern __shared__ __align__(16) float smem[];
   const int q0 = blockIdx.x * BQ, head = blockIdx.y, b = blockIdx.z;
   const int c0 = head * hs, dh = min(hs, D - c0), dh4 = (dh + 3) / 4 * 4;
@@ -193,7 +187,8 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int Rp = (R + 127) / 128 * 128;
   const bool dropping = DROP && rate > 0.0f;
   const float inv_keep = 1.0f / (1.0f - rate);
-  const uint32_t mix = dropping ? head_mix(seed, b, head, n_heads) : 0u;
+  const uint32_t mix =
+      dropping ? head_mix(seed, b, head, salt_base, salt_mul) : 0u;
 
   if (tid < BQ) {
     m_s[tid] = -INFINITY;
@@ -325,8 +320,8 @@ bwd_kv_kernel(const T* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, const T* __restrict__ dout,
               const float* __restrict__ lse, const float* __restrict__ delta,
               const long long* __restrict__ seed, T* __restrict__ dk,
-              T* __restrict__ dv, int R, int D, int hs, int n_heads,
-              float inv_scale, float rate) {
+              T* __restrict__ dv, int R, int D, int hs, uint32_t salt_base,
+              int salt_mul, float inv_scale, float rate) {
   extern __shared__ __align__(16) float smem[];
   const int k0 = blockIdx.x * BKEY, head = blockIdx.y, b = blockIdx.z;
   const int c0 = head * hs, dh = min(hs, D - c0), dh4 = (dh + 3) / 4 * 4;
@@ -344,7 +339,8 @@ bwd_kv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int Rp = (R + 127) / 128 * 128;
   const bool dropping = rate > 0.0f;
   const float inv_keep = 1.0f / (1.0f - rate);
-  const uint32_t mix = dropping ? head_mix(seed, b, head, n_heads) : 0u;
+  const uint32_t mix =
+      dropping ? head_mix(seed, b, head, salt_base, salt_mul) : 0u;
 
   gvd::load_tile_rows(Ks, ld, k + base, D, k0, BKEY, R, dh, dh4);
   gvd::load_tile_rows(Vs, ld, v + base, D, k0, BKEY, R, dh, dh4);
@@ -403,7 +399,8 @@ bwd_q_kernel(const T* __restrict__ q, const T* __restrict__ k,
              const T* __restrict__ v, const T* __restrict__ dout,
              const float* __restrict__ lse, const float* __restrict__ delta,
              const long long* __restrict__ seed, T* __restrict__ dq, int R,
-             int D, int hs, int n_heads, float inv_scale, float rate) {
+             int D, int hs, uint32_t salt_base, int salt_mul, float inv_scale,
+             float rate) {
   extern __shared__ __align__(16) float smem[];
   const int q0 = blockIdx.x * BQ, head = blockIdx.y, b = blockIdx.z;
   const int c0 = head * hs, dh = min(hs, D - c0), dh4 = (dh + 3) / 4 * 4;
@@ -421,7 +418,8 @@ bwd_q_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int Rp = (R + 127) / 128 * 128;
   const bool dropping = rate > 0.0f;
   const float inv_keep = 1.0f / (1.0f - rate);
-  const uint32_t mix = dropping ? head_mix(seed, b, head, n_heads) : 0u;
+  const uint32_t mix =
+      dropping ? head_mix(seed, b, head, salt_base, salt_mul) : 0u;
 
   gvd::load_tile_rows(Qs, ld, q + base, D, q0, BQ, R, dh, dh4);
   gvd::load_tile_rows(dOs, ld, dout + base, D, q0, BQ, R, dh, dh4);
@@ -465,14 +463,15 @@ bwd_q_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int NV, bool DROP = true>
 int launch_fwd(const void* q, const void* k, const void* v, void* out,
                float* lse, const long long* seed, int B, int R, int D, int hs,
-               int n_heads, float inv_scale, float rate, cudaStream_t s) {
+               uint32_t salt_base, int salt_mul, float inv_scale, float rate,
+               cudaStream_t s) {
   const size_t smem = fwd_smem(gvd::tile_ld(hs));
   cudaError_t e = gvd::allow_smem(fwd_kernel<T, NV, DROP>, smem);
   if (e != cudaSuccess) return (int)e;
   dim3 grid((R + BQ - 1) / BQ, (D + hs - 1) / hs, B);
   fwd_kernel<T, NV, DROP><<<grid, THREADS, smem, s>>>(
       (const T*)q, (const T*)k, (const T*)v, (T*)out, lse, seed, R, D, hs,
-      n_heads, inv_scale, rate);
+      salt_base, salt_mul, inv_scale, rate);
   return (int)cudaGetLastError();
 }
 
@@ -480,8 +479,8 @@ template <typename T, int NV>
 int launch_bwd(const void* q, const void* k, const void* v, const void* out,
                const void* dout, const float* lse, const long long* seed,
                void* dq, void* dk, void* dv, float* delta, int B, int R,
-               int D, int hs, int n_heads, float inv_scale, float rate,
-               cudaStream_t s) {
+               int D, int hs, uint32_t salt_base, int salt_mul,
+               float inv_scale, float rate, cudaStream_t s) {
   const int heads = (D + hs - 1) / hs;
   const int rows = B * R;
   delta_kernel<T><<<(rows + THREADS / 32 - 1) / (THREADS / 32), THREADS, 0,
@@ -497,38 +496,41 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* out,
   dim3 grid_kv((R + BKEY - 1) / BKEY, heads, B);
   bwd_kv_kernel<T, NV><<<grid_kv, THREADS, smem, s>>>(
       (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta, seed,
-      (T*)dk, (T*)dv, R, D, hs, n_heads, inv_scale, rate);
+      (T*)dk, (T*)dv, R, D, hs, salt_base, salt_mul, inv_scale, rate);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   dim3 grid_q((R + BQ - 1) / BQ, heads, B);
   bwd_q_kernel<T, NV><<<grid_q, THREADS, smem, s>>>(
       (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta, seed,
-      (T*)dq, R, D, hs, n_heads, inv_scale, rate);
+      (T*)dq, R, D, hs, salt_base, salt_mul, inv_scale, rate);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // q, k, v, out: (B, R, D) contiguous; lse: (B, heads, R) f32, written;
-// seed: one int64 on the device (its low 32 bits key the hash).
+// seed: one int64 on the device (its low 32 bits key the hash); the mask of
+// (row b, head h) is salted salt_base + b * salt_mul + h.
 extern "C" int gvd_attention_train_fwd(int dtype, const void* q,
                                        const void* k, const void* v,
                                        void* out, void* lse, const void* seed,
                                        int B, int R, int D, int n_heads,
                                        float inv_scale, float rate,
+                                       int salt_base, int salt_mul,
                                        void* stream) {
   const int hs = (D + n_heads - 1) / n_heads;
   if (hs > MAX_HEAD) return (int)cudaErrorInvalidValue;
   const int nv = (hs + 63) / 64;
   cudaStream_t s = (cudaStream_t)stream;
   const long long* sd = (const long long*)seed;
+  const uint32_t sb = (uint32_t)salt_base;
   GVD_DISPATCH(dtype, T, {
     switch (nv) {
       case 1: return launch_fwd<T, 1>(q, k, v, out, (float*)lse, sd, B, R, D,
-                                      hs, n_heads, inv_scale, rate, s);
+                                      hs, sb, salt_mul, inv_scale, rate, s);
       case 2: return launch_fwd<T, 2>(q, k, v, out, (float*)lse, sd, B, R, D,
-                                      hs, n_heads, inv_scale, rate, s);
+                                      hs, sb, salt_mul, inv_scale, rate, s);
       default: return launch_fwd<T, 3>(q, k, v, out, (float*)lse, sd, B, R, D,
-                                       hs, n_heads, inv_scale, rate, s);
+                                       hs, sb, salt_mul, inv_scale, rate, s);
     }
   });
   return (int)cudaErrorInvalidValue;
@@ -543,7 +545,8 @@ extern "C" int gvd_attention_train_bwd(int dtype, const void* q,
                                        void* dq, void* dk, void* dv,
                                        void* delta, int B, int R, int D,
                                        int n_heads, float inv_scale,
-                                       float rate, void* stream) {
+                                       float rate, int salt_base,
+                                       int salt_mul, void* stream) {
   const int hs = (D + n_heads - 1) / n_heads;
   if (hs > MAX_HEAD) return (int)cudaErrorInvalidValue;
   const int nv = (hs + 63) / 64;
@@ -551,17 +554,18 @@ extern "C" int gvd_attention_train_bwd(int dtype, const void* q,
   const long long* sd = (const long long*)seed;
   const float* l = (const float*)lse;
   float* dl = (float*)delta;
+  const uint32_t sb = (uint32_t)salt_base;
   GVD_DISPATCH(dtype, T, {
     switch (nv) {
       case 1: return launch_bwd<T, 1>(q, k, v, out, dout, l, sd, dq, dk, dv,
-                                      dl, B, R, D, hs, n_heads, inv_scale,
-                                      rate, s);
+                                      dl, B, R, D, hs, sb, salt_mul,
+                                      inv_scale, rate, s);
       case 2: return launch_bwd<T, 2>(q, k, v, out, dout, l, sd, dq, dk, dv,
-                                      dl, B, R, D, hs, n_heads, inv_scale,
-                                      rate, s);
+                                      dl, B, R, D, hs, sb, salt_mul,
+                                      inv_scale, rate, s);
       default: return launch_bwd<T, 3>(q, k, v, out, dout, l, sd, dq, dk, dv,
-                                       dl, B, R, D, hs, n_heads, inv_scale,
-                                       rate, s);
+                                       dl, B, R, D, hs, sb, salt_mul,
+                                       inv_scale, rate, s);
     }
   });
   return (int)cudaErrorInvalidValue;
@@ -578,12 +582,12 @@ extern "C" int gvd_flash_self_attention(int dtype, const void* q,
   GVD_DISPATCH(dtype, T, {
     switch ((d + 63) / 64) {
       case 1: return launch_fwd<T, 1, false>(q, k, v, out, nullptr, nullptr,
-                                             N, R, d, d, 1, 1.0f, 0.0f, s);
+                                             N, R, d, d, 0u, 0, 1.0f, 0.0f, s);
       case 2: return launch_fwd<T, 2, false>(q, k, v, out, nullptr, nullptr,
-                                             N, R, d, d, 1, 1.0f, 0.0f, s);
+                                             N, R, d, d, 0u, 0, 1.0f, 0.0f, s);
       default: return launch_fwd<T, 3, false>(q, k, v, out, nullptr,
-                                              nullptr, N, R, d, d, 1, 1.0f,
-                                              0.0f, s);
+                                              nullptr, N, R, d, d, 0u, 0,
+                                              1.0f, 0.0f, s);
     }
   });
   return (int)cudaErrorInvalidValue;

@@ -88,6 +88,28 @@ __device__ float block_reduce(float v, float* scratch) {
   return r;
 }
 
+// The JAX package's dropout hash (ops/pallas/encoder_layer_train.py::
+// uniform_hash): u = (fmix32(ctr ^ mix) >> 8) * 2^-24 for a counter ctr,
+// with mix = fmix32(seed + fmix32(salt)) per (seed, salt); uint32 wraps.
+__device__ __forceinline__ uint32_t fmix32(uint32_t x) {
+  x ^= x >> 16;
+  x *= 0x85EBCA6Bu;
+  x ^= x >> 13;
+  x *= 0xC2B2AE35u;
+  x ^= x >> 16;
+  return x;
+}
+
+// seed: one int64 on the device, of which the low 32 bits count.
+__device__ __forceinline__ uint32_t salt_mix(const long long* seed,
+                                             uint32_t salt) {
+  return fmix32((uint32_t)(unsigned long long)seed[0] + fmix32(salt));
+}
+
+__device__ __forceinline__ float hash_uniform(uint32_t mix, uint32_t ctr) {
+  return (float)(fmix32(ctr ^ mix) >> 8) * (1.0f / 16777216.0f);
+}
+
 // Let `kern` take `smem` bytes of dynamic shared memory (above 48 KB a
 // kernel has to ask).
 template <typename K>

@@ -1,0 +1,73 @@
+"""Checkpoint and resume of the port.
+
+The counterpart of ``grounded_video_description_tpu/engine/checkpoint.py::
+CheckpointManager`` (reference: main.py:620-652, 702-743), with the same
+file names and JSON sidecars in the checkpoint directory: ``model`` and
+``model-best`` (directories), ``infos.json`` and ``infos-best.json`` (the
+driver's metadata, with the trainer's ``step`` added).  Where the JAX
+package writes its parameter and optimizer trees with Orbax, ``model``
+holds one ``torch.save`` file: the model's ``state_dict`` (whose keys the
+JAX package's ``import_torch_checkpoint`` reads), the optimizer's
+``state_dict``, the step and the dropout generator's state, so a resumed
+run draws the masks the uninterrupted one would have.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from typing import Dict
+
+import torch
+
+STATE_FILE = "checkpoint.pt"
+
+
+class CheckpointManager:
+    def __init__(self, directory: str):
+        self.dir = os.path.abspath(directory)
+        os.makedirs(self.dir, exist_ok=True)
+
+    def _save(self, name: str, blob: Dict, infos: Dict, infos_name: str):
+        path = os.path.join(self.dir, name)
+        os.makedirs(path, exist_ok=True)
+        tmp = os.path.join(path, STATE_FILE + ".tmp")
+        torch.save(blob, tmp)
+        os.replace(tmp, os.path.join(path, STATE_FILE))
+        with open(os.path.join(self.dir, infos_name), "w") as f:
+            json.dump(infos, f)
+
+    def save(self, trainer, infos: Dict, *, best: bool = False):
+        """``model`` (and ``model-best`` when ``best``) from the trainer's
+        model, optimizer, step and generator, with ``infos`` (plus the
+        step) beside it."""
+        blob = {"model": trainer.model.state_dict(),
+                "optimizer": trainer.optimizer.state_dict(),
+                "step": trainer.step,
+                "generator": trainer.generator.get_state()}
+        infos = {**infos, "step": trainer.step}
+        self._save("model", blob, infos, "infos.json")
+        if best:
+            self._save("model-best", blob, infos, "infos-best.json")
+
+    def restore(self, trainer, *, load_best: bool = True) -> Dict:
+        """Loads ``model-best`` when ``load_best`` and it exists, else
+        ``model``, into the trainer; returns that checkpoint's infos."""
+        name = "model-best" if load_best and os.path.isdir(
+            os.path.join(self.dir, "model-best")) else "model"
+        # loaded to the host: load_state_dict copies each tensor to where
+        # its parameter lives, and Adam keeps its step counts on the host
+        blob = torch.load(os.path.join(self.dir, name, STATE_FILE),
+                          map_location="cpu", weights_only=True)
+        trainer.model.load_state_dict(blob["model"])
+        trainer.optimizer.load_state_dict(blob["optimizer"])
+        trainer.generator.set_state(blob["generator"])
+        infos_file = os.path.join(
+            self.dir, "infos-best.json" if name == "model-best"
+            else "infos.json")
+        infos = {}
+        if os.path.isfile(infos_file):
+            with open(infos_file) as f:
+                infos = json.load(f)
+        trainer.step = infos.get("step", blob["step"])
+        return infos

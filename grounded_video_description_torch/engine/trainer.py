@@ -15,7 +15,8 @@ with optax's formula.
 
 from __future__ import annotations
 
-from typing import Dict, Iterable, List
+import time
+from typing import Callable, Dict, Iterable, List, Optional
 
 import torch
 
@@ -88,8 +89,9 @@ def batch_to_device(cfg: GVDConfig, batch: Dict,
 
 
 class Trainer:
-    """Holds the model, its optimizer and the dropout generator (on the
-    model's device, seeded with ``cfg.seed`` unless one is given)."""
+    """Holds the model, its optimizer, the dropout generator (on the
+    model's device, seeded with ``cfg.seed`` unless one is given) and the
+    count of updates made (``step``, which the checkpoint saves)."""
 
     def __init__(self, cfg: GVDConfig, model: GVDModel,
                  generator: torch.Generator = None):
@@ -101,6 +103,7 @@ class Trainer:
         self.optimizer = make_optimizer(cfg, model)
         self.params = [p for g in self.optimizer.param_groups
                        for p in g["params"]]
+        self.step = 0
 
     def lr_at_epoch(self, epoch: int) -> float:
         """main.py:679-684: times decay_rate every decay_every epochs past
@@ -160,20 +163,32 @@ class Trainer:
             group["lr"] = lr * group["lr_scale"]
         self.optimizer.step()
         self.optimizer.zero_grad(set_to_none=True)
+        self.step += 1
         return metrics
 
-    def fit_epoch(self, loader: Iterable[Dict], epoch: int
+    def fit_epoch(self, loader: Iterable[Dict], epoch: int,
+                  log_fn: Optional[Callable[[Dict], None]] = None
                   ) -> Dict[str, float]:
-        """One epoch over numpy batches: each goes to the device
+        """One epoch over the loader's numpy batches (trainer.py:324-417):
+        each, without its ``seg_id`` and ``n_valid``, goes to the device
         (``batch_to_device``) and through ``train_step`` at the epoch's
-        learning rate.  Metrics are summed on the device and read once, at
-        the end, as means over the steps."""
+        learning rate.  Metrics are summed on the device; they are read
+        only every ``disp_interval`` steps, for ``log_fn`` (running means
+        with the epoch, step, learning rate and seconds per batch), and at
+        the end, as means over the epoch's steps."""
         device = next(self.model.parameters()).device
         lr = self.lr_at_epoch(epoch)
         total, n = None, 0
+        t0 = time.time()
         for batch in loader:
+            batch = {k: v for k, v in batch.items()
+                     if k not in ("seg_id", "n_valid")}
             m = self.train_step(batch_to_device(self.cfg, batch, device), lr)
             total = m if total is None else {k: total[k] + m[k]
                                              for k in total}
             n += 1
+            if log_fn and n % max(self.cfg.disp_interval, 1) == 0:
+                log_fn({"epoch": epoch, "step": self.step, "lr": lr,
+                        **{k: float(v) / n for k, v in total.items()},
+                        "time_per_batch": (time.time() - t0) / n})
         return {k: float(v) / n for k, v in (total or {}).items()}

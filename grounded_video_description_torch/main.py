@@ -1,0 +1,217 @@
+"""Training driver of the port:
+
+    python -m grounded_video_description_torch.main [--device cuda] FLAGS
+
+The counterpart of the repository's ``main.py`` (reference driver:
+main.py:520-743), which stays the JAX package's: the config from flags
+and a ``--path_opt`` YAML (``GVDConfig.from_cli``), the datasets and
+loaders, the model on the card, optional resume (crash recovery from the
+latest checkpoint in ``--checkpoint_path``, or ``--start_from`` a run's
+directory, best or latest by ``--load_best_score``), then the epoch loop:
+``Trainer.fit_epoch``, and every ``val_every_epoch`` epochs
+``Evaluator.evaluate`` and, under ``eval_obj_grounding_gt``,
+``eval_grounding_gt``, with a checkpoint after each validation and
+``model-best`` where CIDEr rose.  The evaluation JSONs are written under
+the working directory, as the JAX driver writes them.
+
+``--device`` (default ``cuda``) is read before the config's flags.  With
+no visible card the driver raises; it never moves to the CPU by itself.
+The tests pass ``--device cpu``, where every kernel flag takes its plain
+version.
+
+Not ported, and refused with ``NotImplementedError``: a device mesh and
+multi-host runs (``--mesh_shape``, ``--coordinator_address``; ROADMAP
+Queue 1 item 13) and the Visual-Genome weight transfer (applied by the
+JAX driver when ``data_path/detectron_weights`` exists and
+``transfer_mode`` is not "none"; item 16).
+"""
+
+from __future__ import annotations
+
+import argparse
+import copy
+import json
+import os
+import sys
+import time
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from grounded_video_description_torch.config import GVDConfig
+
+
+def resolve_device(name: str) -> torch.device:
+    """The device ``--device`` names; a CUDA device must be visible."""
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"--device {name}: no CUDA device is visible (pass --device cpu "
+            "to run on the CPU)")
+    return device
+
+
+def build_model_and_vocab(cfg: GVDConfig, device: torch.device):
+    """The datasets of ``train_split`` and ``val_split``, the config with
+    the vocabulary's sizes, and the model initialised from ``cfg.seed`` on
+    ``device`` (main.py:44-83)."""
+    from grounded_video_description_torch.data.dataset import AnetDataset
+    from grounded_video_description_torch.models import GVDModel
+
+    dataset = AnetDataset(cfg, split=cfg.train_split)
+    dataset_val = AnetDataset(cfg, split=cfg.val_split)
+    vocab = dataset.vocab
+    unk = int(vocab.wtoi.get("UNK", vocab.vocab_size - 1))
+    cfg = cfg.replace(vocab_size=vocab.vocab_size,
+                      detect_size=vocab.detect_size, unk_idx=unk)
+    detectron_dir = os.path.join(cfg.data_path, "detectron_weights")
+    if os.path.isdir(detectron_dir) and cfg.transfer_mode != "none":
+        raise NotImplementedError(
+            f"{detectron_dir} exists and transfer_mode is "
+            f"{cfg.transfer_mode!r}: the Visual-Genome weight transfer is "
+            "not ported (ROADMAP Queue 1 item 16); pass --transfer_mode "
+            "none to train without it")
+    model = GVDModel(cfg).init(torch.Generator().manual_seed(cfg.seed))
+    return cfg, model.to(device), dataset, dataset_val, vocab
+
+
+def sharing_model(model, cfg: GVDConfig):
+    """``model`` itself if ``cfg`` is its config, else a shallow copy that
+    shares its parameters and buffers and runs with ``cfg`` (the
+    evaluator's config differs from training's only in kernel flags)."""
+    if cfg is model.cfg:
+        return model
+    view = copy.copy(model)
+    view.cfg = cfg
+    return view
+
+
+def run(cfg: GVDConfig, trainer, evaluator, loader, loader_val, ckpt,
+        logger, infos: Dict, *, out_dir: str = ".") -> List[Dict]:
+    """The epoch loop (main.py:223-265) from ``infos["epoch"]`` to
+    ``max_epochs``.  Returns one record per epoch: the seconds its
+    training, validation and checkpoint took, its stats and whether it
+    saved ``model-best``."""
+    best_val = infos.get("best_val_score")
+    start_epoch = infos.get("epoch", 0)
+    # loss, learning-rate and validation histories saved with the
+    # checkpoint (reference histories_*.pkl, main.py:718-732)
+    histories = infos.get("histories", {"loss": {}, "lr": {}, "val": {}})
+    records = []
+    for epoch in range(start_epoch, cfg.max_epochs):
+        rec = {"epoch": epoch}
+        if not cfg.inference_only:
+            t0 = time.perf_counter()
+            train_metrics = trainer.fit_epoch(loader, epoch,
+                                              log_fn=logger.log)
+            rec["train_s"] = time.perf_counter() - t0
+            print(f"epoch {epoch}: " + " ".join(
+                f"{k}={v:.4f}" for k, v in train_metrics.items()))
+            logger.log({"epoch": epoch, **train_metrics})
+            histories["loss"][str(epoch)] = train_metrics.get("loss")
+            histories["lr"][str(epoch)] = trainer.lr_at_epoch(epoch)
+
+        if epoch % cfg.val_every_epoch == 0 or cfg.inference_only:
+            t0 = time.perf_counter()
+            stats = evaluator.evaluate(loader_val, epoch=epoch,
+                                       out_dir=out_dir)
+            if cfg.att_model == "topdown" and cfg.eval_obj_grounding_gt:
+                stats.update(evaluator.eval_grounding_gt(loader_val,
+                                                         out_dir=out_dir))
+            rec["val_s"] = time.perf_counter() - t0
+            rec["stats"] = stats
+            logger.log({"epoch": epoch, "split": cfg.val_split, **stats})
+
+            if cfg.inference_only:
+                print(json.dumps(stats))
+                records.append(rec)
+                break
+
+            current = stats.get("CIDEr", 0.0)
+            best_flag = best_val is None or current > best_val
+            if best_flag:
+                best_val = current
+            histories["val"][str(epoch)] = stats
+            t0 = time.perf_counter()
+            ckpt.save(trainer, {"epoch": epoch + 1,
+                                "best_val_score": best_val,
+                                "vocab_size": cfg.vocab_size,
+                                "histories": histories},
+                      best=best_flag)
+            rec["save_s"] = time.perf_counter() - t0
+            rec["best"] = best_flag
+            print(f"checkpoint saved (best={best_flag}, "
+                  f"CIDEr={current:.4f})")
+        records.append(rec)
+    return records
+
+
+def parse_args(argv: Optional[List[str]] = None):
+    """``--device``, then the config's own flags."""
+    pre = argparse.ArgumentParser(add_help=False)
+    pre.add_argument("--device", default="cuda")
+    args, rest = pre.parse_known_args(argv)
+    return resolve_device(args.device), GVDConfig.from_cli(rest)
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    from grounded_video_description_torch.data.dataset import Loader
+    from grounded_video_description_torch.engine.checkpoint import (
+        CheckpointManager)
+    from grounded_video_description_torch.engine.evaluator import (
+        Evaluator, grounding_eval_cfg)
+    from grounded_video_description_torch.engine.trainer import Trainer
+    from grounded_video_description_torch.utils.logging import MetricLogger
+
+    device, cfg = parse_args(argv)
+    if cfg.mesh_shape is not None or cfg.coordinator_address:
+        raise NotImplementedError(
+            "a device mesh and multi-host runs (--mesh_shape, "
+            "--coordinator_address) are not ported (ROADMAP Queue 1 "
+            "item 13)")
+    np.random.seed(cfg.seed)
+
+    cfg, model, dataset, dataset_val, vocab = build_model_and_vocab(
+        cfg, device)
+    if cfg.packed_cache_dir:
+        from grounded_video_description_torch.data.packed_cache import (
+            open_or_build)
+        dataset = open_or_build(
+            dataset, os.path.join(cfg.packed_cache_dir, cfg.train_split))
+        dataset_val = open_or_build(
+            dataset_val, os.path.join(cfg.packed_cache_dir, cfg.val_split))
+    loader = Loader(dataset, cfg.batch_size, shuffle=True, seed=cfg.seed)
+    loader_val = Loader(dataset_val, cfg.batch_size, shuffle=False,
+                        drop_last=False, pad_last=True)
+
+    trainer = Trainer(cfg, model)
+    ckpt = CheckpointManager(cfg.checkpoint_path)
+    logger = MetricLogger(cfg.log_jsonl, tensorboard_dir=cfg.tensorboard_dir)
+
+    infos = {"epoch": 0, "best_val_score": None}
+    resume_dir = cfg.start_from
+    if not resume_dir and os.path.isdir(
+            os.path.join(cfg.checkpoint_path, "model")):
+        # crash recovery: pick up the run in progress
+        resume_dir = cfg.checkpoint_path
+    if resume_dir:
+        # crash recovery continues from the latest state; an explicit
+        # --start_from honours --load_best_score (main.py:622-628)
+        load_best = (cfg.load_best_score == 1) if cfg.start_from else False
+        infos = CheckpointManager(resume_dir).restore(trainer,
+                                                      load_best=load_best)
+        print(f"resumed from {resume_dir} at epoch {infos.get('epoch', 0)}")
+
+    eval_cfg = grounding_eval_cfg(cfg)
+    if eval_cfg is not cfg:
+        print("grounding eval active: encoder kernel gated off for metric "
+              "fidelity (pallas_encoder_grounding_guard)")
+    evaluator = Evaluator(eval_cfg, sharing_model(model, eval_cfg), vocab)
+    run(cfg, trainer, evaluator, loader, loader_val, ckpt, logger, infos)
+    logger.close()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -17,8 +17,9 @@ package.  Config flags select the hand-written kernels: at inference
 (K1, the obj_interact layer), ``use_pallas_mha`` (K7, the obj_interact
 self-attention when K1 is off), ``use_pallas`` (K3, the per-token region
 attention) and ``use_pallas_decode`` (K6, the whole greedy decode), which
-have no backward and are off in training; in training ``attn_train_impl``
-(K4, the obj_interact attention).  A kernel wrapper
+have no backward and are off in training; in training
+``use_pallas_encoder_train`` (K5, the whole obj_interact layer), else
+``attn_train_impl`` (K4, the obj_interact attention).  A kernel wrapper
 runs its plain version on CPU tensors.  The config is the port's own
 (``config.py``), field for field a subset of the JAX package's.
 
@@ -253,7 +254,8 @@ class GVDModel(nn.Module):
                 use_kernel=cfg.use_pallas_encoder,
                 use_mha=cfg.use_pallas_mha, train=train,
                 drop=cfg.enc_drop, generator=generator,
-                attn_train_impl=cfg.attn_train_impl)[-1]
+                attn_train_impl=cfg.attn_train_impl,
+                fused_train=cfg.use_pallas_encoder_train)[-1]
 
         p_pool_feats = _lin(self.ctx2pool, pool_feats)
 

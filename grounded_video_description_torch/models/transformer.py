@@ -30,6 +30,8 @@ from grounded_video_description_torch.ops.kernels.encoder_layer import (
     LN_EPS, EncoderLayerWeights, fused_encoder_layer,
     fused_encoder_layer_plain, head_slices, layer_tail,
 )
+from grounded_video_description_torch.ops.kernels.encoder_layer_train import (
+    fused_encoder_layer_train)
 from grounded_video_description_torch.ops.kernels.mha import (
     flash_self_attention)
 
@@ -196,11 +198,34 @@ def _encoder_layer_flash(w: EncoderLayerWeights, x: torch.Tensor, *,
     return layer_tail(x, F.linear(o, w.wo.to(dt)), w)
 
 
+def encoder_apply_fused_train(enc: Encoder, x: torch.Tensor, *,
+                              n_heads: int, drop: float,
+                              generator: Optional[torch.Generator]
+                              ) -> List[torch.Tensor]:
+    """Training through K5, one ``fused_encoder_layer_train`` per layer
+    (JAX ``encoder_layer_train.py::encoder_apply_fused_train``; no mask
+    path): one dropout seed per layer drawn from ``generator``; with
+    ``drop`` 0 or no generator the rate is 0 and the seeds are zero."""
+    if generator is None or drop <= 0.0:
+        drop = 0.0
+        seeds = [torch.zeros(1, dtype=torch.int64, device=x.device)
+                 for _ in enc.layers]
+    else:
+        seeds = [draw_seed(generator) for _ in enc.layers]
+    encodings = []
+    for lp, seed in zip(enc.layers, seeds):
+        x = fused_encoder_layer_train(x, lp.weights(), seed, n_heads=n_heads,
+                                      drop=drop)
+        encodings.append(x)
+    return encodings
+
+
 def encoder_apply(enc: Encoder, x: torch.Tensor, *, n_heads: int,
                   use_kernel: bool = False, use_mha: bool = False,
                   train: bool = False, drop: float = 0.0,
                   generator: Optional[torch.Generator] = None,
-                  attn_train_impl: str = "xla") -> List[torch.Tensor]:
+                  attn_train_impl: str = "xla",
+                  fused_train: bool = False) -> List[torch.Tensor]:
     """Per-layer encodings (transformer.py:177-190).
 
     At inference: one ``fused_encoder_layer`` (K1) per layer with
@@ -211,10 +236,15 @@ def encoder_apply(enc: Encoder, x: torch.Tensor, *, n_heads: int,
     ``fused_encoder_layer_plain`` (the head-sequential schedule of
     transformer.py:211-234, scores and softmax in f32).
 
-    In training (``train``): the differentiable layer, with dropout at
-    ``drop`` from ``generator`` and the attention schedule
-    ``attn_train_impl`` ("xla", "pallas" or "hybrid"; see
-    ``_self_attention_train``)."""
+    In training (``train``): with ``fused_train`` the whole layer through
+    K5 (``encoder_apply_fused_train``), as gvd.py:256-265 dispatches it
+    before the attention schedule is looked at; otherwise the
+    differentiable layer, with dropout at ``drop`` from ``generator`` and
+    the attention schedule ``attn_train_impl`` ("xla", "pallas" or
+    "hybrid"; see ``_self_attention_train``)."""
+    if train and fused_train:
+        return encoder_apply_fused_train(enc, x, n_heads=n_heads, drop=drop,
+                                         generator=generator)
     encodings = []
     for lp in enc.layers:
         if train:

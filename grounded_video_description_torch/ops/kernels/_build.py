@@ -54,13 +54,29 @@ _SIGNATURES = {
     # dtype, x, y, gamma, beta, out, rows, D, eps, stream
     "gvd_residual_layer_norm": [_I] + [_P] * 5 + [_I, _I, _F, _P],
     # dtype, q, k, v, out, lse, seed, B, R, D, n_heads, inv_scale, rate,
-    # stream
-    "gvd_attention_train_fwd": [_I] + [_P] * 6 + [_I] * 4 + [_F, _F, _P],
+    # salt_base, salt_mul, stream
+    "gvd_attention_train_fwd": [_I] + [_P] * 6 + [_I] * 4 + [_F, _F, _I, _I,
+                                                             _P],
     # dtype, q, k, v, out, dout, lse, seed, dq, dk, dv, delta, B, R, D,
-    # n_heads, inv_scale, rate, stream
-    "gvd_attention_train_bwd": [_I] + [_P] * 11 + [_I] * 4 + [_F, _F, _P],
+    # n_heads, inv_scale, rate, salt_base, salt_mul, stream
+    "gvd_attention_train_bwd": [_I] + [_P] * 11 + [_I] * 4 + [_F, _F, _I, _I,
+                                                              _P],
     # dtype, q, k, v, out, N, R, d, stream
     "gvd_flash_self_attention": [_I] + [_P] * 4 + [_I] * 3 + [_P],
+    # dtype, a_f32, layout, A, B, M, N, K, splits, bias, relu, mask, resid,
+    # C, c_f32, partial, stream
+    "gvd_k5_gemm": [_I] * 3 + [_P] * 2 + [_I] * 4 + [_P, _I, _P, _P, _P, _I,
+                                                     _P, _P],
+    # dtype, x_f32, x, a, seed, salt_base, R, rate, keep, gamma, beta,
+    # out_f32, out_t, normed, sigma, rows, D, eps, stream
+    "gvd_k5_ln_fwd": [_I, _I] + [_P] * 3 + [_I, _I, _F, _F] + [_P] * 6
+                     + [_I, _I, _F, _P],
+    # dtype, g_f32, g, normed, sigma, gamma, seed, salt_base, R, rate, keep,
+    # dy, dyd, rows, D, eps, stream
+    "gvd_k5_ln_bwd": [_I, _I] + [_P] * 5 + [_I, _I, _F, _F, _P, _P, _I, _I,
+                                             _F, _P],
+    # dtype, a_f32, a, b, M, N, chunks, partial, out1, out2, stream
+    "gvd_k5_colsum": [_I, _I, _P, _P, _I, _I, _I, _P, _P, _P, _P],
     # dtype, 4 banks and the pnt mask, 13 weights, 10 state buffers,
     # 3 outputs (see csrc/decode_scan.cu), B, T, R, H, A, E, V, Vp, L,
     # unk, stream

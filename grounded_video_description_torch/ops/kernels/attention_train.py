@@ -119,7 +119,12 @@ def _check(q, k, v, seed, n_heads):
     _build.dtype_code(q)
 
 
-def _kernel_forward(q, k, v, seed, n_heads, scale, drop):
+def attention_forward(q, k, v, seed, *, n_heads: int, scale: float,
+                      drop: float, salt_base: int, salt_mul: int):
+    """The forward kernel on CUDA tensors (B, R, D), the masks of (row b,
+    head h) salted ``salt_base + b * salt_mul + h``: returns the output
+    and the row log-sum-exp (B, heads, R) f32.  Counts no launch: K4's
+    and K5's wrappers count their own."""
     B, R, D = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((B, len(head_slices(D, n_heads)), R),
@@ -127,10 +132,34 @@ def _kernel_forward(q, k, v, seed, n_heads, scale, drop):
     code = _build.lib().gvd_attention_train_fwd(
         _build.dtype_code(q), q.data_ptr(), k.data_ptr(), v.data_ptr(),
         out.data_ptr(), lse.data_ptr(), seed.data_ptr(), B, R, D, n_heads,
-        1.0 / scale, drop, _build.stream_of(q))
+        1.0 / scale, drop, salt_base, salt_mul, _build.stream_of(q))
     _build.check(code, "attention_train_fwd")
-    _build.launches["attention_train_fwd"] += 1
     return out, lse
+
+
+def attention_backward(q, k, v, out, lse, seed, dout, *, n_heads: int,
+                       scale: float, drop: float, salt_base: int,
+                       salt_mul: int):
+    """The backward kernels for ``attention_forward``'s output: dq, dk, dv
+    in q's dtype.  Counts no launch."""
+    B, R, D = q.shape
+    dout = dout.contiguous()
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    delta = torch.empty_like(lse)
+    code = _build.lib().gvd_attention_train_bwd(
+        _build.dtype_code(q), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        out.data_ptr(), dout.data_ptr(), lse.data_ptr(), seed.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(), B, R,
+        D, n_heads, 1.0 / scale, drop, salt_base, salt_mul,
+        _build.stream_of(q))
+    _build.check(code, "attention_train_bwd")
+    return dq, dk, dv
+
+
+def _kernel_forward(q, k, v, seed, n_heads, scale, drop):
+    return attention_forward(q, k, v, seed, n_heads=n_heads, scale=scale,
+                             drop=drop, salt_base=SITE_ATTN,
+                             salt_mul=max(n_heads, 8))
 
 
 def _plain_forward(q, k, v, seed, n_heads, scale, drop):
@@ -148,8 +177,11 @@ def _plain_forward(q, k, v, seed, n_heads, scale, drop):
 class _AttentionTrain(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, seed, n_heads, scale, drop, plain_forward):
-        fwd = _plain_forward if plain_forward else _kernel_forward
-        out, lse = fwd(q, k, v, seed, n_heads, scale, drop)
+        if plain_forward:
+            out, lse = _plain_forward(q, k, v, seed, n_heads, scale, drop)
+        else:
+            out, lse = _kernel_forward(q, k, v, seed, n_heads, scale, drop)
+            _build.launches["attention_train_fwd"] += 1
         ctx.save_for_backward(q, k, v, out, lse, seed)
         ctx.args = (n_heads, scale, drop)
         return out
@@ -158,16 +190,9 @@ class _AttentionTrain(torch.autograd.Function):
     def backward(ctx, dout):
         q, k, v, out, lse, seed = ctx.saved_tensors
         n_heads, scale, drop = ctx.args
-        B, R, D = q.shape
-        dout = dout.contiguous()
-        dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-        delta = torch.empty_like(lse)
-        code = _build.lib().gvd_attention_train_bwd(
-            _build.dtype_code(q), q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            out.data_ptr(), dout.data_ptr(), lse.data_ptr(), seed.data_ptr(),
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(), B,
-            R, D, n_heads, 1.0 / scale, drop, _build.stream_of(q))
-        _build.check(code, "attention_train_bwd")
+        dq, dk, dv = attention_backward(
+            q, k, v, out, lse, seed, dout, n_heads=n_heads, scale=scale,
+            drop=drop, salt_base=SITE_ATTN, salt_mul=max(n_heads, 8))
         _build.launches["attention_train_bwd"] += 1
         return dq, dk, dv, None, None, None, None, None
 

@@ -16,6 +16,8 @@ setup(
                                                 "native/Makefile"],
         # the PyTorch port's CUDA kernels, built with nvcc at first use
         "grounded_video_description_torch": ["csrc/*.cu", "csrc/*.cuh"],
+        # its host batch packer, built with the C++ compiler at first use
+        "grounded_video_description_torch.data": ["native/pack.cc"],
     },
     python_requires=">=3.10",
     install_requires=["jax", "optax", "orbax-checkpoint", "numpy",

@@ -208,6 +208,102 @@ def test_attention_train_kernel(dev, dtype, drop):
         assert _within(c, r, dtype), name
 
 
+def _k5_setup(dev, dtype):
+    """K5 at R = 300 (Rp = 384, not a multiple of the 64-row tiles),
+    D = 96 in six heads of 16, FFN 48, B = 3; LayerNorm affines away from
+    1 and 0; a random output cotangent."""
+    g = torch.Generator().manual_seed(21)
+    enc = Encoder(96, 48, 1)
+    enc.reset_parameters(g)
+    with torch.no_grad():
+        for ln in (enc.layers[0].selfattn.layernorm,
+                   enc.layers[0].feedforward.layernorm):
+            ln.gamma.add_(0.2 * torch.randn(96, generator=g))
+            ln.beta.add_(0.2 * torch.randn(96, generator=g))
+    enc = enc.to(dev)
+    x = torch.randn(3, 300, 96, generator=g).to(dev, dtype)
+    w = torch.randn(3, 300, 96, generator=g).to(dev)
+    return enc, x, w
+
+
+def _k5_run(fn, enc, x, w, seed, drop):
+    """The output and the gradients of x and of the 12 layer tensors."""
+    enc.zero_grad(set_to_none=True)
+    xl = x.detach().clone().requires_grad_(True)
+    lw = enc.layers[0].weights()
+    out = fn(xl, lw, seed, n_heads=6, drop=drop)
+    (out.float() * w).sum().backward()
+    return [out.detach(), xl.grad] + [t.grad.clone() for t in lw]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("drop", [0.0, 0.2])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_encoder_layer_train_kernel(dev, dtype, drop):
+    """K5 forward and the 13 gradients against the plain twin's autograd
+    on the same seed and masks: f32 output within 1e-4 of its largest
+    magnitude and each gradient within 1e-3 of its own (sums over 900 rows
+    in another order), bf16 at the bf16 bar; a second call gives the same
+    bits; one launch count per pass."""
+    from grounded_video_description_torch.ops.kernels.encoder_layer_train \
+        import fused_encoder_layer_train, fused_encoder_layer_train_plain
+    enc, x, w = _k5_setup(dev, dtype)
+    seed = torch.tensor([0xDEADBEEF], device=dev)
+    ref = _k5_run(fused_encoder_layer_train_plain, enc, x, w, seed, drop)
+    got = _k5_run(fused_encoder_layer_train, enc, x, w, seed, drop)
+    again = _k5_run(fused_encoder_layer_train, enc, x, w, seed, drop)
+    torch.cuda.synchronize()
+    assert _build.launches["encoder_layer_train_fwd"] == 2
+    assert _build.launches["encoder_layer_train_bwd"] == 2
+    assert not _build.launches["attention_train_fwd"]
+    for i, (a, b, r) in enumerate(zip(got, again, ref)):
+        assert torch.equal(a, b), i
+        assert a.dtype == r.dtype and a.shape == r.shape, i
+        if dtype == torch.float32:
+            bar = (1e-4 if i == 0 else 1e-3) * float(r.abs().max())
+            assert float((a - r).abs().max()) <= bar, i
+        else:
+            assert _within(a, r, dtype), i
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", [0, 1, 2])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_k5_gemm_layouts(dev, dtype, layout):
+    """K5's GEMM in its three layouts at odd shapes, A in the compute dtype
+    and in f32 (rounded as it loads), against f32 products of the same
+    rounded operands; the A^T B layout also split over 3 row blocks, and
+    the epilogue (bias, ReLU, mask, residual) on the other two."""
+    from grounded_video_description_torch.ops.kernels import (
+        encoder_layer_train as k5)
+    M, N, K = 300, 200, 170
+    g = torch.Generator(device=dev).manual_seed(4)
+    a_shape = (K, M) if layout == 2 else (M, K)
+    b_shape = (N, K) if layout == 0 else (K, N)
+    for a_dtype in {dtype, torch.float32}:
+        a = torch.randn(a_shape, generator=g, device=dev).to(a_dtype)
+        b = torch.randn(b_shape, generator=g, device=dev).to(dtype)
+        af, bf = a.to(dtype).float(), b.float()
+        op_a = af.t() if layout == 2 else af
+        op_b = bf.t() if layout == 0 else bf
+        ref = op_a @ op_b
+        if layout == 2:
+            for splits in (1, 3):
+                got = k5._mm(layout, a, b, M, N, K, out_f32=True,
+                             splits=splits)
+                assert _within(got, ref, torch.float32, 1e-3), splits
+            continue
+        bias = torch.randn(N, generator=g, device=dev)
+        mask = (torch.rand(M, N, generator=g, device=dev) > 0.5).to(dtype)
+        resid = torch.randn(M, N, generator=g, device=dev)
+        got = k5._mm(layout, a, b, M, N, K, out_f32=False, bias=bias,
+                     relu=True, mask=mask, resid=resid)
+        want = torch.relu(ref + bias) * (mask.float() > 0) + resid
+        torch.cuda.synchronize()
+        assert got.dtype == dtype
+        assert _within(got, want.to(dtype), dtype, 1e-3)
+
+
 def _decode_setup(dev, dtype):
     """A tiny model of the flagship's shape (obj_interact, BiGRU, mix,
     att_input_mode both), B = 5 (no multiple of the TPU kernel's tile of

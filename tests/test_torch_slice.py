@@ -76,6 +76,17 @@ _CONFIG_CASES = {
         use_pallas_mha=True, id="flagship", val_split="testing",
         densecap_references=["ref.json"], grd_reference="grd.json",
         split_file="split.json", data_path="d", val_images_use=200)),
+    # the training driver's fields, with K5 in training
+    "flagship-driver": (False, dict(
+        vocab_size=4905, detect_size=431, obj_interact=True, batch_size=240,
+        grad_accum=8, w_att2=0.05, w_cls=0.1, use_pallas_encoder_train=True,
+        dtype="bfloat16", input_json="cap.json", input_dic="dic.json",
+        proposal_h5="p.h5", feature_root="fc6", seg_feature_root="seg",
+        glove_file="g.txt", prop_thresh=0.3, exclude_bgd_det=True,
+        packed_cache_dir="cache", train_split="training", max_epochs=30,
+        val_every_epoch=1, checkpoint_path="save/run", start_from="save/a",
+        load_best_score=0, inference_only=True, disp_interval=20,
+        log_jsonl="m.jsonl", tensorboard_dir="tb", path_opt="o.yml")),
 }
 
 
@@ -278,6 +289,14 @@ def test_port_imports_no_jax():
         "import grounded_video_description_torch.evalmetrics.tokenizer\n"
         "import grounded_video_description_torch.ops.kernels.decode_scan\n"
         "import grounded_video_description_torch.ops.kernels.mha\n"
+        "import grounded_video_description_torch.ops.kernels."
+        "encoder_layer_train\n"
+        "import grounded_video_description_torch.data.dataset\n"
+        "import grounded_video_description_torch.data.native_pack\n"
+        "import grounded_video_description_torch.data.packed_cache\n"
+        "import grounded_video_description_torch.engine.checkpoint\n"
+        "import grounded_video_description_torch.utils.logging\n"
+        "import grounded_video_description_torch.main\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in"
         " ('jax', 'grounded_video_description_tpu'))\n"

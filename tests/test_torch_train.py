@@ -349,11 +349,18 @@ def _port_step(cfg, init, batch):
 @pytest.mark.parametrize("step_ref,impl", [
     ("bigru-accum1", "pallas"), ("bigru-accum2", "pallas"),
     ("bilstm-accum1", "pallas"), ("bigru-accum1", "xla"),
-    ("bigru-accum1", "hybrid")], indirect=["step_ref"])
+    ("bigru-accum1", "hybrid"), ("bigru-accum1", "k5")],
+    indirect=["step_ref"])
 def test_train_step_matches_jax_trainer(step_ref, impl):
     """Losses within 1e-5 relative; parameters within 1e-6 absolute (see
-    PARAM_ATOL); BatchNorm statistics equal."""
-    cfg = step_ref["cfg"].replace(attn_train_impl=impl)
+    PARAM_ATOL); BatchNorm statistics equal.  "k5" trains the obj_interact
+    layers through K5's wrapper (``use_pallas_encoder_train``, every
+    dropout 0), which the JAX Trainer runs on its XLA encoder off the TPU:
+    the same function."""
+    if impl == "k5":
+        cfg = step_ref["cfg"].replace(use_pallas_encoder_train=True)
+    else:
+        cfg = step_ref["cfg"].replace(attn_train_impl=impl)
     model, metrics, grads = _port_step(cfg, step_ref["init"],
                                        step_ref["batch"])
     for k in LOSS_KEYS:
