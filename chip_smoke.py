@@ -34,10 +34,11 @@ from the latest checkpoint by a second run.  Any failed check ends the
 run with a non-zero exit.
 
 Output: human-readable lines, then the card's name and power limit, then
-one JSON line with each kernel's launches on the main path, its error
-against the plain version, its time, its plain version's, its bound and
-the library call's, and as the last line ``{"ok": true, "device":
-{...}}``.
+one JSON line with a row per kernel and dtype (f32, bf16): its launches
+on the main path in that dtype, its error against the plain version, its
+time, its plain version's, its bound and the library call's (the bf16 K4
+rows also the time of the repack that its tensor-core kernels run
+first), and as the last line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -230,24 +231,23 @@ def phase_birnn(dev, results):
             b = bound(2 * T_FRAMES * 2 * B * H * G,
                       nbytes(gi, wh, ys_k, *([bh] if bh is not None else [])),
                       name)
-            library_ms = None
-            if mode == "bigru":
-                # cuDNN's bidirectional GRU over the same sequence; it also
-                # computes the input projection that gi holds
-                gru = torch.nn.GRU(D_RNN, H, bidirectional=True).to(dev, dt)
-                # one weight buffer; PyTorch skips this for bf16, whose
-                # weights it then compacts at every call
-                gru.flatten_parameters()
-                xs = torch.randn(T_FRAMES, B, D_RNN, generator=g, device=dev,
-                                 dtype=dt)
-                with torch.no_grad():
-                    library_ms = time_ms(lambda: gru(xs), 5)
-                del gru, xs
+            # cuDNN's bidirectional GRU or LSTM over the same sequence,
+            # timed only; it also computes the input projection that gi
+            # holds
+            rnn = (torch.nn.GRU if mode == "bigru" else torch.nn.LSTM)(
+                D_RNN, H, bidirectional=True).to(dev, dt)
+            # one weight buffer; PyTorch skips this for bf16, whose weights
+            # it then compacts at every call
+            rnn.flatten_parameters()
+            xs = torch.randn(T_FRAMES, B, D_RNN, generator=g, device=dev,
+                             dtype=dt)
+            with torch.no_grad():
+                library_ms = time_ms(lambda: rnn(xs), 5)
+            del rnn, xs
             print(f"K2 birnn_recurrence {mode} {name}: err {err:.3e}; "
                   f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
-                  f"{b['bound_ms']:.3f} ms ({b['bound_by']})"
-                  + (f", cuDNN GRU {library_ms:.3f} ms" if library_ms else ""),
-                  flush=True)
+                  f"{b['bound_ms']:.3f} ms ({b['bound_by']}), cuDNN "
+                  f"{mode[2:].upper()} {library_ms:.3f} ms", flush=True)
             results[(f"birnn_recurrence_{mode}", name)] = dict(
                 max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 library_ms=library_ms, **b)
@@ -346,7 +346,7 @@ def phase_attention_train(dev, results):
     and both passes timed alone."""
     import torch
     from grounded_video_description_torch.ops.kernels.attention_train \
-        import mha_probs_dropout, mha_probs_dropout_plain
+        import mha_probs_dropout, mha_probs_dropout_plain, pack_heads
 
     Bm, heads = 30, 6
     g = torch.Generator(device=dev).manual_seed(11)
@@ -400,6 +400,16 @@ def phase_attention_train(dev, results):
                     max_abs_err=max(errs["dq"], errs["dk"], errs["dv"]),
                     ms=k_bwd, plain_ms=p_bwd,
                     **bound(10 * Bm * R * R * D_RNN, 8 * act, name))
+                if dt == torch.bfloat16:
+                    # the bf16 kernels first repack q, k, v (and dO in the
+                    # backward) head-major; inside k_fwd and k_bwd
+                    for part, xs in (("fwd", [q, k, v]),
+                                     ("bwd", [q, k, v, w])):
+                        rp = time_ms(lambda: pack_heads(xs, heads), 5)
+                        results[(f"attention_train_{part}", name)][
+                            "repack_ms"] = rp
+                        print(f"K4 bf16 repack of {len(xs)} tensors "
+                              f"({part}): {rp:.3f} ms", flush=True)
                 print(f"K4 {name}: bound forward " + ", backward ".join(
                     f"{results[(k, name)]['bound_ms']:.3f} ms "
                     f"({results[(k, name)]['bound_by']})" for k in (
@@ -642,8 +652,9 @@ def phase_train(dev, state):
     and the plain attention: in f32 with every dropout 0 one step each,
     K5 and K4 against plain; in bf16 at the flagship rates a warm-up and
     three timed steps each, taken in turns (K5, K4, plain, then the
-    reverse), with each step's launch counts checked.  Returns the
-    launch counts of the bf16 K4 and K5 runs' timed steps."""
+    reverse), with each step's launch counts checked.  Returns the launch
+    counts of the K4 and K5 runs per dtype: the f32 step's, and the bf16
+    timed steps'."""
     import torch
     from grounded_video_description_torch.data.synthetic import synthetic_batch
     from grounded_video_description_torch.engine.trainer import (
@@ -671,7 +682,7 @@ def phase_train(dev, state):
         return Trainer(cfg, model.to(dev))
 
     # (a) f32, every dropout rate 0: K5 and K4 against the plain attention
-    stats = {}
+    stats, f32_counts = {}, {}
     for name, flags in TRAIN_PATHS.items():
         cfg = base.replace(drop_prob_lm=0.0, loc_drop=0.0, enc_drop=0.0,
                            **flags)
@@ -682,6 +693,7 @@ def phase_train(dev, state):
         stats[name] = {k: float(v) for k, v in m.items()}
         check(dict(_build.launches) == per_step[name],
               f"f32 {name} step launches {dict(_build.launches)}")
+        f32_counts.update(_build.launches)
         del tr
         torch.cuda.empty_cache()
     for name in ("K5", "K4"):
@@ -728,7 +740,8 @@ def phase_train(dev, state):
     rates = {name: BT / statistics.median(r[3]) for name, r in runs.items()}
     print("train bf16 segments/s (median of 3 steps, in turns): " + ", ".join(
         f"{name} {rate:.2f}" for name, rate in rates.items()), flush=True)
-    launches = {**runs["K4"][4], **runs["K5"][4]}
+    launches = {"float32": f32_counts,
+                "bfloat16": {**runs["K4"][4], **runs["K5"][4]}}
     del runs
     torch.cuda.empty_cache()
     return launches
@@ -736,8 +749,8 @@ def phase_train(dev, state):
 
 def phase_end_to_end(dev, base, state):
     """sample_greedy at the flagship configuration, through the kernels
-    and on the plain path.  Returns the launch counts of the f32 kernel
-    run."""
+    and on the plain path.  Returns the launch counts of the kernel run
+    per dtype."""
     import torch
     from grounded_video_description_torch.data.synthetic import synthetic_batch
     from grounded_video_description_torch.models import batch_to_tensors
@@ -750,7 +763,7 @@ def phase_end_to_end(dev, base, state):
                                      use_pallas_rnn=kernels,
                                      use_pallas_encoder=kernels), state, dev)
 
-    launches = None
+    launches = {}
     for dtype in ("float32", "bfloat16"):
         outs, rates = {}, {}
         for kernels in (True, False):
@@ -765,8 +778,7 @@ def phase_end_to_end(dev, base, state):
                           "region_attention": base.seq_length}
                 check(counts == expect,
                       f"{dtype} kernel run launches {counts} != {expect}")
-                if dtype == "float32":
-                    launches = counts
+                launches[dtype] = counts
             else:
                 check(not counts, f"plain run launched kernels: {counts}")
             for name, t in zip(("seq", "logprobs", "att2", "sim_mat"), out):
@@ -993,7 +1005,7 @@ def phase_eval(dev, base, state):
     ``Evaluator.evaluate`` and ``Evaluator.eval_grounding_gt`` over two
     batches of B, through the kernels (K6, K7, K2, K3; K1 off by the
     guard) and with every kernel flag off, in f32 and bf16.  Returns the
-    launch counts of the f32 kernel run."""
+    launch counts of the kernel runs per dtype."""
     import tempfile
     import torch
     from grounded_video_description_torch.data.synthetic import synthetic_batch
@@ -1024,7 +1036,7 @@ def phase_eval(dev, base, state):
             yield batch
             counts.append(dict(_build.launches))
 
-    launches = None
+    launches = {}
     with tempfile.TemporaryDirectory() as root:
         cfg0 = grounding_eval_cfg(base.replace(
             language_eval=True, eval_obj_grounding=True,
@@ -1070,12 +1082,12 @@ def phase_eval(dev, base, state):
                     check(got == [want] * len(batches),
                           f"{dtype} kernels={kernels} {call} launches per "
                           f"batch {got} != {want}")
-                if kernels and dtype == "float32":
-                    launches = {}
+                if kernels:
+                    total = launches.setdefault(dtype, {})
                     for got in counts.values():
                         for c in got:
                             for k, n in c.items():
-                                launches[k] = launches.get(k, 0) + n
+                                total[k] = total.get(k, 0) + n
                 for k, v in stats.items():
                     check(isinstance(v, str) or math.isfinite(v),
                           f"{dtype} kernels={kernels} stat {k} = {v}")
@@ -1311,15 +1323,18 @@ def main() -> int:
     base, state = flagship()
     timed(phase_decode_kernel, dev, results, base, state)
     timed(phase_flash_mha, dev, results)
+    # launches per dtype and kernel: K1, K2 and K3 from the greedy path,
+    # K6 and K7 from the eval, K4 and K5 from the train step (f32) and the
+    # timed train steps and the training driver (bf16)
     launches = timed(phase_end_to_end, dev, base, state)
-    # K2 and K3 keep the greedy path's counts; K6 and K7 run on the eval
-    for name, n in timed(phase_eval, dev, base, state).items():
-        launches.setdefault(name, n)
-    # K4 counts from the train step; K5 from the training driver
-    launches.update(timed(phase_train, dev, state))
+    for dt, counts in timed(phase_eval, dev, base, state).items():
+        for name, n in counts.items():
+            launches[dt].setdefault(name, n)
+    for dt, counts in timed(phase_train, dev, state).items():
+        launches[dt].update(counts)
     driver = timed(phase_driver, dev, state)
     for name in ("encoder_layer_train_fwd", "encoder_layer_train_bwd"):
-        launches[name] = driver[name]
+        launches["bfloat16"][name] = driver[name]
 
     rows = [("region_attention", "region_attention",
              "grounded_video_description_torch/csrc/region_attention.cu",
@@ -1354,15 +1369,30 @@ def main() -> int:
             ("flash_self_attention", "flash_self_attention",
              "grounded_video_description_torch/csrc/attention_train.cu",
              "grounded_video_description_tpu/ops/pallas/mha.py:70")]
+    bf16_source = {      # the bf16 launches of K4, K5's attention and K7
+        "attention_train_fwd": "grounded_video_description_torch/csrc/"
+                               "attention_mma.cu",
+        "attention_train_bwd": "grounded_video_description_torch/csrc/"
+                               "attention_mma.cu",
+        "flash_self_attention": "grounded_video_description_torch/csrc/"
+                                "attention_mma.cu"}
     kernels = []
-    for name, key, source, replaces in rows:
-        r = results[(key, "float32")]
-        kernels.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces, "launches": launches[name],
-                        "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                        "bound_by": r["bound_by"],
-                        "library_ms": r["library_ms"], "dtype": "float32"})
+    for dt in ("float32", "bfloat16"):
+        for name, key, source, replaces in rows:
+            r = results[(key, dt)]
+            n = launches[dt].get(name, 0)
+            check(n > 0, f"{name} ({dt}) was not launched on the main path")
+            row = {"name": name, "route": "cuda",
+                   "source": (bf16_source.get(name, source)
+                              if dt == "bfloat16" else source),
+                   "replaces": replaces, "launches": n,
+                   "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                   "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                   "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+                   "dtype": dt}
+            if "repack_ms" in r:
+                row["repack_ms"] = r["repack_ms"]
+            kernels.append(row)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

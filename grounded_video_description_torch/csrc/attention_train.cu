@@ -15,7 +15,8 @@
 // them from (seed, b, h, i, j) and no mask is ever stored.
 //
 // q, k, v, o are (B, R, D) with the heads as torch.chunk column ranges
-// (171 x 5 + 169 at D = 1024), as in K1: no head split or padding.
+// (171 x 5 + 169 at D = 1024), as in K1; these f32 kernels read them in
+// place, with no head split or padding.
 //
 // What bounds it on an H100: arithmetic.  At the flagship microbatch
 // (B = 30, R = 1000, six heads of 171) the forward is two and the backward
@@ -32,10 +33,15 @@
 //    query tiles for dK and dV, and one per 64-query tile that walks all
 //    key tiles for dQ.  Each recomputes P = exp(s - lse) and the mask.  No
 //    atomics, so a second call gives the same bits.
-// Scores, softmax and every backward elementwise chain run in f32 in both
-// dtypes; the products run on the f32 SIMT units (no wgmma or TMA yet).
+// These SIMT kernels are the f32 path: scores, softmax, every backward
+// elementwise chain and the products all run in f32, on the SIMT units.
+// TF32 tensor-core products would keep ~3 decimal digits and miss the f32
+// bars (1e-4 against the twin; the CPU parity tests against JAX), so f32
+// stays here.  bf16 inputs go to the tensor-core kernels of
+// csrc/attention_mma.cu (same function, same masks; see its note).
 //
-// K7, the inference flash attention, is this forward too.
+// K7, the inference flash attention, is this forward too (in f32; its bf16
+// launch runs the tensor-core forward).
 // gvd_flash_self_attention replaces grounded_video_description_tpu/ops/
 // pallas/mha.py::flash_self_attention: softmax(q k^T) v per leading index
 // of (N, R, d) tensors, q pre-scaled, d odd (171 at flagship width).  It
@@ -48,6 +54,7 @@
 // loaded element by element, so the odd row stride needs no padding, and
 // keys past R are masked to -inf.
 
+#include "attention_mma.cuh"
 #include "common.cuh"
 
 namespace {
@@ -55,24 +62,6 @@ namespace {
 constexpr int BQ = 64, BKEY = 64, TPT = 4, THREADS = 256;
 constexpr int MAX_HEAD = 192;          // NV <= 3; keeps the backward <= 227 KB
 constexpr int ST_LD = BKEY + 1;        // row stride of a 64 x 64 score tile
-
-// The per-(row, head) key of the dropout hash: salt = salt_base +
-// b * salt_mul + head (K4: 0x40000000, max(n_heads, 8); K5: 0x10000000, 8).
-__device__ __forceinline__ uint32_t head_mix(const long long* seed, int b,
-                                             int head, uint32_t salt_base,
-                                             int salt_mul) {
-  return gvd::salt_mix(seed, salt_base + (uint32_t)b * (uint32_t)salt_mul +
-                                 (uint32_t)head);
-}
-
-// 1 / (1 - rate) where prob (i, j) is kept, 0 where it is dropped.
-__device__ __forceinline__ float keep_scale(uint32_t mix, int i, int j,
-                                            int Rp, float rate,
-                                            float inv_keep) {
-  const float u =
-      gvd::hash_uniform(mix, (uint32_t)i * (uint32_t)Rp + (uint32_t)j);
-  return u >= rate ? inv_keep : 0.0f;
-}
 
 __host__ __device__ constexpr size_t fwd_smem(int ld) {
   return (size_t)(BQ * ld + BKEY * ld + BQ * ST_LD + 3 * BQ) * sizeof(float);
@@ -188,7 +177,7 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const bool dropping = DROP && rate > 0.0f;
   const float inv_keep = 1.0f / (1.0f - rate);
   const uint32_t mix =
-      dropping ? head_mix(seed, b, head, salt_base, salt_mul) : 0u;
+      dropping ? gvd::head_mix(seed, b, head, salt_base, salt_mul) : 0u;
 
   if (tid < BQ) {
     m_s[tid] = -INFINITY;
@@ -229,8 +218,9 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       float p0 = expf(s0 - m_new), p1 = expf(s1 - m_new);
       const float tile_sum = gvd::warp_sum(p0 + p1);
       if (dropping) {
-        p0 *= keep_scale(mix, q0 + r, k0 + lane, Rp, rate, inv_keep);
-        p1 *= keep_scale(mix, q0 + r, k0 + lane + 32, Rp, rate, inv_keep);
+        p0 *= gvd::keep_scale(mix, q0 + r, k0 + lane, Rp, rate, inv_keep);
+        p1 *= gvd::keep_scale(mix, q0 + r, k0 + lane + 32, Rp, rate,
+                              inv_keep);
       }
       srow[lane] = p0;
       srow[lane + 32] = p1;
@@ -307,7 +297,8 @@ __device__ __forceinline__ void probs_and_mask(
       const float l = lse_s[QROWS ? r0 + i : c + 16 * j];
       const bool ok = qi < R && kj < R;
       s[i][j] = ok ? expf(s[i][j] * inv_scale - l) : 0.0f;
-      m[i][j] = dropping ? keep_scale(mix, qi, kj, Rp, rate, inv_keep) : 1.0f;
+      m[i][j] = dropping ? gvd::keep_scale(mix, qi, kj, Rp, rate, inv_keep)
+                         : 1.0f;
     }
 }
 
@@ -340,7 +331,7 @@ bwd_kv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const bool dropping = rate > 0.0f;
   const float inv_keep = 1.0f / (1.0f - rate);
   const uint32_t mix =
-      dropping ? head_mix(seed, b, head, salt_base, salt_mul) : 0u;
+      dropping ? gvd::head_mix(seed, b, head, salt_base, salt_mul) : 0u;
 
   gvd::load_tile_rows(Ks, ld, k + base, D, k0, BKEY, R, dh, dh4);
   gvd::load_tile_rows(Vs, ld, v + base, D, k0, BKEY, R, dh, dh4);
@@ -419,7 +410,7 @@ bwd_q_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const bool dropping = rate > 0.0f;
   const float inv_keep = 1.0f / (1.0f - rate);
   const uint32_t mix =
-      dropping ? head_mix(seed, b, head, salt_base, salt_mul) : 0u;
+      dropping ? gvd::head_mix(seed, b, head, salt_base, salt_mul) : 0u;
 
   gvd::load_tile_rows(Qs, ld, q + base, D, q0, BQ, R, dh, dh4);
   gvd::load_tile_rows(dOs, ld, dout + base, D, q0, BQ, R, dh, dh4);
@@ -509,11 +500,50 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* out,
 
 // q, k, v, out: (B, R, D) contiguous; lse: (B, heads, R) f32, written;
 // seed: one int64 on the device (its low 32 bits key the hash); the mask of
-// (row b, head h) is salted salt_base + b * salt_mul + h.
+// (row b, head h) is salted salt_base + b * salt_mul + h.  bf16 runs the
+// tensor-core kernels of csrc/attention_mma.cu, with scratch for three
+// packed (B, heads, Rt, dp) bf16 tensors (dp = gvd::packed_width(head));
+// f32 the SIMT kernels above, with no scratch.
 extern "C" int gvd_attention_train_fwd(int dtype, const void* q,
                                        const void* k, const void* v,
                                        void* out, void* lse, const void* seed,
-                                       int B, int R, int D, int n_heads,
+                                       void* scratch, int B, int R, int D,
+                                       int n_heads, int dp, float inv_scale,
+                                       float rate, int salt_base,
+                                       int salt_mul, void* stream) {
+  const int hs = (D + n_heads - 1) / n_heads;
+  if (hs > MAX_HEAD) return (int)cudaErrorInvalidValue;
+  const int nv = (hs + 63) / 64;
+  cudaStream_t s = (cudaStream_t)stream;
+  const long long* sd = (const long long*)seed;
+  const uint32_t sb = (uint32_t)salt_base;
+  if (dtype == 1)
+    return gvd::attention_fwd_bf16(q, k, v, out, (float*)lse, sd, scratch, B,
+                                   R, D, hs, dp, sb, salt_mul, inv_scale,
+                                   rate, true, s);
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
+  switch (nv) {
+    case 1: return launch_fwd<float, 1>(q, k, v, out, (float*)lse, sd, B, R,
+                                        D, hs, sb, salt_mul, inv_scale, rate,
+                                        s);
+    case 2: return launch_fwd<float, 2>(q, k, v, out, (float*)lse, sd, B, R,
+                                        D, hs, sb, salt_mul, inv_scale, rate,
+                                        s);
+    default: return launch_fwd<float, 3>(q, k, v, out, (float*)lse, sd, B, R,
+                                         D, hs, sb, salt_mul, inv_scale,
+                                         rate, s);
+  }
+}
+
+// dout: (B, R, D); dq, dk, dv: (B, R, D), written; delta: (B, heads, R) f32
+// scratch; scratch: four packed bf16 tensors for bf16, unused for f32.
+extern "C" int gvd_attention_train_bwd(int dtype, const void* q,
+                                       const void* k, const void* v,
+                                       const void* out, const void* dout,
+                                       const void* lse, const void* seed,
+                                       void* dq, void* dk, void* dv,
+                                       void* delta, void* scratch, int B,
+                                       int R, int D, int n_heads, int dp,
                                        float inv_scale, float rate,
                                        int salt_base, int salt_mul,
                                        void* stream) {
@@ -522,73 +552,58 @@ extern "C" int gvd_attention_train_fwd(int dtype, const void* q,
   const int nv = (hs + 63) / 64;
   cudaStream_t s = (cudaStream_t)stream;
   const long long* sd = (const long long*)seed;
-  const uint32_t sb = (uint32_t)salt_base;
-  GVD_DISPATCH(dtype, T, {
-    switch (nv) {
-      case 1: return launch_fwd<T, 1>(q, k, v, out, (float*)lse, sd, B, R, D,
-                                      hs, sb, salt_mul, inv_scale, rate, s);
-      case 2: return launch_fwd<T, 2>(q, k, v, out, (float*)lse, sd, B, R, D,
-                                      hs, sb, salt_mul, inv_scale, rate, s);
-      default: return launch_fwd<T, 3>(q, k, v, out, (float*)lse, sd, B, R, D,
-                                       hs, sb, salt_mul, inv_scale, rate, s);
-    }
-  });
-  return (int)cudaErrorInvalidValue;
-}
-
-// dout: (B, R, D); dq, dk, dv: (B, R, D), written; delta: (B, heads, R) f32
-// scratch.
-extern "C" int gvd_attention_train_bwd(int dtype, const void* q,
-                                       const void* k, const void* v,
-                                       const void* out, const void* dout,
-                                       const void* lse, const void* seed,
-                                       void* dq, void* dk, void* dv,
-                                       void* delta, int B, int R, int D,
-                                       int n_heads, float inv_scale,
-                                       float rate, int salt_base,
-                                       int salt_mul, void* stream) {
-  const int hs = (D + n_heads - 1) / n_heads;
-  if (hs > MAX_HEAD) return (int)cudaErrorInvalidValue;
-  const int nv = (hs + 63) / 64;
-  cudaStream_t s = (cudaStream_t)stream;
-  const long long* sd = (const long long*)seed;
   const float* l = (const float*)lse;
   float* dl = (float*)delta;
   const uint32_t sb = (uint32_t)salt_base;
-  GVD_DISPATCH(dtype, T, {
-    switch (nv) {
-      case 1: return launch_bwd<T, 1>(q, k, v, out, dout, l, sd, dq, dk, dv,
-                                      dl, B, R, D, hs, sb, salt_mul,
-                                      inv_scale, rate, s);
-      case 2: return launch_bwd<T, 2>(q, k, v, out, dout, l, sd, dq, dk, dv,
-                                      dl, B, R, D, hs, sb, salt_mul,
-                                      inv_scale, rate, s);
-      default: return launch_bwd<T, 3>(q, k, v, out, dout, l, sd, dq, dk, dv,
-                                       dl, B, R, D, hs, sb, salt_mul,
-                                       inv_scale, rate, s);
-    }
-  });
-  return (int)cudaErrorInvalidValue;
+  if (dtype == 1) {
+    const int heads = (D + hs - 1) / hs, rows = B * R;
+    delta_kernel<__nv_bfloat16>
+        <<<(rows + THREADS / 32 - 1) / (THREADS / 32), THREADS, 0, s>>>(
+            (const __nv_bfloat16*)out, (const __nv_bfloat16*)dout, dl, rows,
+            R, D, hs, heads);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    return gvd::attention_bwd_bf16(q, k, v, dout, l, dl, sd, scratch, dq, dk,
+                                   dv, B, R, D, hs, dp, sb, salt_mul,
+                                   inv_scale, rate, s);
+  }
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
+  switch (nv) {
+    case 1: return launch_bwd<float, 1>(q, k, v, out, dout, l, sd, dq, dk,
+                                        dv, dl, B, R, D, hs, sb, salt_mul,
+                                        inv_scale, rate, s);
+    case 2: return launch_bwd<float, 2>(q, k, v, out, dout, l, sd, dq, dk,
+                                        dv, dl, B, R, D, hs, sb, salt_mul,
+                                        inv_scale, rate, s);
+    default: return launch_bwd<float, 3>(q, k, v, out, dout, l, sd, dq, dk,
+                                         dv, dl, B, R, D, hs, sb, salt_mul,
+                                         inv_scale, rate, s);
+  }
 }
 
 // K7.  q, k, v, out: (N, R, d) contiguous, q pre-scaled; no dropout, no
-// log-sum-exp.
+// log-sum-exp.  bf16: the tensor-core forward with one head of width d,
+// scratch for three packed (N, 1, Rt, dp) tensors; f32: the SIMT forward.
 extern "C" int gvd_flash_self_attention(int dtype, const void* q,
                                         const void* k, const void* v,
-                                        void* out, int N, int R, int d,
-                                        void* stream) {
+                                        void* out, void* scratch, int N,
+                                        int R, int d, int dp, void* stream) {
   if (d > MAX_HEAD) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  GVD_DISPATCH(dtype, T, {
-    switch ((d + 63) / 64) {
-      case 1: return launch_fwd<T, 1, false>(q, k, v, out, nullptr, nullptr,
-                                             N, R, d, d, 0u, 0, 1.0f, 0.0f, s);
-      case 2: return launch_fwd<T, 2, false>(q, k, v, out, nullptr, nullptr,
-                                             N, R, d, d, 0u, 0, 1.0f, 0.0f, s);
-      default: return launch_fwd<T, 3, false>(q, k, v, out, nullptr,
-                                              nullptr, N, R, d, d, 0u, 0,
-                                              1.0f, 0.0f, s);
-    }
-  });
-  return (int)cudaErrorInvalidValue;
+  if (dtype == 1)
+    return gvd::attention_fwd_bf16(q, k, v, out, nullptr, nullptr, scratch,
+                                   N, R, d, d, dp, 0u, 0, 1.0f, 0.0f, false,
+                                   s);
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
+  switch ((d + 63) / 64) {
+    case 1: return launch_fwd<float, 1, false>(q, k, v, out, nullptr, nullptr,
+                                               N, R, d, d, 0u, 0, 1.0f, 0.0f,
+                                               s);
+    case 2: return launch_fwd<float, 2, false>(q, k, v, out, nullptr, nullptr,
+                                               N, R, d, d, 0u, 0, 1.0f, 0.0f,
+                                               s);
+    default: return launch_fwd<float, 3, false>(q, k, v, out, nullptr,
+                                                nullptr, N, R, d, d, 0u, 0,
+                                                1.0f, 0.0f, s);
+  }
 }

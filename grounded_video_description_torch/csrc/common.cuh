@@ -110,6 +110,25 @@ __device__ __forceinline__ float hash_uniform(uint32_t mix, uint32_t ctr) {
   return (float)(fmix32(ctr ^ mix) >> 8) * (1.0f / 16777216.0f);
 }
 
+// The per-(row, head) key of the attention's dropout hash: salt =
+// salt_base + b * salt_mul + head (K4: 0x40000000, max(n_heads, 8); K5:
+// 0x10000000, 8).
+__device__ __forceinline__ uint32_t head_mix(const long long* seed, int b,
+                                             int head, uint32_t salt_base,
+                                             int salt_mul) {
+  return salt_mix(seed, salt_base + (uint32_t)b * (uint32_t)salt_mul +
+                            (uint32_t)head);
+}
+
+// 1 / (1 - rate) where prob (query i, key j) is kept, 0 where it is
+// dropped; Rp is R rounded up to 128.
+__device__ __forceinline__ float keep_scale(uint32_t mix, int i, int j,
+                                            int Rp, float rate,
+                                            float inv_keep) {
+  const float u = hash_uniform(mix, (uint32_t)i * (uint32_t)Rp + (uint32_t)j);
+  return u >= rate ? inv_keep : 0.0f;
+}
+
 // Let `kern` take `smem` bytes of dynamic shared memory (above 48 KB a
 // kernel has to ask).
 template <typename K>

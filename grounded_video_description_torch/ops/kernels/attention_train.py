@@ -3,10 +3,14 @@ probabilities, forward and backward.
 
 Replaces ``grounded_video_description_tpu/ops/pallas/attention_train.py
 ::mha_probs_dropout`` (``_fwd_kernel``, ``_bwd_kernel``) and
-``mha_probs_dropout_hybrid``.  The CUDA source is
-``csrc/attention_train.cu``: a flash-style forward that saves the row
-log-sum-exp, and a FlashAttention-2 backward that recomputes the probs,
-so q, k, v, the output and the log-sum-exp are the only residuals.
+``mha_probs_dropout_hybrid``.  The CUDA sources: a flash-style forward
+that saves the row log-sum-exp, and a FlashAttention-2 backward that
+recomputes the probs, so q, k, v, the output and the log-sum-exp are the
+only residuals.  f32 runs the SIMT kernels of ``csrc/attention_train.cu``;
+bf16 the tensor-core kernels of ``csrc/attention_mma.cu``, which first
+repack each head into a zero-padded, 16-byte aligned (B, H, Rt, dp) bf16
+tensor (``pack_heads``; Rt = R rounded up to 64, dp = ``packed_width``
+of the head) in scratch that the wrapper allocates.
 
 Layout: q, k, v (B, R, D) with the heads as ``torch.chunk`` column
 ranges (171 x 5 + 169 at D = 1024), the port's layout, where the JAX
@@ -17,8 +21,10 @@ The dropout masks are the JAX kernel's bit for bit: ``uniform_hash`` is
 its counter hash in int64 arithmetic held to 32 bits, keyed by one seed
 per call (an int64 tensor on the device, of which the low 32 bits count)
 and salted per (batch row, head).  Scores, softmax and the softmax
-backward run in f32 in both dtypes, as the port's K1 does; the JAX
-primitive casts the scores to the compute dtype before its softmax.
+backward run in f32 in both dtypes, as the port's K1 does (in bf16 the
+dropped probs and the score gradient enter their products in bf16, as
+in the JAX primitive); the JAX primitive casts the scores to the compute
+dtype before its softmax.
 
 ``mha_probs_dropout_plain`` is the same function in plain PyTorch, with
 materialized probs, the same masks and autograd for the backward.  CPU
@@ -36,6 +42,8 @@ from grounded_video_description_torch.ops.kernels.encoder_layer import (
 MASK32 = 0xFFFFFFFF
 SITE_ATTN = 0x40000000
 MAX_HEAD = 192          # widest head the kernels take (csrc MAX_HEAD)
+PACK_ROWS = 64          # packed rows are padded to a multiple of this
+PACKED_WIDTHS = (64, 128, 176, 192)   # instantiated in csrc/attention_mma.cu
 
 
 def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
@@ -83,6 +91,65 @@ def _head_scores(q, k, sl, inv_scale) -> torch.Tensor:
         * inv_scale
 
 
+def packed_width(head: int) -> int:
+    """The packed width of a head ``head`` wide: the least of
+    ``PACKED_WIDTHS`` that holds it (csrc ``gvd::packed_width``)."""
+    for w in PACKED_WIDTHS:
+        if head <= w:
+            return w
+    raise ValueError(f"a head is at most {MAX_HEAD} wide, got {head}")
+
+
+def packed_shape(B: int, R: int, D: int, n_heads: int):
+    """(B, H, Rt, dp) of (B, R, D) packed in ``n_heads`` heads."""
+    return (B, len(head_slices(D, n_heads)), -(-R // PACK_ROWS) * PACK_ROWS,
+            packed_width(-(-D // n_heads)))
+
+
+def pack_heads_plain(x: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """x (B, R, D) -> (B, H, Rt, dp): head h (the ``torch.chunk`` column
+    range h) transposed to its own slot, rows past R and columns past the
+    head's width zero.  The JAX package's ``_split_heads`` moved to
+    (B, H, R, d) and zero-padded to (Rt, dp)."""
+    B, R, D = x.shape
+    out = x.new_zeros(packed_shape(B, R, D, n_heads))
+    for h, sl in enumerate(head_slices(D, n_heads)):
+        out[:, h, :R, :sl.stop - sl.start] = x[..., sl]
+    return out
+
+
+def _pack_scratch(n: int, B: int, R: int, D: int, n_heads: int,
+                  device) -> torch.Tensor:
+    return torch.empty((n,) + packed_shape(B, R, D, n_heads),
+                       dtype=torch.bfloat16, device=device)
+
+
+def pack_heads(xs, n_heads: int) -> torch.Tensor:
+    """One to four tensors (B, R, D) of one shape -> (len(xs), B, H, Rt,
+    dp), each packed as ``pack_heads_plain``.  CPU tensors take the plain
+    version; bf16 CUDA tensors one launch of the repack kernel that the
+    bf16 attention runs first."""
+    xs = list(xs)
+    req = _build.require
+    req(1 <= len(xs) <= 4, "pack_heads takes one to four tensors")
+    req(all(x.dim() == 3 and x.shape == xs[0].shape for x in xs),
+        "pack_heads takes (B, R, D) tensors of one shape")
+    if not xs[0].is_cuda:
+        return torch.stack([pack_heads_plain(x, n_heads) for x in xs])
+    req(all(x.dtype == torch.bfloat16 and x.device == xs[0].device
+            for x in xs), "the repack kernel takes bf16 on one device")
+    xs = [x.contiguous() for x in xs]
+    B, R, D = xs[0].shape
+    out = _pack_scratch(len(xs), B, R, D, n_heads, xs[0].device)
+    ptrs = [x.data_ptr() for x in xs] + [None] * (4 - len(xs))
+    code = _build.lib().gvd_pack_heads(
+        len(xs), *ptrs, out.data_ptr(), B, R, D, n_heads, out.shape[-1],
+        _build.stream_of(xs[0]))
+    _build.check(code, "pack_heads")
+    _build.launches["pack_heads"] += 1
+    return out
+
+
 def mha_probs_dropout_plain(q, k, v, seed, *, n_heads: int, scale: float,
                             drop: float) -> torch.Tensor:
     """q, k, v (B, R, D); seed an int64 tensor of one element.  Returns
@@ -119,6 +186,17 @@ def _check(q, k, v, seed, n_heads):
     _build.dtype_code(q)
 
 
+def packed_scratch(n: int, q: torch.Tensor, n_heads: int):
+    """Room for n packed copies of q's heads, which the bf16 kernels fill
+    first, and their packed width: (tensor, dp); (None, 0) for f32, whose
+    kernels read the heads in place."""
+    if q.dtype != torch.bfloat16:
+        return None, 0
+    B, R, D = q.shape
+    scratch = _pack_scratch(n, B, R, D, n_heads, q.device)
+    return scratch, scratch.shape[-1]
+
+
 def attention_forward(q, k, v, seed, *, n_heads: int, scale: float,
                       drop: float, salt_base: int, salt_mul: int):
     """The forward kernel on CUDA tensors (B, R, D), the masks of (row b,
@@ -129,10 +207,12 @@ def attention_forward(q, k, v, seed, *, n_heads: int, scale: float,
     out = torch.empty_like(q)
     lse = torch.empty((B, len(head_slices(D, n_heads)), R),
                       dtype=torch.float32, device=q.device)
+    scratch, dp = packed_scratch(3, q, n_heads)
     code = _build.lib().gvd_attention_train_fwd(
         _build.dtype_code(q), q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        out.data_ptr(), lse.data_ptr(), seed.data_ptr(), B, R, D, n_heads,
-        1.0 / scale, drop, salt_base, salt_mul, _build.stream_of(q))
+        out.data_ptr(), lse.data_ptr(), seed.data_ptr(), _build.ptr(scratch),
+        B, R, D, n_heads, dp, 1.0 / scale, drop, salt_base, salt_mul,
+        _build.stream_of(q))
     _build.check(code, "attention_train_fwd")
     return out, lse
 
@@ -146,12 +226,13 @@ def attention_backward(q, k, v, out, lse, seed, dout, *, n_heads: int,
     dout = dout.contiguous()
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     delta = torch.empty_like(lse)
+    scratch, dp = packed_scratch(4, q, n_heads)
     code = _build.lib().gvd_attention_train_bwd(
         _build.dtype_code(q), q.data_ptr(), k.data_ptr(), v.data_ptr(),
         out.data_ptr(), dout.data_ptr(), lse.data_ptr(), seed.data_ptr(),
-        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(), B, R,
-        D, n_heads, 1.0 / scale, drop, salt_base, salt_mul,
-        _build.stream_of(q))
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
+        _build.ptr(scratch), B, R, D, n_heads, dp, 1.0 / scale, drop,
+        salt_base, salt_mul, _build.stream_of(q))
     _build.check(code, "attention_train_bwd")
     return dq, dk, dv
 

@@ -22,7 +22,9 @@ Numerics (both versions): q, k, v, the attention output, the FFN input
 x1c and the FFN activation are stored in the input dtype; every product
 sums in f32; scores, softmax, the residual sums, LayerNorm and every
 backward elementwise chain run in f32, and the second residual takes x1
-in f32, as the TPU kernel does.  The JAX kernel runs its softmax in the
+in f32, as the TPU kernel does.  In bf16 the attention's P~ and dS enter
+their products in bf16 (the TPU kernel casts p and ds to the compute
+dtype too).  The JAX kernel runs its softmax in the
 compute dtype and divides the bf16 probs by bf16(1 - drop); the port
 keeps both in f32 (ROADMAP Queue 3).  Gradients are f32.
 
@@ -83,6 +85,46 @@ class _GradRounded(torch.autograd.Function):
         return g.to(ctx.dt).float(), None
 
 
+FLASH_KEYS = 64         # keys per tile of the bf16 attention kernels
+
+
+def flash_rounding(z: torch.Tensor, u, drop: float, dt) -> torch.Tensor:
+    """The factor by which the bf16 forward kernel's rounding scales each
+    dropped prob.  z (..., R, R) are the scaled scores.  The kernel walks
+    64-key tiles with a running row max m_t and rounds
+    e = exp(z - m_t) * keep / (1 - drop) to ``dt`` before e V; the final
+    output divides by the f32 normaliser.  So its output is
+    (P~ * rho) V with rho = round(e) / e (1 where e = 0), P~ the twin's
+    dropped probs."""
+    R = z.shape[-1]
+    tiles = -(-R // FLASH_KEYS)
+    zt = F.pad(z, (0, tiles * FLASH_KEYS - R), value=-math.inf)
+    zt = zt.unflatten(-1, (tiles, FLASH_KEYS))
+    m = zt.amax(-1).cummax(-1).values                   # m_t per row
+    e = torch.exp(zt - m[..., None]).flatten(-2)[..., :R]
+    if drop > 0.0:
+        e = _dropped(e, u, drop)
+    return torch.where(e > 0, e.to(dt).float() / e, 1.0)
+
+
+class _FlashPV(torch.autograd.Function):
+    """o = (p * rho) v, the bf16 forward kernel's P~ V (``flash_rounding``),
+    with the bf16 backward kernels' gradients: dp = dO v^T in f32, and
+    dv = p^T dO with p rounded to ``dt``."""
+
+    @staticmethod
+    def forward(ctx, p, rho, v, dt):
+        ctx.save_for_backward(p, v)
+        ctx.dt = dt
+        return (p * rho) @ v
+
+    @staticmethod
+    def backward(ctx, g):
+        p, v = ctx.saved_tensors
+        dv = p.to(ctx.dt).float().transpose(-1, -2) @ g
+        return g @ v.transpose(-1, -2), None, dv, None
+
+
 class _Plain:
     """The twin's pieces for inputs of dtype ``dt`` and shape (B, R, D)."""
 
@@ -127,14 +169,23 @@ def attention_sublayer_plain(x: torch.Tensor, w: EncoderLayerWeights,
     q, k, v = (ops.mm(xf, m).to(dt) for m in (w.wq, w.wk, w.wv))
     heads = []
     for h, sl in enumerate(head_slices(D, n_heads)):
-        p = torch.softmax((q[..., sl].float()
-                           @ k[..., sl].float().transpose(1, 2)) * inv_scale,
-                          dim=-1)
+        # in bf16 the score gradient dS enters dQ and dK in bf16, and P~
+        # enters P~ V (and dV) in bf16, as in the tensor-core kernels
+        s = ops.grad_rounded(q[..., sl].float()
+                             @ k[..., sl].float().transpose(1, 2))
+        z = s * inv_scale
+        p = torch.softmax(z, dim=-1)
+        u = None
         if drop > 0.0:
             u = uniform_hash((Rp, Rp), seed,
                              SITE_PROBS + ops.rows * SALT_MUL + h)[:, :R, :R]
             p = _dropped(p, u, drop)
-        heads.append((p @ v[..., sl].float()).to(dt))
+        vh = v[..., sl].float()
+        if ops.lowp:
+            rho = flash_rounding(z.detach(), u, drop, dt)
+            heads.append(_FlashPV.apply(p, rho, vh, dt).to(dt))
+        else:
+            heads.append((p @ vh).to(dt))
     o = torch.cat(heads, dim=-1)
     a = ops.grad_rounded(ops.mm(o, w.wo))
     return ops.ln(xf + ops.resid_drop(a, SITE_RESID1), w.g1, w.be1)
@@ -150,7 +201,10 @@ def fused_encoder_layer_train_plain(x: torch.Tensor, w: EncoderLayerWeights,
     the TPU kernel's ``_bwd_kernel``): the output gradients of the Wo, W1
     and W2 products enter their two backward products in the compute
     dtype, the weight gradients and the gradients of x and x1 stay f32,
-    and db1, db2 sum the f32 gradients."""
+    and db1, db2 sum the f32 gradients.  In the attention, the dropped
+    probs P~ enter P~ V (and dV) and the score gradient dS enters dQ and
+    dK in the compute dtype, as in the bf16 tensor-core kernels, and the
+    forward rounds P~ as their online softmax does (``flash_rounding``)."""
     ops = _Plain(x, seed, drop)
     x1 = attention_sublayer_plain(x, w, seed, n_heads=n_heads, drop=drop)
     hid = ops.rounded(torch.relu(ops.grad_rounded(ops.mm(x1, w.w1))
@@ -175,10 +229,7 @@ def _mm(layout: int, a, b, M: int, N: int, K: int, *, out_f32: bool,
                           dtype=torch.float32 if out_f32 else dt)
     partial = (torch.empty((splits, M, N), dtype=torch.float32,
                            device=b.device) if splits > 1 else None)
-
-    def ptr(t):
-        return t.data_ptr() if t is not None else None
-
+    ptr = _build.ptr
     code = _build.lib().gvd_k5_gemm(
         _build.dtype_code(b), int(a.dtype == torch.float32), layout,
         a.data_ptr(), b.data_ptr(), M, N, K, splits, ptr(bias), int(relu),

@@ -3,10 +3,12 @@ inference.
 
 Replaces ``grounded_video_description_tpu/ops/pallas/mha.py
 ::flash_self_attention``.  No second attention body: on the card this is
-K4's forward kernel (``csrc/attention_train.cu``) with dropout compiled
-out, one head as wide as the input (n_heads 1), no score scale (the
-caller pre-scales q) and no log-sum-exp written; the C entry is
-``gvd_flash_self_attention``.  The obj_interact encoder calls it with
+K4's forward kernel with dropout compiled out, one head as wide as the
+input (n_heads 1), no score scale (the caller pre-scales q) and no
+log-sum-exp written; the C entry is ``gvd_flash_self_attention``.  f32
+runs the SIMT forward of ``csrc/attention_train.cu``, bf16 the
+tensor-core forward of ``csrc/attention_mma.cu`` (q, k, v repacked to
+(N, 1, Rt, dp) in scratch first).  The obj_interact encoder calls it with
 q, k, v of (B * 6, R, 171): its heads zero-padded to one width, as the
 JAX package splits them.
 
@@ -21,7 +23,7 @@ import torch
 
 from grounded_video_description_torch.ops.kernels import _build
 from grounded_video_description_torch.ops.kernels.attention_train import (
-    MAX_HEAD)
+    MAX_HEAD, packed_scratch)
 
 
 def flash_self_attention_plain(q: torch.Tensor, k: torch.Tensor,
@@ -50,9 +52,11 @@ def flash_self_attention(q: torch.Tensor, k: torch.Tensor,
     req(d <= MAX_HEAD, f"a head is at most {MAX_HEAD} wide, got {d}")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out = torch.empty_like(q)
+    scratch, dp = packed_scratch(3, q, 1)
     code = _build.lib().gvd_flash_self_attention(
         _build.dtype_code(q), q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        out.data_ptr(), N, R, d, _build.stream_of(q))
+        out.data_ptr(), _build.ptr(scratch), N, R, d, dp,
+        _build.stream_of(q))
     _build.check(code, "flash_self_attention")
     _build.launches["flash_self_attention"] += 1
     return out

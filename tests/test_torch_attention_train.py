@@ -19,8 +19,11 @@ from grounded_video_description_tpu.ops.pallas.encoder_layer_train import (
     uniform_hash as jax_uniform_hash)
 from grounded_video_description_torch.ops.kernels import _build
 from grounded_video_description_torch.ops.kernels.attention_train import (
-    draw_seed, mha_probs_dropout, mha_probs_dropout_hybrid,
-    mha_probs_dropout_plain, uniform_hash)
+    PACK_ROWS, draw_seed, mha_probs_dropout, mha_probs_dropout_hybrid,
+    mha_probs_dropout_plain, pack_heads, pack_heads_plain, packed_shape,
+    packed_width, uniform_hash)
+from grounded_video_description_torch.ops.kernels.encoder_layer import (
+    head_slices)
 
 # int32 seeds as the JAX primitive takes them: 0, small, negative, the
 # int32 extremes
@@ -126,3 +129,60 @@ def test_wrappers_take_the_twin_on_cpu():
     for got in results[1:]:
         for a, b in zip(got, results[0]):
             assert torch.equal(a, b)
+
+
+# (B, R, D, n_heads): the flagship's uneven heads (171 x 5 + 169), this
+# file's (11 x 5 + 9), six heads of 20, one odd head of 171 (K7's call)
+PACK_SHAPES = [(2, 70, 1024, 6), (2, 200, 64, 6), (1, 65, 120, 6),
+               (3, 10, 171, 1)]
+
+
+@pytest.mark.parametrize("shape", PACK_SHAPES)
+def test_pack_heads_plain_matches_jax_split_heads(shape):
+    """The bf16 kernels' head-major operands equal the JAX package's head
+    split, moved to (B, H, R, d) and zero-padded to (Rt, dp)."""
+    B, R, D, H = shape
+    x = np.random.RandomState(1).randn(B, R, D).astype(np.float32)
+    ref = np.moveaxis(np.asarray(_split_heads(jnp.asarray(x), H)), 2, 1)
+    _, Hp, Rt, dp = packed_shape(B, R, D, H)
+    assert ref.shape[1] == Hp and Rt % PACK_ROWS == 0 and Rt - R < PACK_ROWS
+    ref = np.pad(ref, [(0, 0), (0, 0), (0, Rt - R), (0, dp - ref.shape[-1])])
+    np.testing.assert_array_equal(
+        pack_heads_plain(torch.from_numpy(x), H).numpy(), ref)
+
+
+@pytest.mark.parametrize("shape", PACK_SHAPES)
+def test_pack_heads_round_trip_and_zero_pads(shape):
+    """Each head's slot holds its column range, every pad is zero, and the
+    columns read back give the input; on CPU tensors ``pack_heads`` is the
+    plain version for each tensor and launches nothing."""
+    B, R, D, H = shape
+    rng = np.random.RandomState(2)
+    xs = [torch.from_numpy(rng.randn(B, R, D).astype(np.float32))
+          .to(torch.bfloat16) for _ in range(3)]
+    _build.reset_launches()
+    packed = pack_heads(xs, H)
+    assert not _build.launches
+    assert packed.shape == (3,) + packed_shape(B, R, D, H)
+    assert packed.dtype == torch.bfloat16
+    for x, p in zip(xs, packed):
+        assert torch.equal(p, pack_heads_plain(x, H))
+        back = torch.cat([p[:, h, :R, :sl.stop - sl.start]
+                          for h, sl in enumerate(head_slices(D, H))], dim=-1)
+        assert torch.equal(back, x)
+        pad = torch.ones_like(p, dtype=torch.bool)
+        for h, sl in enumerate(head_slices(D, H)):
+            pad[:, h, :R, :sl.stop - sl.start] = False
+        assert not bool(p[pad].any())
+
+
+@pytest.mark.parametrize("head,width", [(1, 64), (16, 64), (64, 64),
+                                        (65, 128), (128, 128), (171, 176),
+                                        (176, 176), (177, 192), (192, 192)])
+def test_packed_width(head, width):
+    assert packed_width(head) == width
+
+
+def test_packed_width_refuses_wider_heads():
+    with pytest.raises(ValueError):
+        packed_width(193)

@@ -1,6 +1,7 @@
 """PyTorch port, on a CUDA card only: each hand-written kernel against its
 plain PyTorch version, at small unaligned shapes, f32 and bf16 (K4 also
-its gradients; K6 on a tiny model of the flagship's shape).
+its gradients, and at the flagship's uneven heads; K6 on a tiny model of
+the flagship's shape).
 
 The machine with the card has no JAX, so this file imports none, and is
 run there without the repository's conftest (which imports JAX):
@@ -27,7 +28,8 @@ from grounded_video_description_torch.ops.kernels.encoder_layer import (
 from grounded_video_description_torch.ops.kernels.region_attention import (
     fused_region_attention, fused_region_attention_plain)
 from grounded_video_description_torch.ops.kernels.attention_train import (
-    mha_probs_dropout, mha_probs_dropout_hybrid, mha_probs_dropout_plain)
+    mha_probs_dropout, mha_probs_dropout_hybrid, mha_probs_dropout_plain,
+    pack_heads, pack_heads_plain)
 from grounded_video_description_torch.ops.kernels.decode_scan import (
     greedy_decode_fused, greedy_decode_fused_plain)
 from grounded_video_description_torch.ops.kernels.mha import (
@@ -168,31 +170,38 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     assert not _build.launches
 
 
-def _k4_inputs(dev, dtype, seed):
-    """R = 300 (not a multiple of the 64-row tiles; Rp = 384), D = 96 in
-    six heads of 16, and a random output cotangent."""
+def _k4_inputs(dev, dtype, seed, B, D):
+    """(B, 300, D): R = 300 not a multiple of the 64-row tiles (Rp = 384),
+    and a random output cotangent."""
     g = torch.Generator(device=dev).manual_seed(seed)
-    q, k, v, w = (torch.randn(3, 300, 96, generator=g, device=dev)
+    q, k, v, w = (torch.randn(B, 300, D, generator=g, device=dev)
                   for _ in range(4))
     return [t.to(dtype) for t in (q, k, v)], w.to(dtype)
 
 
 def _k4_run(fn, qkv, w, seed, drop):
     leaves = [t.detach().clone().requires_grad_(True) for t in qkv]
-    out = fn(*leaves, seed, n_heads=6, scale=96 ** 0.5, drop=drop)
+    out = fn(*leaves, seed, n_heads=6, scale=qkv[0].shape[-1] ** 0.5,
+             drop=drop)
     (out.float() * w.float()).sum().backward()
     return [out.detach()] + [t.grad for t in leaves]
+
+
+# (B, D) in six heads: 16 wide; the flagship's 171 x 5 + 169; 20 wide (a
+# width that is no multiple of 16)
+K4_SHAPES = [(3, 96), (2, 1024), (3, 120)]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("drop", [0.0, 0.3])
 @pytest.mark.parametrize("dtype", DTYPES)
-def test_attention_train_kernel(dev, dtype, drop):
+@pytest.mark.parametrize("shape", K4_SHAPES)
+def test_attention_train_kernel(dev, shape, dtype, drop):
     """K4 forward and q/k/v gradients against the plain twin's autograd on
     the same seed and masks; f32 within 1e-4 (sums of 300 terms in another
     order), bf16 at the bf16 bar.  The hybrid schedule (plain forward,
     kernel backward) too, and a second call gives the same bits."""
-    qkv, w = _k4_inputs(dev, dtype, 5)
+    qkv, w = _k4_inputs(dev, dtype, 5, *shape)
     seed = torch.tensor([0xDEADBEEF], device=dev)
     ref = _k4_run(mha_probs_dropout_plain, qkv, w, seed, drop)
     got = _k4_run(mha_probs_dropout, qkv, w, seed, drop)
@@ -206,6 +215,23 @@ def test_attention_train_kernel(dev, dtype, drop):
         assert torch.equal(a, b), name
         assert _within(a, r, dtype), name
         assert _within(c, r, dtype), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(3, 300, 96, 6), (2, 300, 1024, 6),
+                                   (4, 300, 171, 1)])
+def test_pack_heads_kernel(dev, shape):
+    """The bf16 attention's repack kernel equals its plain version bit for
+    bit: zero pads, one launch for up to four tensors."""
+    B, R, D, H = shape
+    g = torch.Generator(device=dev).manual_seed(10)
+    xs = [torch.randn(B, R, D, generator=g, device=dev).to(torch.bfloat16)
+          for _ in range(4)]
+    got = pack_heads(xs, H)
+    torch.cuda.synchronize()
+    assert _build.launches["pack_heads"] == 1
+    for x, p in zip(xs, got):
+        assert torch.equal(p, pack_heads_plain(x, H))
 
 
 def _k5_setup(dev, dtype):

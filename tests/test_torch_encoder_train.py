@@ -254,3 +254,72 @@ def test_cpu_tensors_never_reach_the_kernel_library(monkeypatch):
     out.sum().backward()
     assert x.grad is not None and torch.isfinite(x.grad).all()
     assert not _build.launches
+
+
+def _flash_loop(z, v, keep, dt):
+    """The bf16 forward kernel's loop, written out: 64-key tiles, a running
+    row max, the f32 normaliser over the undropped probs, and each tile's
+    dropped probs rounded to ``dt`` before their product with v."""
+    B, R, _ = z.shape
+    m = torch.full((B, R), -float("inf"))
+    norm = torch.zeros(B, R)
+    acc = torch.zeros(B, R, v.shape[-1])
+    for k0 in range(0, R, k5.FLASH_KEYS):
+        zt = z[..., k0:k0 + k5.FLASH_KEYS]
+        m_new = torch.maximum(m, zt.amax(-1))
+        corr = torch.exp(m - m_new)
+        e = torch.exp(zt - m_new[..., None])
+        norm = norm * corr + e.sum(-1)
+        pt = (e * keep[..., k0:k0 + k5.FLASH_KEYS]).to(dt).float()
+        acc = acc * corr[..., None] + pt @ v[:, k0:k0 + k5.FLASH_KEYS]
+        m = m_new
+    return acc / norm[..., None]
+
+
+@pytest.mark.parametrize("drop", [0.0, 0.3])
+def test_bf16_twin_rounds_probs_as_the_flash_kernel(drop, monkeypatch):
+    """In bf16 the twin's P~ V equals the tensor-core forward's tiled
+    online softmax with P~ rounded per tile (within f32 summation order,
+    1e-5), and its gradients are the backward kernels': dv from P~ rounded
+    to bf16, dp = dO v^T unrounded.  In f32 the twin takes neither
+    rounding (its parity with the JAX kernel is tested above)."""
+    rng = np.random.RandomState(4)
+    z = torch.from_numpy(rng.randn(2, R, R).astype(np.float32))
+    v = torch.from_numpy(rng.randn(2, R, 8).astype(np.float32))
+    g = torch.from_numpy(rng.randn(2, R, 8).astype(np.float32))
+    u = uniform_hash((RP, RP), _seed(), torch.tensor([7, 8]))[:, :R, :R]
+    keep = (torch.where(u >= drop, 1.0 / (1.0 - drop), 0.0) if drop > 0.0
+            else torch.ones_like(z))
+    p = torch.softmax(z, dim=-1)
+    if drop > 0.0:
+        p = k5._dropped(p, u, drop)
+    rho = k5.flash_rounding(z, u if drop > 0.0 else None, drop,
+                            torch.bfloat16)
+    assert not torch.equal(rho, torch.ones_like(rho))
+    pl = p.clone().requires_grad_(True)
+    vl = v.clone().requires_grad_(True)
+    out = k5._FlashPV.apply(pl, rho, vl, torch.bfloat16)
+    torch.testing.assert_close(out, _flash_loop(z, v, keep, torch.bfloat16),
+                               rtol=1e-5, atol=1e-5)
+    out.backward(g)
+    torch.testing.assert_close(pl.grad, g @ v.transpose(1, 2), rtol=0,
+                               atol=0)
+    torch.testing.assert_close(
+        vl.grad, p.to(torch.bfloat16).float().transpose(1, 2) @ g, rtol=0,
+        atol=0)
+    # f32: the twin's attention is P~ V, with no rounding factor
+    _, enc = _layer()
+    x, _ = _inputs()
+    calls = []
+    orig = k5.flash_rounding
+    monkeypatch.setattr(k5, "flash_rounding",
+                        lambda *a: calls.append(a) or orig(*a))
+    with torch.no_grad():
+        k5.attention_sublayer_plain(torch.from_numpy(x),
+                                    enc.layers[0].weights(), _seed(),
+                                    n_heads=HEADS, drop=drop)
+        assert not calls
+        k5.attention_sublayer_plain(
+            torch.from_numpy(x).to(torch.bfloat16), enc.layers[0].weights(),
+            _seed(), n_heads=HEADS, drop=drop)
+    assert len(calls) == HEADS
