@@ -100,20 +100,53 @@ def bound(flops: float, n_bytes: float, dtype: str) -> dict:
                 bound_by="operations" if t_ops >= t_bytes else "bytes")
 
 
+def bf16_ratio(got, ref):
+    """The largest |got - ref| / (0.02 + 0.02 |ref|) over the elements:
+    (that ratio, the diff and the |ref| where it is reached, the max abs
+    error)."""
+    g, r = got.float(), ref.float()
+    diff = (g - r).abs()
+    ratio = diff / (0.02 + 0.02 * r.abs())
+    i = int(ratio.argmax())
+    return (float(ratio.flatten()[i]), float(diff.flatten()[i]),
+            float(r.abs().flatten()[i]), float(diff.max()))
+
+
 def check_bf16(got, ref, what: str) -> float:
     """Hold a bf16 result to 0.02 + 0.02 |ref| per element and return the
     max abs error.  The bar grows with the value because one bf16 ulp is
     up to 2**-7 of it (0.0625 at |x| in [8, 16)); at |ref| <= 4 it is at
     most 0.1, the JAX package's own bf16 bar on unit-scale outputs
     (tests/test_pallas.py)."""
-    g, r = got.float(), ref.float()
-    diff = (g - r).abs()
-    ratio = diff / (0.02 + 0.02 * r.abs())
-    i = int(ratio.argmax())
-    check(float(ratio.flatten()[i]) <= 1.0,
-          f"{what}: |diff| {float(diff.flatten()[i])} at |ref| "
-          f"{float(r.abs().flatten()[i])} over 0.02 + 0.02 |ref|")
-    return float(diff.max())
+    ratio, d, r, err = bf16_ratio(got, ref)
+    check(ratio <= 1.0, f"{what}: |diff| {d} at |ref| {r} over 0.02 + "
+          "0.02 |ref|")
+    return err
+
+
+def scaled_reading(got, ref) -> float:
+    """max |got - ref| as a fraction of max |ref|."""
+    return max_err(got, ref) / float(ref.float().abs().max())
+
+
+# The bf16 attention's (K4's output and gradients, K7's output) bar on
+# max |got - ref| as a fraction of max |ref|.  Their values are ~0.01-0.2
+# (softmax-weighted means over ~1000 keys), where 0.02 + 0.02 |ref| would
+# pass a result that is wrong by its own size.  bf16_bars.py reads the
+# kernels, and plain bf16 arithmetic, at about one bf16 ulp of the
+# largest values (under 0.008), and a head 5% off at over 0.035.
+ATTN_BF16_TOL = 0.02
+
+
+def check_attention_bf16(got, ref, what: str) -> float:
+    """Hold a bf16 attention result to 0.02 + 0.02 |ref| per element and
+    to max |got - ref| <= ATTN_BF16_TOL max |ref|; return the reading
+    max |got - ref| / max |ref|."""
+    check_bf16(got, ref, what)
+    reading = scaled_reading(got, ref)
+    check(reading <= ATTN_BF16_TOL, f"{what}: max |diff| is {reading:.4g} "
+          f"of max |ref|, over {ATTN_BF16_TOL}")
+    return reading
 
 
 def flagship():
@@ -374,20 +407,25 @@ def phase_attention_train(dev, results):
                 del out, grads, leaves
             (got, k_fwd, k_bwd), (ref, p_fwd, p_bwd) = (runs["kernel"],
                                                          runs["plain"])
-            errs = {}
+            errs, readings = {}, {}
             for part, a, b in zip(("out", "dq", "dk", "dv"), got, ref):
                 check(bool(torch.isfinite(a.float()).all()),
                       f"K4 {name} drop {drop} {part} not finite")
+                errs[part] = max_err(a, b)
                 if dt == torch.float32:
                     # f32 sums over 1000 keys or queries in another
                     # order: ~1e-6 expected
-                    errs[part] = max_err(a, b)
                     check(errs[part] <= 1e-4,
                           f"K4 f32 drop {drop} {part} err {errs[part]}")
                 else:
-                    errs[part] = check_bf16(a, b, f"K4 bf16 drop {drop} {part}")
+                    readings[part] = check_attention_bf16(
+                        a, b, f"K4 bf16 drop {drop} {part}")
+            scaled = (f"; max |diff| / max |ref| "
+                      f"{ {p: f'{e:.3e}' for p, e in readings.items()} } "
+                      f"(bar {ATTN_BF16_TOL})" if readings else "")
             print(f"K4 attention_train {name} drop {drop}: err "
-                  f"{ {p: f'{e:.3e}' for p, e in errs.items()} }; forward "
+                  f"{ {p: f'{e:.3e}' for p, e in errs.items()} }{scaled}; "
+                  "forward "
                   f"kernel {k_fwd:.3f} ms, plain {p_fwd:.3f} ms; backward "
                   f"kernel {k_bwd:.3f} ms, plain {p_bwd:.3f} ms", flush=True)
             if drop > 0:
@@ -466,45 +504,104 @@ def layer_flops(Bm, R_, D, F_):
     return layer_gemm_flops(Bm, R_, D, F_) + 4 * Bm * R_ * R_ * D
 
 
+K5_PARTS = ("out", "dx") + tuple(
+    f"d{n}" for n in ("wq", "wk", "wv", "wo", "w1", "b1", "w2", "b2", "g1",
+                      "be1", "g2", "be2"))
+
+
+def k5_layer(dev, Bm: int = 30):
+    """The K5 phase's inputs: one obj_interact training layer at flagship
+    width (FFN 512) with seeded weights and LayerNorm affines away from 1
+    and 0, x and an output cotangent (Bm, 1000, 1024) in f32, and a
+    dropout seed."""
+    import torch
+    from grounded_video_description_torch.models.transformer import Encoder
+    g = torch.Generator().manual_seed(19)
+    enc = Encoder(D_RNN, D_RNN // 2, 1)
+    enc.reset_parameters(g)
+    with torch.no_grad():
+        for ln in (enc.layers[0].selfattn.layernorm,
+                   enc.layers[0].feedforward.layernorm):
+            ln.gamma.add_(0.1 * torch.randn(D_RNN, generator=g))
+            ln.beta.add_(0.1 * torch.randn(D_RNN, generator=g))
+    x0 = torch.randn(Bm, R, D_RNN, generator=g).to(dev)
+    cot = torch.randn(Bm, R, D_RNN, generator=g).to(dev)
+    return enc.to(dev), x0, cot, torch.tensor([0x9E3779B9], device=dev)
+
+
+def k5_ties(x, lw, seed, drop):
+    """ReLU ties: an FFN pre-activation within rounding of 0 can take the
+    other branch in the kernel's summation order than in the twin's,
+    which changes that token's dx row and that unit's dW1 row and db1
+    entry by a whole term, not a rounding.  They are found by comparing
+    the two sides' branches (the kernel's saved FFN activation against
+    the twin's pre-activation): (tokens (B, R, 1), units (F,)) that hold
+    one."""
+    import torch
+    import torch.nn.functional as F
+    from grounded_video_description_torch.ops.kernels import (
+        encoder_layer_train as k5)
+    dt = x.dtype
+    with torch.no_grad():
+        hid_k = k5._kernel_forward(x, lw, seed, 6, drop)[1][7]
+        x1 = k5.attention_sublayer_plain(x, lw, seed, n_heads=6, drop=drop)
+        z = F.linear(x1.to(dt).float(), lw.w1.to(dt).float()) + lw.b1
+        tie = ((hid_k.float() > 0) != (z.flatten(0, 1) > 0)).view(
+            *x.shape[:2], -1)
+    return tie.any(-1, keepdim=True), tie.flatten(0, 1).any(0)
+
+
+def k5_held(got, ref, dt, ties):
+    """Hold K5's output and 13 gradients (``K5_PARTS``) to their bars:
+    {part: (max abs error, its ratio to the bar, relative norm error)},
+    the ReLU ties' rows (``k5_ties``) held only in the relative norm.
+    f32: sums of 1024-wide products (and of 30000 rows for the weight
+    gradients) in another order, so max |diff| <= 1e-4 (the output) or
+    1e-3 (a gradient) of the tensor's max |ref|, and the whole tensor
+    within the same in relative norm.  bf16: the output at 0.02 + 0.02
+    |ref|; a gradient sums up to 30000 rows of bf16 products, so the same
+    bar on the tensor scaled to a largest magnitude of 1."""
+    tie_tokens, tie_units = ties
+    held = {"dx": ~tie_tokens, "dw1": ~tie_units[:, None],
+            "db1": ~tie_units}
+    res = {}
+    for part, a, b in zip(K5_PARTS, got, ref):
+        rel = float((a.float() - b.float()).norm() / b.float().norm())
+        keep = held.get(part)
+        if keep is not None:
+            keep = keep.expand_as(a)
+            a, b = a[keep], b[keep]
+        err, scale = max_err(a, b), float(b.float().abs().max())
+        if dt == "float32":
+            tol = 1e-4 if part == "out" else 1e-3
+            res[part] = (err, max(err / (tol * scale), rel / tol), rel)
+        elif part == "out":
+            res[part] = (err, bf16_ratio(a, b)[0], rel)
+        else:
+            res[part] = (err, bf16_ratio(a / scale, b / scale)[0], rel)
+    return res
+
+
 def phase_encoder_layer_train(dev, results):
     """K5 at the obj_interact training shapes: x (30, 1000, 1024), six
     uneven heads, FFN 512, the microbatch of batch 240 in 8; f32 and bf16,
     drop 0.2 (the flagship's enc_drop) and 0.  The output and the 13
     gradients (x and the 12 layer tensors) against the plain twin's
-    autograd on the same seed and masks, both passes timed alone, and the
-    peak memory of one forward + backward on each side."""
+    autograd on the same seed and masks (``k5_held``), both passes timed
+    alone, and the peak memory of one forward + backward on each side."""
     import torch
-    from grounded_video_description_torch.models.transformer import Encoder
-    import torch.nn.functional as F
-    from grounded_video_description_torch.ops.kernels import (
-        encoder_layer_train as k5)
     from grounded_video_description_torch.ops.kernels.encoder_layer_train \
-        import (attention_sublayer_plain, fused_encoder_layer_train,
-                fused_encoder_layer_train_plain)
+        import fused_encoder_layer_train, fused_encoder_layer_train_plain
 
     Bm, Fh = 30, D_RNN // 2
-    g = torch.Generator().manual_seed(19)
-    enc = Encoder(D_RNN, Fh, 1)
-    enc.reset_parameters(g)
-    with torch.no_grad():          # non-trivial LayerNorm affines
-        for ln in (enc.layers[0].selfattn.layernorm,
-                   enc.layers[0].feedforward.layernorm):
-            ln.gamma.add_(0.1 * torch.randn(D_RNN, generator=g))
-            ln.beta.add_(0.1 * torch.randn(D_RNN, generator=g))
-    enc = enc.to(dev)
+    enc, x0, cot, seed = k5_layer(dev, Bm)
     lw = list(enc.layers[0].weights())
-    x0 = torch.randn(Bm, R, D_RNN, generator=g).to(dev)
-    cot = torch.randn(Bm, R, D_RNN, generator=g).to(dev)
-    seed = torch.tensor([0x9E3779B9], device=dev)
     # the backward: two products per forward product (q, k, v and o are
     # saved), and the attention's five (QK^T again, dV, dP, dQ, dK)
     flops_fwd = layer_flops(Bm, R, D_RNN, Fh)
     flops_bwd = (2 * layer_gemm_flops(Bm, R, D_RNN, Fh)
                  + 10 * Bm * R * R * D_RNN)
     w_bytes = nbytes(*lw)
-    parts = ("out", "dx") + tuple(
-        f"d{n}" for n in ("wq", "wk", "wv", "wo", "w1", "b1", "w2", "b2",
-                          "g1", "be1", "g2", "be2"))
     for dt in (torch.float32, torch.bfloat16):
         name = str(dt).replace("torch.", "")
         act = nbytes(x0.to(dt))
@@ -540,74 +637,33 @@ def phase_encoder_layer_train(dev, results):
                 del out, grads, xl, leaves
             (got, k_fwd, k_bwd, k_mb), (ref, p_fwd, p_bwd, p_mb) = (
                 runs["kernel"], runs["plain"])
-            # ReLU ties: an FFN pre-activation within rounding of 0 can take
-            # the other branch in the kernel's summation order than in the
-            # twin's, which changes that token's dx row and that unit's dW1
-            # row and db1 entry by a whole term, not a rounding.  Those
-            # rows are found by comparing the two sides' branches (the
-            # kernel's saved FFN activation against the twin's
-            # pre-activation) and held only in the relative norm below.
-            with torch.no_grad():
-                lw_ = enc.layers[0].weights()
-                hid_k = k5._kernel_forward(x, lw_, seed, 6, drop)[1][7]
-                x1 = attention_sublayer_plain(x, lw_, seed, n_heads=6,
-                                              drop=drop)
-                z = (F.linear(x1.to(dt).float(), lw_.w1.to(dt).float())
-                     + lw_.b1)
-                tie = ((hid_k.float() > 0) != (z.flatten(0, 1) > 0)).view(
-                    Bm, R, Fh)
-                tie_tokens = tie.any(-1, keepdim=True)       # (Bm, R, 1)
-                tie_units = tie.flatten(0, 1).any(0)         # (Fh,)
-                del hid_k, x1, z, tie
-            n_tok, n_unit = int(tie_tokens.sum()), int(tie_units.sum())
+            for part, a, b in zip(K5_PARTS, got, ref):
+                check(a.dtype == b.dtype and a.shape == b.shape,
+                      f"K5 {name} drop {drop} {part}: {a.dtype} "
+                      f"{tuple(a.shape)} vs {b.dtype} {tuple(b.shape)}")
+                check(bool(torch.isfinite(a.float()).all()),
+                      f"K5 {name} drop {drop} {part} not finite")
+            ties = k5_ties(x, enc.layers[0].weights(), seed, drop)
+            n_tok, n_unit = int(ties[0].sum()), int(ties[1].sum())
             # f32: the branches differ only where z is within ~1e-6 of 0;
             # bf16: also where x1 rounds to the other side of a bf16 value
             # (one in ~2000 elements), which moves z by ~1e-4
             tie_cap = 1000 if dt == torch.float32 else 20
             check(n_tok <= Bm * R // tie_cap,
                   f"K5 {name} drop {drop}: {n_tok} tokens at a ReLU tie")
-            held = {"dx": ~tie_tokens, "dw1": ~tie_units[:, None],
-                    "db1": ~tie_units}
-            errs, rel = {}, {}
-            for part, a, b in zip(parts, got, ref):
-                check(a.dtype == b.dtype and a.shape == b.shape,
-                      f"K5 {name} drop {drop} {part}: {a.dtype} "
-                      f"{tuple(a.shape)} vs {b.dtype} {tuple(b.shape)}")
-                check(bool(torch.isfinite(a.float()).all()),
-                      f"K5 {name} drop {drop} {part} not finite")
-                rel[part] = float((a.float() - b.float()).norm()
-                                  / b.float().norm())
-                keep = held.get(part)
-                if keep is not None:
-                    keep = keep.expand_as(a)
-                    a, b = a[keep], b[keep]
-                if dt == torch.float32:
-                    # f32 sums of 1024-wide products (and of 30000 rows for
-                    # the weight gradients) in another order, relative to
-                    # the tensor's largest magnitude; the whole tensor,
-                    # ties included, within the same bars in relative norm
-                    errs[part] = max_err(a, b)
-                    tol = 1e-4 if part == "out" else 1e-3
-                    bar = tol * float(b.abs().max())
-                    check(errs[part] <= bar, f"K5 f32 drop {drop} {part} "
-                          f"err {errs[part]} > {bar}")
-                    check(rel[part] <= tol, f"K5 f32 drop {drop} {part} "
-                          f"relative norm error {rel[part]}")
-                elif part == "out":
-                    errs[part] = check_bf16(a, b, f"K5 bf16 drop {drop} out")
-                else:
-                    # a gradient sums up to 30000 rows of bf16 products: the
-                    # bf16 bar on the tensor scaled to a largest magnitude
-                    # of 1 (0.02 of that magnitude + 0.02 |ref|)
-                    scale = float(b.abs().max())
-                    errs[part] = scale * check_bf16(
-                        a / scale, b / scale, f"K5 bf16 drop {drop} {part} "
-                        f"(scaled by {scale:.4g})")
+            res = k5_held(got, ref, name, ties)
+            for part, (err, ratio, rel) in res.items():
+                check(ratio <= 1.0, f"K5 {name} drop {drop} {part}: err "
+                      f"{err}, relative norm {rel}: {ratio:.3g} of its bar")
+            errs = {p: r[0] for p, r in res.items()}
+            rel = {p: r[2] for p, r in res.items()}
+            worst = max(res, key=lambda p: res[p][1])
             print(f"K5 encoder_layer_train {name} drop {drop}: ReLU ties "
                   f"{n_tok} tokens, {n_unit} units; max err out "
                   f"{errs['out']:.3e}, grads {max(errs.values()):.3e} "
                   f"({max(errs, key=errs.get)}), relative norm "
                   f"{max(rel.values()):.2e} ({max(rel, key=rel.get)}); "
+                  f"worst ratio to its bar {res[worst][1]:.3f} ({worst}); "
                   f"forward kernel {k_fwd:.3f} "
                   f"ms, plain {p_fwd:.3f} ms (bound "
                   f"{bound_fwd['bound_ms']:.3f}); backward kernel "
@@ -919,13 +975,14 @@ def phase_flash_mha(dev, results):
         torch.cuda.synchronize()
         check(got.dtype == dt and got.shape == (N, R, d), "K7 output")
         check(bool(torch.isfinite(got.float()).all()), "K7 not finite")
+        err, scaled = max_err(got, ref), ""
         if dt == torch.float32:
-            err = max_err(got, ref)
             # softmax-weighted means of unit-scale rows over 1000 keys, in
             # f32 in another order: ~1e-7 expected
             check(err <= 1e-5, f"K7 f32 err {err}")
         else:
-            err = check_bf16(got, ref, "K7 bf16")
+            scaled = (f" ({check_attention_bf16(got, ref, 'K7 bf16'):.3e} "
+                      f"of max |ref|, bar {ATTN_BF16_TOL})")
         ms = time_ms(lambda: flash_self_attention(q, k, v), 5)
         plain_ms = time_ms(lambda: flash_self_attention_plain(q, k, v), 5)
         q4, k4, v4 = (t[:, None] for t in (q, k, v))
@@ -933,7 +990,8 @@ def phase_flash_mha(dev, results):
             q4, k4, v4, scale=1.0), 5)
         b = bound(4 * N * R * R * d, nbytes(q, k, v, got), name)
         print(f"K7 flash_self_attention {name} ({N} x {R} x {d}): err "
-              f"{err:.3e}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+              f"{err:.3e}{scaled}; kernel {ms:.3f} ms, plain "
+              f"{plain_ms:.3f} ms, "
               f"scaled_dot_product_attention {lib_ms:.3f} ms, bound "
               f"{b['bound_ms']:.3f} ms ({b['bound_by']})", flush=True)
         results[("flash_self_attention", name)] = dict(

@@ -23,6 +23,9 @@
 //    (176 at flagship), the pads zero, which changes no product.  Every
 //    row is then 16-byte aligned, and tiles come in by 16-byte cp.async.
 //    The repack moves ~0.4 GB in the forward and ~0.5 GB in the backward.
+//    The backward repacks q, k and v again instead of keeping the
+//    forward's packed copies (~0.2 GB a call at flagship) alive until it
+//    runs: memory traded for ~0.2 ms a call.
 //    The epilogues write o, dq, dk, dv straight into the (B, R, D) columns.
 //  * Products on mma.sync.m16n8k16 (bf16 in, f32 accumulate), operands
 //    from shared memory by ldmatrix (ldmatrix.trans where the contraction
@@ -673,9 +676,7 @@ constexpr size_t bwd_q_smem(int dp) {
   return ((size_t)6 * TILE * (dp + 8) + TILE * ST_LD) * sizeof(bf16);
 }
 
-int rows_padded(int R) {
-  return (R + gvd::PACK_ROWS - 1) / gvd::PACK_ROWS * gvd::PACK_ROWS;
-}
+int rows_padded(int R) { return (R + TILE - 1) / TILE * TILE; }
 
 template <int DP, bool DROP>
 int launch_fwd(const bf16* qp, const bf16* kp, const bf16* vp, void* out,
@@ -721,15 +722,19 @@ int launch_bwd(const bf16* qp, const bf16* kp, const bf16* vp,
 
 namespace gvd {
 
+// The instantiated packed head widths: the head width rounded up to 64,
+// 128, 176 or 192 (0 above 192).
 int packed_width(int hs) {
   return hs <= 64 ? 64 : hs <= 128 ? 128 : hs <= 176 ? 176 : hs <= 192 ? 192
                                                                          : 0;
 }
 
+// n <= 4 tensors (B, R, D) into dst, n packed (B, H, Rt, dp) one after
+// another.
 int pack_heads_bf16(int n, const void* const* src, void* dst, int B, int R,
-                    int D, int hs, int dp, cudaStream_t s) {
-  if (n < 1 || n > 4 || dp != packed_width(hs))
-    return (int)cudaErrorInvalidValue;
+                    int D, int hs, cudaStream_t s) {
+  const int dp = packed_width(hs);
+  if (n < 1 || n > 4 || dp == 0) return (int)cudaErrorInvalidValue;
   const int H = (D + hs - 1) / hs, Rt = rows_padded(R);
   const size_t per = (size_t)B * H * Rt * dp;
   PackArgs a{};
@@ -745,12 +750,13 @@ int pack_heads_bf16(int n, const void* const* src, void* dst, int B, int R,
 
 int attention_fwd_bf16(const void* q, const void* k, const void* v, void* out,
                        float* lse, const long long* seed, void* scratch,
-                       int B, int R, int D, int hs, int dp, uint32_t salt_base,
+                       int B, int R, int D, int hs, uint32_t salt_base,
                        int salt_mul, float inv_scale, float rate, bool drop,
                        cudaStream_t s) {
   const void* src[3] = {q, k, v};
-  int e = pack_heads_bf16(3, src, scratch, B, R, D, hs, dp, s);
+  int e = pack_heads_bf16(3, src, scratch, B, R, D, hs, s);
   if (e != 0) return e;
+  const int dp = packed_width(hs);
   const size_t per = (size_t)B * ((D + hs - 1) / hs) * rows_padded(R) * dp;
   const bf16* qp = (const bf16*)scratch;
   const bf16* kp = qp + per;
@@ -776,12 +782,13 @@ int attention_fwd_bf16(const void* q, const void* k, const void* v, void* out,
 int attention_bwd_bf16(const void* q, const void* k, const void* v,
                        const void* dout, const float* lse, const float* delta,
                        const long long* seed, void* scratch, void* dq,
-                       void* dk, void* dv, int B, int R, int D, int hs, int dp,
+                       void* dk, void* dv, int B, int R, int D, int hs,
                        uint32_t salt_base, int salt_mul, float inv_scale,
                        float rate, cudaStream_t s) {
   const void* src[4] = {q, k, v, dout};
-  int e = pack_heads_bf16(4, src, scratch, B, R, D, hs, dp, s);
+  int e = pack_heads_bf16(4, src, scratch, B, R, D, hs, s);
   if (e != 0) return e;
+  const int dp = packed_width(hs);
   const size_t per = (size_t)B * ((D + hs - 1) / hs) * rows_padded(R) * dp;
   const bf16* qp = (const bf16*)scratch;
 #define GVD_BWD(W)                                                            \
@@ -801,15 +808,26 @@ int attention_bwd_bf16(const void* q, const void* k, const void* v,
 
 }  // namespace gvd
 
+// The rows of a query or key tile of the kernels above, which the packed
+// rows are padded to a multiple of; the K5 twin's flash_rounding walks the
+// keys in tiles of this size (ops/kernels/attention_train.py MMA_TILE).
+extern "C" int gvd_attention_tile() { return TILE; }
+
+// The packed width of a head hs wide, 0 past the widest; the wrappers size
+// the kernels' scratch by it.
+extern "C" int gvd_packed_width(int hs) { return gvd::packed_width(hs); }
+
 // n (1 to 4) bf16 tensors (B, R, D), heads of width ceil(D / n_heads) as
 // column ranges, into dst: n packed (B, H, Rt, dp) tensors one after
-// another (Rt = R rounded up to 64, dp the packed width of a head).
+// another (Rt = R rounded up to TILE, dp = gvd_packed_width of a head).
+// The attention runs this first; the entry of its own serves the tests and
+// the timing of the repack alone.
 extern "C" int gvd_pack_heads(int n, const void* s0, const void* s1,
                               const void* s2, const void* s3, void* dst,
-                              int B, int R, int D, int n_heads, int dp,
+                              int B, int R, int D, int n_heads,
                               void* stream) {
   const void* src[4] = {s0, s1, s2, s3};
   return gvd::pack_heads_bf16(n, src, dst, B, R, D,
-                              (D + n_heads - 1) / n_heads, dp,
+                              (D + n_heads - 1) / n_heads,
                               (cudaStream_t)stream);
 }

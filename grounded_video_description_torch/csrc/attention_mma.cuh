@@ -7,20 +7,13 @@
 
 namespace gvd {
 
-// Rows of a packed head are padded to a multiple of this; its width to
-// packed_width(head width).
-constexpr int PACK_ROWS = 64;
-
-// The instantiated packed head widths: the head width rounded up to 64,
-// 128, 176 or 192 (0 above 192).
-int packed_width(int hs);
-
 // q, k, v, out (B, R, D), heads as column ranges of width hs; scratch holds
-// three packed (B, H, Rt, dp) bf16 tensors.  lse may be null (K7), and
-// drop = false compiles the dropout out.
+// three packed (B, H, Rt, dp) bf16 tensors (Rt = R rounded up to the tile,
+// dp = gvd_packed_width(hs)).  lse may be null (K7), and drop = false
+// compiles the dropout out.
 int attention_fwd_bf16(const void* q, const void* k, const void* v, void* out,
                        float* lse, const long long* seed, void* scratch,
-                       int B, int R, int D, int hs, int dp, uint32_t salt_base,
+                       int B, int R, int D, int hs, uint32_t salt_base,
                        int salt_mul, float inv_scale, float rate, bool drop,
                        cudaStream_t s);
 
@@ -28,13 +21,8 @@ int attention_fwd_bf16(const void* q, const void* k, const void* v, void* out,
 int attention_bwd_bf16(const void* q, const void* k, const void* v,
                        const void* dout, const float* lse, const float* delta,
                        const long long* seed, void* scratch, void* dq,
-                       void* dk, void* dv, int B, int R, int D, int hs, int dp,
+                       void* dk, void* dv, int B, int R, int D, int hs,
                        uint32_t salt_base, int salt_mul, float inv_scale,
                        float rate, cudaStream_t s);
-
-// n <= 4 tensors (B, R, D) into dst, n packed (B, H, Rt, dp) one after
-// another.
-int pack_heads_bf16(int n, const void* const* src, void* dst, int B, int R,
-                    int D, int hs, int dp, cudaStream_t s);
 
 }  // namespace gvd

@@ -502,13 +502,14 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* out,
 // seed: one int64 on the device (its low 32 bits key the hash); the mask of
 // (row b, head h) is salted salt_base + b * salt_mul + h.  bf16 runs the
 // tensor-core kernels of csrc/attention_mma.cu, with scratch for three
-// packed (B, heads, Rt, dp) bf16 tensors (dp = gvd::packed_width(head));
+// packed (B, heads, Rt, dp) bf16 tensors (gvd_packed_width, in
+// attention_mma.cu, gives dp and the row padding);
 // f32 the SIMT kernels above, with no scratch.
 extern "C" int gvd_attention_train_fwd(int dtype, const void* q,
                                        const void* k, const void* v,
                                        void* out, void* lse, const void* seed,
                                        void* scratch, int B, int R, int D,
-                                       int n_heads, int dp, float inv_scale,
+                                       int n_heads, float inv_scale,
                                        float rate, int salt_base,
                                        int salt_mul, void* stream) {
   const int hs = (D + n_heads - 1) / n_heads;
@@ -519,7 +520,7 @@ extern "C" int gvd_attention_train_fwd(int dtype, const void* q,
   const uint32_t sb = (uint32_t)salt_base;
   if (dtype == 1)
     return gvd::attention_fwd_bf16(q, k, v, out, (float*)lse, sd, scratch, B,
-                                   R, D, hs, dp, sb, salt_mul, inv_scale,
+                                   R, D, hs, sb, salt_mul, inv_scale,
                                    rate, true, s);
   if (dtype != 0) return (int)cudaErrorInvalidValue;
   switch (nv) {
@@ -543,7 +544,7 @@ extern "C" int gvd_attention_train_bwd(int dtype, const void* q,
                                        const void* lse, const void* seed,
                                        void* dq, void* dk, void* dv,
                                        void* delta, void* scratch, int B,
-                                       int R, int D, int n_heads, int dp,
+                                       int R, int D, int n_heads,
                                        float inv_scale, float rate,
                                        int salt_base, int salt_mul,
                                        void* stream) {
@@ -564,7 +565,7 @@ extern "C" int gvd_attention_train_bwd(int dtype, const void* q,
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
     return gvd::attention_bwd_bf16(q, k, v, dout, l, dl, sd, scratch, dq, dk,
-                                   dv, B, R, D, hs, dp, sb, salt_mul,
+                                   dv, B, R, D, hs, sb, salt_mul,
                                    inv_scale, rate, s);
   }
   if (dtype != 0) return (int)cudaErrorInvalidValue;
@@ -587,12 +588,12 @@ extern "C" int gvd_attention_train_bwd(int dtype, const void* q,
 extern "C" int gvd_flash_self_attention(int dtype, const void* q,
                                         const void* k, const void* v,
                                         void* out, void* scratch, int N,
-                                        int R, int d, int dp, void* stream) {
+                                        int R, int d, void* stream) {
   if (d > MAX_HEAD) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 1)
     return gvd::attention_fwd_bf16(q, k, v, out, nullptr, nullptr, scratch,
-                                   N, R, d, d, dp, 0u, 0, 1.0f, 0.0f, false,
+                                   N, R, d, d, 0u, 0, 1.0f, 0.0f, false,
                                    s);
   if (dtype != 0) return (int)cudaErrorInvalidValue;
   switch ((d + 63) / 64) {

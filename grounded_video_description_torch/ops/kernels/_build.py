@@ -53,18 +53,21 @@ _SIGNATURES = {
     "gvd_attention": [_I, _P, _P, _I, _I, _I, _I, _F, _P],
     # dtype, x, y, gamma, beta, out, rows, D, eps, stream
     "gvd_residual_layer_norm": [_I] + [_P] * 5 + [_I, _I, _F, _P],
-    # dtype, q, k, v, out, lse, seed, scratch, B, R, D, n_heads, dp,
-    # inv_scale, rate, salt_base, salt_mul, stream
-    "gvd_attention_train_fwd": [_I] + [_P] * 7 + [_I] * 5 + [_F, _F, _I, _I,
+    # dtype, q, k, v, out, lse, seed, scratch, B, R, D, n_heads, inv_scale,
+    # rate, salt_base, salt_mul, stream
+    "gvd_attention_train_fwd": [_I] + [_P] * 7 + [_I] * 4 + [_F, _F, _I, _I,
                                                              _P],
     # dtype, q, k, v, out, dout, lse, seed, dq, dk, dv, delta, scratch, B,
-    # R, D, n_heads, dp, inv_scale, rate, salt_base, salt_mul, stream
-    "gvd_attention_train_bwd": [_I] + [_P] * 12 + [_I] * 5 + [_F, _F, _I, _I,
+    # R, D, n_heads, inv_scale, rate, salt_base, salt_mul, stream
+    "gvd_attention_train_bwd": [_I] + [_P] * 12 + [_I] * 4 + [_F, _F, _I, _I,
                                                               _P],
-    # dtype, q, k, v, out, scratch, N, R, d, dp, stream
-    "gvd_flash_self_attention": [_I] + [_P] * 5 + [_I] * 4 + [_P],
-    # n, src0, src1, src2, src3, dst, B, R, D, n_heads, dp, stream
-    "gvd_pack_heads": [_I] + [_P] * 5 + [_I] * 5 + [_P],
+    # dtype, q, k, v, out, scratch, N, R, d, stream
+    "gvd_flash_self_attention": [_I] + [_P] * 5 + [_I] * 3 + [_P],
+    # n, src0, src1, src2, src3, dst, B, R, D, n_heads, stream
+    "gvd_pack_heads": [_I] + [_P] * 5 + [_I] * 4 + [_P],
+    # the bf16 attention's tile rows; the packed width of a head (hs)
+    "gvd_attention_tile": [],
+    "gvd_packed_width": [_I],
     # dtype, a_f32, layout, A, B, M, N, K, splits, bias, relu, mask, resid,
     # C, c_f32, partial, stream
     "gvd_k5_gemm": [_I] * 3 + [_P] * 2 + [_I] * 4 + [_P, _I, _P, _P, _P, _I,

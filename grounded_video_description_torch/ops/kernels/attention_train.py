@@ -9,8 +9,10 @@ recomputes the probs, so q, k, v, the output and the log-sum-exp are the
 only residuals.  f32 runs the SIMT kernels of ``csrc/attention_train.cu``;
 bf16 the tensor-core kernels of ``csrc/attention_mma.cu``, which first
 repack each head into a zero-padded, 16-byte aligned (B, H, Rt, dp) bf16
-tensor (``pack_heads``; Rt = R rounded up to 64, dp = ``packed_width``
-of the head) in scratch that the wrapper allocates.
+tensor (Rt = R rounded up to ``MMA_TILE``, dp the packed width of the
+head) in scratch that the wrapper allocates, sized by the library's own
+``gvd_packed_width``; ``pack_heads_plain`` is that repack in plain
+PyTorch.
 
 Layout: q, k, v (B, R, D) with the heads as ``torch.chunk`` column
 ranges (171 x 5 + 169 at D = 1024), the port's layout, where the JAX
@@ -42,8 +44,14 @@ from grounded_video_description_torch.ops.kernels.encoder_layer import (
 MASK32 = 0xFFFFFFFF
 SITE_ATTN = 0x40000000
 MAX_HEAD = 192          # widest head the kernels take (csrc MAX_HEAD)
-PACK_ROWS = 64          # packed rows are padded to a multiple of this
-PACKED_WIDTHS = (64, 128, 176, 192)   # instantiated in csrc/attention_mma.cu
+# Rows of a query or key tile of the bf16 kernels, and the multiple their
+# packed rows are padded to (csrc/attention_mma.cu TILE; ``_mma_lib``
+# holds the two equal before any bf16 launch).
+MMA_TILE = 64
+# The packed widths instantiated in csrc/attention_mma.cu, for the plain
+# repack; the kernels take theirs from gvd_packed_width (held equal to
+# ``packed_width`` for every head width by tests/test_torch_cuda.py).
+PACKED_WIDTHS = (64, 128, 176, 192)
 
 
 def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
@@ -93,42 +101,64 @@ def _head_scores(q, k, sl, inv_scale) -> torch.Tensor:
 
 def packed_width(head: int) -> int:
     """The packed width of a head ``head`` wide: the least of
-    ``PACKED_WIDTHS`` that holds it (csrc ``gvd::packed_width``)."""
+    ``PACKED_WIDTHS`` that holds it (the plain version of csrc
+    ``gvd_packed_width``)."""
     for w in PACKED_WIDTHS:
         if head <= w:
             return w
     raise ValueError(f"a head is at most {MAX_HEAD} wide, got {head}")
 
 
-def packed_shape(B: int, R: int, D: int, n_heads: int):
-    """(B, H, Rt, dp) of (B, R, D) packed in ``n_heads`` heads."""
-    return (B, len(head_slices(D, n_heads)), -(-R // PACK_ROWS) * PACK_ROWS,
-            packed_width(-(-D // n_heads)))
+def packed_shape(B: int, R: int, D: int, n_heads: int, dp: int):
+    """(B, H, Rt, dp) of (B, R, D) packed in ``n_heads`` heads of width
+    ``dp``."""
+    return (B, len(head_slices(D, n_heads)), -(-R // MMA_TILE) * MMA_TILE,
+            dp)
 
 
 def pack_heads_plain(x: torch.Tensor, n_heads: int) -> torch.Tensor:
-    """x (B, R, D) -> (B, H, Rt, dp): head h (the ``torch.chunk`` column
-    range h) transposed to its own slot, rows past R and columns past the
-    head's width zero.  The JAX package's ``_split_heads`` moved to
-    (B, H, R, d) and zero-padded to (Rt, dp)."""
+    """x (B, R, D) -> (B, H, Rt, dp), dp = ``packed_width`` of a head:
+    head h (the ``torch.chunk`` column range h) transposed to its own
+    slot, rows past R and columns past the head's width zero.  The JAX
+    package's ``_split_heads`` moved to (B, H, R, d) and zero-padded to
+    (Rt, dp)."""
     B, R, D = x.shape
-    out = x.new_zeros(packed_shape(B, R, D, n_heads))
+    out = x.new_zeros(packed_shape(B, R, D, n_heads,
+                                   packed_width(-(-D // n_heads))))
     for h, sl in enumerate(head_slices(D, n_heads)):
         out[:, h, :R, :sl.stop - sl.start] = x[..., sl]
     return out
 
 
+def _mma_lib():
+    """The kernel library, once its bf16 kernels' tile is known to be
+    ``MMA_TILE``: the tile that the plain repack and K5's twin
+    (``flash_rounding``) assume."""
+    lib = _build.lib()
+    tile = lib.gvd_attention_tile()
+    if tile != MMA_TILE:
+        raise RuntimeError(f"the bf16 attention kernels tile by {tile} "
+                           f"rows, the port's twins by {MMA_TILE}")
+    return lib
+
+
 def _pack_scratch(n: int, B: int, R: int, D: int, n_heads: int,
                   device) -> torch.Tensor:
-    return torch.empty((n,) + packed_shape(B, R, D, n_heads),
+    """Room for n packed (B, H, Rt, dp) bf16 copies, dp from the
+    library."""
+    dp = _mma_lib().gvd_packed_width(-(-D // n_heads))
+    _build.require(dp > 0, f"a head is at most {MAX_HEAD} wide")
+    return torch.empty((n,) + packed_shape(B, R, D, n_heads, dp),
                        dtype=torch.bfloat16, device=device)
 
 
 def pack_heads(xs, n_heads: int) -> torch.Tensor:
     """One to four tensors (B, R, D) of one shape -> (len(xs), B, H, Rt,
-    dp), each packed as ``pack_heads_plain``.  CPU tensors take the plain
-    version; bf16 CUDA tensors one launch of the repack kernel that the
-    bf16 attention runs first."""
+    dp), each packed as ``pack_heads_plain``.  The bf16 attention runs
+    this repack inside its own launches; this entry of its own is for the
+    tests and for timing the repack alone, so it counts no launch.  CPU
+    tensors take the plain version; bf16 CUDA tensors one launch of the
+    repack kernel."""
     xs = list(xs)
     req = _build.require
     req(1 <= len(xs) <= 4, "pack_heads takes one to four tensors")
@@ -143,10 +173,9 @@ def pack_heads(xs, n_heads: int) -> torch.Tensor:
     out = _pack_scratch(len(xs), B, R, D, n_heads, xs[0].device)
     ptrs = [x.data_ptr() for x in xs] + [None] * (4 - len(xs))
     code = _build.lib().gvd_pack_heads(
-        len(xs), *ptrs, out.data_ptr(), B, R, D, n_heads, out.shape[-1],
+        len(xs), *ptrs, out.data_ptr(), B, R, D, n_heads,
         _build.stream_of(xs[0]))
     _build.check(code, "pack_heads")
-    _build.launches["pack_heads"] += 1
     return out
 
 
@@ -188,13 +217,11 @@ def _check(q, k, v, seed, n_heads):
 
 def packed_scratch(n: int, q: torch.Tensor, n_heads: int):
     """Room for n packed copies of q's heads, which the bf16 kernels fill
-    first, and their packed width: (tensor, dp); (None, 0) for f32, whose
-    kernels read the heads in place."""
+    first; None for f32, whose kernels read the heads in place."""
     if q.dtype != torch.bfloat16:
-        return None, 0
+        return None
     B, R, D = q.shape
-    scratch = _pack_scratch(n, B, R, D, n_heads, q.device)
-    return scratch, scratch.shape[-1]
+    return _pack_scratch(n, B, R, D, n_heads, q.device)
 
 
 def attention_forward(q, k, v, seed, *, n_heads: int, scale: float,
@@ -207,11 +234,11 @@ def attention_forward(q, k, v, seed, *, n_heads: int, scale: float,
     out = torch.empty_like(q)
     lse = torch.empty((B, len(head_slices(D, n_heads)), R),
                       dtype=torch.float32, device=q.device)
-    scratch, dp = packed_scratch(3, q, n_heads)
+    scratch = packed_scratch(3, q, n_heads)
     code = _build.lib().gvd_attention_train_fwd(
         _build.dtype_code(q), q.data_ptr(), k.data_ptr(), v.data_ptr(),
         out.data_ptr(), lse.data_ptr(), seed.data_ptr(), _build.ptr(scratch),
-        B, R, D, n_heads, dp, 1.0 / scale, drop, salt_base, salt_mul,
+        B, R, D, n_heads, 1.0 / scale, drop, salt_base, salt_mul,
         _build.stream_of(q))
     _build.check(code, "attention_train_fwd")
     return out, lse
@@ -226,12 +253,12 @@ def attention_backward(q, k, v, out, lse, seed, dout, *, n_heads: int,
     dout = dout.contiguous()
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     delta = torch.empty_like(lse)
-    scratch, dp = packed_scratch(4, q, n_heads)
+    scratch = packed_scratch(4, q, n_heads)
     code = _build.lib().gvd_attention_train_bwd(
         _build.dtype_code(q), q.data_ptr(), k.data_ptr(), v.data_ptr(),
         out.data_ptr(), dout.data_ptr(), lse.data_ptr(), seed.data_ptr(),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
-        _build.ptr(scratch), B, R, D, n_heads, dp, 1.0 / scale, drop,
+        _build.ptr(scratch), B, R, D, n_heads, 1.0 / scale, drop,
         salt_base, salt_mul, _build.stream_of(q))
     _build.check(code, "attention_train_bwd")
     return dq, dk, dv

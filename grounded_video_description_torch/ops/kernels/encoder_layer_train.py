@@ -43,7 +43,7 @@ import torch.nn.functional as F
 from grounded_video_description_torch.nn.core import layer_norm_affine
 from grounded_video_description_torch.ops.kernels import _build
 from grounded_video_description_torch.ops.kernels.attention_train import (
-    MAX_HEAD, attention_backward, attention_forward, uniform_hash)
+    MAX_HEAD, MMA_TILE, attention_backward, attention_forward, uniform_hash)
 from grounded_video_description_torch.ops.kernels.encoder_layer import (
     LN_EPS, EncoderLayerWeights, _gemm, head_slices)
 
@@ -85,21 +85,19 @@ class _GradRounded(torch.autograd.Function):
         return g.to(ctx.dt).float(), None
 
 
-FLASH_KEYS = 64         # keys per tile of the bf16 attention kernels
-
-
 def flash_rounding(z: torch.Tensor, u, drop: float, dt) -> torch.Tensor:
     """The factor by which the bf16 forward kernel's rounding scales each
     dropped prob.  z (..., R, R) are the scaled scores.  The kernel walks
-    64-key tiles with a running row max m_t and rounds
+    key tiles of ``MMA_TILE`` rows (the library's own tile, which every
+    bf16 launch checks) with a running row max m_t and rounds
     e = exp(z - m_t) * keep / (1 - drop) to ``dt`` before e V; the final
     output divides by the f32 normaliser.  So its output is
     (P~ * rho) V with rho = round(e) / e (1 where e = 0), P~ the twin's
     dropped probs."""
     R = z.shape[-1]
-    tiles = -(-R // FLASH_KEYS)
-    zt = F.pad(z, (0, tiles * FLASH_KEYS - R), value=-math.inf)
-    zt = zt.unflatten(-1, (tiles, FLASH_KEYS))
+    tiles = -(-R // MMA_TILE)
+    zt = F.pad(z, (0, tiles * MMA_TILE - R), value=-math.inf)
+    zt = zt.unflatten(-1, (tiles, MMA_TILE))
     m = zt.amax(-1).cummax(-1).values                   # m_t per row
     e = torch.exp(zt - m[..., None]).flatten(-2)[..., :R]
     if drop > 0.0:

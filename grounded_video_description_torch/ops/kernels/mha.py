@@ -52,11 +52,10 @@ def flash_self_attention(q: torch.Tensor, k: torch.Tensor,
     req(d <= MAX_HEAD, f"a head is at most {MAX_HEAD} wide, got {d}")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out = torch.empty_like(q)
-    scratch, dp = packed_scratch(3, q, 1)
+    scratch = packed_scratch(3, q, 1)
     code = _build.lib().gvd_flash_self_attention(
         _build.dtype_code(q), q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        out.data_ptr(), _build.ptr(scratch), N, R, d, dp,
-        _build.stream_of(q))
+        out.data_ptr(), _build.ptr(scratch), N, R, d, _build.stream_of(q))
     _build.check(code, "flash_self_attention")
     _build.launches["flash_self_attention"] += 1
     return out

@@ -15,7 +15,8 @@ attention kernels (K4's, also run by K5) and of K5's other kernels, and
 the largest kernels by device time.  ``--root`` imports the port's
 package from another checkout (for example the parent commit, to profile
 before and after a change in one call); this script and chip_smoke.py are
-read from this checkout.  A JSON summary per path goes to ``--out``.
+read from this checkout.  With ``--out DIR``, a JSON summary per path
+goes to DIR.
 """
 
 from __future__ import annotations
@@ -104,7 +105,7 @@ def main() -> int:
     ap.add_argument("--path", action="append", choices=["K5", "K4", "plain"])
     ap.add_argument("--root", default=HERE)
     ap.add_argument("--tag", default="tree")
-    ap.add_argument("--out", default=os.path.join(HERE, "chiprun_out"))
+    ap.add_argument("--out", help="a directory for the JSON summaries")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -128,7 +129,8 @@ def main() -> int:
     base = GVDConfig(vocab_size=4905, detect_size=431,
                      obj_interact=True).validate()
     state = GVDModel(base).init(torch.Generator().manual_seed(0)).state_dict()
-    os.makedirs(args.out, exist_ok=True)
+    if args.out:
+        os.makedirs(args.out, exist_ok=True)
     for path in args.path or ["K5", "K4"]:
         r = profile(path, state, dev)
         r.update(tag=args.tag, device=smi)
@@ -138,9 +140,10 @@ def main() -> int:
               f" s, K5's other kernels {r['k5_other_s']:.3f} s; top: "
               + ", ".join(f"{n} {t:.3f}" for n, t in r["top"][:8]),
               flush=True)
-        with open(os.path.join(args.out,
-                               f"profile-{args.tag}-{path}.json"), "w") as f:
-            json.dump(r, f, indent=1)
+        if args.out:
+            with open(os.path.join(args.out, f"profile-{args.tag}-{path}"
+                                   ".json"), "w") as f:
+                json.dump(r, f, indent=1)
     return 0
 
 

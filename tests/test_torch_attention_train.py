@@ -19,7 +19,7 @@ from grounded_video_description_tpu.ops.pallas.encoder_layer_train import (
     uniform_hash as jax_uniform_hash)
 from grounded_video_description_torch.ops.kernels import _build
 from grounded_video_description_torch.ops.kernels.attention_train import (
-    PACK_ROWS, draw_seed, mha_probs_dropout, mha_probs_dropout_hybrid,
+    MMA_TILE, draw_seed, mha_probs_dropout, mha_probs_dropout_hybrid,
     mha_probs_dropout_plain, pack_heads, pack_heads_plain, packed_shape,
     packed_width, uniform_hash)
 from grounded_video_description_torch.ops.kernels.encoder_layer import (
@@ -144,8 +144,8 @@ def test_pack_heads_plain_matches_jax_split_heads(shape):
     B, R, D, H = shape
     x = np.random.RandomState(1).randn(B, R, D).astype(np.float32)
     ref = np.moveaxis(np.asarray(_split_heads(jnp.asarray(x), H)), 2, 1)
-    _, Hp, Rt, dp = packed_shape(B, R, D, H)
-    assert ref.shape[1] == Hp and Rt % PACK_ROWS == 0 and Rt - R < PACK_ROWS
+    _, Hp, Rt, dp = packed_shape(B, R, D, H, packed_width(-(-D // H)))
+    assert ref.shape[1] == Hp and Rt % MMA_TILE == 0 and Rt - R < MMA_TILE
     ref = np.pad(ref, [(0, 0), (0, 0), (0, Rt - R), (0, dp - ref.shape[-1])])
     np.testing.assert_array_equal(
         pack_heads_plain(torch.from_numpy(x), H).numpy(), ref)
@@ -163,7 +163,8 @@ def test_pack_heads_round_trip_and_zero_pads(shape):
     _build.reset_launches()
     packed = pack_heads(xs, H)
     assert not _build.launches
-    assert packed.shape == (3,) + packed_shape(B, R, D, H)
+    assert packed.shape == (3,) + packed_shape(B, R, D, H,
+                                               packed_width(-(-D // H)))
     assert packed.dtype == torch.bfloat16
     for x, p in zip(xs, packed):
         assert torch.equal(p, pack_heads_plain(x, H))

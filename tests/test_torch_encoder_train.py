@@ -264,14 +264,14 @@ def _flash_loop(z, v, keep, dt):
     m = torch.full((B, R), -float("inf"))
     norm = torch.zeros(B, R)
     acc = torch.zeros(B, R, v.shape[-1])
-    for k0 in range(0, R, k5.FLASH_KEYS):
-        zt = z[..., k0:k0 + k5.FLASH_KEYS]
+    for k0 in range(0, R, k5.MMA_TILE):
+        zt = z[..., k0:k0 + k5.MMA_TILE]
         m_new = torch.maximum(m, zt.amax(-1))
         corr = torch.exp(m - m_new)
         e = torch.exp(zt - m_new[..., None])
         norm = norm * corr + e.sum(-1)
-        pt = (e * keep[..., k0:k0 + k5.FLASH_KEYS]).to(dt).float()
-        acc = acc * corr[..., None] + pt @ v[:, k0:k0 + k5.FLASH_KEYS]
+        pt = (e * keep[..., k0:k0 + k5.MMA_TILE]).to(dt).float()
+        acc = acc * corr[..., None] + pt @ v[:, k0:k0 + k5.MMA_TILE]
         m = m_new
     return acc / norm[..., None]
 
