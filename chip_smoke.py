@@ -226,21 +226,63 @@ def phase_region_attention(dev, results):
             library_ms=None, **b)
 
 
+def birnn_inputs(dev, g, T, Bn, H, mode):
+    """gi (T, 2, Bn, G), wh (2, H, G) and bh (2, G) (None for the LSTM)
+    in f32: gi ~ N(0, 0.25), W_hh and b_hh uniform in +-1/sqrt(H) (the
+    initial scale of PyTorch's GRU and LSTM)."""
+    import torch
+    G = (3 if mode == "bigru" else 4) * H
+    limit = 1.0 / H ** 0.5
+    gi = torch.randn(T, 2, Bn, G, generator=g, device=dev) * 0.5
+    wh = (torch.rand(2, H, G, generator=g, device=dev) * 2 - 1) * limit
+    bh = (torch.rand(2, G, generator=g, device=dev) * 2 - 1) * limit
+    return gi, wh, (bh if mode == "bigru" else None)
+
+
+def check_birnn(got, ref, dt, what: str) -> float:
+    """K2's bars: f32 within 1e-4 (both carry h in f32 and the step is
+    contractive, so 480 steps of ~1e-7 rounding stay far below it); bf16
+    on ``check_bf16``.  Returns the max abs error."""
+    import torch
+    check(bool(torch.isfinite(got.float()).all()), f"{what} not finite")
+    if dt == torch.float32:
+        err = max_err(got, ref)
+        check(err <= 1e-4, f"{what} err {err}")
+        return err
+    return check_bf16(got, ref, what)
+
+
 def phase_birnn(dev, results):
     """K2 at the temporal encoder's shapes: T=480 steps, B=100, H=512,
-    both lanes; GRU and LSTM."""
+    both lanes; GRU and LSTM; with its cluster plan, the time of its
+    per-step exchange and barrier alone, and ragged shapes (B = 7, H = 40
+    and H = 520, which no cluster size divides)."""
     import torch
     from grounded_video_description_torch.ops.kernels.birnn import (
-        birnn_recurrence, birnn_recurrence_plain)
+        birnn_exchange, birnn_recurrence, birnn_recurrence_plain, card_plan)
 
-    g = torch.Generator(device=dev).manual_seed(5)
     H = D_RNN // 2
-    limit = 1.0 / H ** 0.5
+    gr = torch.Generator(device=dev).manual_seed(6)
+    for mode in ("bigru", "bilstm"):
+        for dt in (torch.float32, torch.bfloat16):
+            name = str(dt).replace("torch.", "")
+            for T_, Bn, Hr in ((30, 7, 40), (30, 7, 520)):
+                gi, wh, bh = (
+                    t.to(dt) if t is not None else None
+                    for t in birnn_inputs(dev, gr, T_, Bn, Hr, mode))
+                kw = dict(mode=mode, hidden=Hr)
+                err = check_birnn(birnn_recurrence(gi, wh, bh, **kw),
+                                  birnn_recurrence_plain(gi, wh, bh, **kw),
+                                  dt, f"K2 {mode} {name} (T, B, H) = "
+                                  f"({T_}, {Bn}, {Hr})")
+                print(f"K2 {mode} {name} ragged (T, B, H) = ({T_}, {Bn}, "
+                      f"{Hr}): err {err:.3e}; plan "
+                      f"{card_plan(Bn, Hr, mode, dt).describe()}",
+                      flush=True)
+    g = torch.Generator(device=dev).manual_seed(5)
     for mode, n_gates in (("bigru", 3), ("bilstm", 4)):
         G = n_gates * H
-        gi0 = torch.randn(T_FRAMES, 2, B, G, generator=g, device=dev) * 0.5
-        wh0 = (torch.rand(2, H, G, generator=g, device=dev) * 2 - 1) * limit
-        bh0 = (torch.rand(2, G, generator=g, device=dev) * 2 - 1) * limit
+        gi0, wh0, bh0 = birnn_inputs(dev, g, T_FRAMES, B, H, mode)
         for dt in (torch.float32, torch.bfloat16):
             gi, wh = gi0.to(dt), wh0.to(dt)
             bh = bh0.to(dt) if mode == "bigru" else None
@@ -248,16 +290,16 @@ def phase_birnn(dev, results):
             ys_k = birnn_recurrence(gi, wh, bh, **kw)
             ys_p = birnn_recurrence_plain(gi, wh, bh, **kw)
             torch.cuda.synchronize()
-            check(bool(torch.isfinite(ys_k).all()), f"K2 {mode} not finite")
-            if dt == torch.float32:
-                err = max_err(ys_k, ys_p)
-                # both carry h in f32 and the step is contractive, so 480
-                # steps of ~1e-7 rounding stay far below 1e-4
-                check(err <= 1e-4, f"K2 {mode} f32 err {err}")
-            else:
-                err = check_bf16(ys_k, ys_p, f"K2 {mode} bf16")
             name = str(dt).replace("torch.", "")
+            err = check_birnn(ys_k, ys_p, dt, f"K2 {mode} {name}")
+            plan = card_plan(B, H, mode, dt)
+            print(f"K2 plan {mode} {name} (T, B, H) = ({T_FRAMES}, {B}, "
+                  f"{H}): {plan.describe()}", flush=True)
+            print(f"K2 max_clusters {mode} {name}: {plan.max_clusters} "
+                  f"clusters of {plan.C} resident at once", flush=True)
             ms = time_ms(lambda: birnn_recurrence(gi, wh, bh, **kw), 5)
+            exchange_ms = time_ms(lambda: birnn_exchange(gi, wh, bh, **kw),
+                                  5)
             plain_ms = time_ms(lambda: birnn_recurrence_plain(
                 gi, wh, bh, **kw), 3)
             # h W_hh for both lanes at every step
@@ -278,12 +320,14 @@ def phase_birnn(dev, results):
                 library_ms = time_ms(lambda: rnn(xs), 5)
             del rnn, xs
             print(f"K2 birnn_recurrence {mode} {name}: err {err:.3e}; "
-                  f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+                  f"kernel {ms:.3f} ms (its exchange and barrier alone "
+                  f"{exchange_ms:.3f} ms, {1e3 * exchange_ms / T_FRAMES:.2f} "
+                  f"us a step), plain {plain_ms:.3f} ms, bound "
                   f"{b['bound_ms']:.3f} ms ({b['bound_by']}), cuDNN "
                   f"{mode[2:].upper()} {library_ms:.3f} ms", flush=True)
             results[(f"birnn_recurrence_{mode}", name)] = dict(
                 max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                library_ms=library_ms, **b)
+                library_ms=library_ms, exchange_ms=exchange_ms, **b)
 
 
 def phase_encoder_layer(dev, results):
@@ -293,6 +337,7 @@ def phase_encoder_layer(dev, results):
     import torch.nn.functional as F
     from grounded_video_description_torch.models.transformer import (
         Encoder, encoder_apply)
+    from grounded_video_description_torch.ops.kernels import _build
     from grounded_video_description_torch.ops.kernels.encoder_layer import (
         _gemm, fused_encoder_layer, fused_encoder_layer_plain)
 
@@ -334,9 +379,12 @@ def phase_encoder_layer(dev, results):
                       f"K1 bf16 GEMM off by more than one ulp: {e_gemm}")
             gemm_ms = time_ms(lambda: _gemm(a, wqkv, None, relu=False), 5)
             lib_ms = time_ms(lambda: F.linear(a, wqkv), 5)
+            qkv_flops = 2 * a.shape[0] * wqkv.shape[0] * a.shape[1]
             print(f"K1 GEMM {name} (100000 x 3072 x 1024): err "
-                  f"{e_gemm:.3e}; kernel {gemm_ms:.3f} ms, cuBLAS "
-                  f"{lib_ms:.3f} ms", flush=True)
+                  f"{e_gemm:.3e}; kernel {gemm_ms:.3f} ms "
+                  f"({qkv_flops / gemm_ms / 1e9:.1f} TFLOP/s), cuBLAS "
+                  f"{lib_ms:.3f} ms ({qkv_flops / lib_ms / 1e9:.1f} TFLOP/s)",
+                  flush=True)
             del a, c_k, c_p
 
             x = x0.to(dt)
@@ -355,20 +403,62 @@ def phase_encoder_layer(dev, results):
                     errs.append(check_bf16(y_k, y_p, "K1 bf16 layer"))
                 x = y_p
             xin = x0.to(dt)
+            _build.reset_launches()
+            encoder_apply(enc, xin, n_heads=6, use_kernel=True)
+            route = dict(_build.launches)
+            want = {"encoder_layer": 2}
+            if dt == torch.bfloat16:     # the tensor-core attention
+                want["encoder_layer_attention_mma"] = 2
+            check(route == want, f"K1 {name} launches {route} != {want}")
             ms = time_ms(lambda: encoder_apply(enc, xin, n_heads=6,
                                                use_kernel=True), 3)
             plain_ms = time_ms(lambda: encoder_apply(enc, xin, n_heads=6),
                                3)
+            library_ms = time_ms(lambda: k1_library(xin, weights, 6), 3)
             n_w = sum(nbytes(*w) for w in weights)
             b = bound(2 * layer_flops(B, R, D_RNN, D_RNN // 2),
                       2 * nbytes(xin) * 2 + n_w, name)
             print(f"K1 encoder_layer x2 {name}: per-layer err "
                   f"{[f'{e:.3e}' for e in errs]}; kernel {ms:.3f} ms, "
                   f"plain {plain_ms:.3f} ms, bound {b['bound_ms']:.3f} ms "
-                  f"({b['bound_by']})", flush=True)
+                  f"({b['bound_by']}), library (F.linear, "
+                  f"scaled_dot_product_attention, the twin's LayerNorm) "
+                  f"{library_ms:.3f} ms; launches {route}", flush=True)
             results[("encoder_layer", name)] = dict(
                 max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
-                library_ms=None, **b)
+                library_ms=library_ms, **b)
+
+
+def k1_library(x, weights, heads):
+    """K1's two layers by library calls, timed only (the port never calls
+    this): per layer ``F.linear`` for QKV (one product, N = 3D),
+    ``scaled_dot_product_attention`` over the heads of ceil(D / heads)
+    zero-padded to a multiple of 8 (176 at D = 1024; a zero pad changes
+    no output column), ``F.linear`` for Wo, then the twin's residual +
+    unbiased-std LayerNorm, ReLU FFN (``F.linear``) and residual +
+    LayerNorm (``layer_tail``)."""
+    import torch
+    import torch.nn.functional as F
+    from grounded_video_description_torch.ops.kernels.encoder_layer import (
+        layer_tail)
+    Bq, Rq, D = x.shape
+    hs = -(-D // heads)
+    hp = -(-hs // 8) * 8
+
+    def split(t):
+        t = F.pad(t, (0, heads * hs - D)).view(Bq, Rq, heads, hs)
+        return F.pad(t, (0, hp - hs)).transpose(1, 2)
+
+    dt = x.dtype
+    with torch.no_grad():
+        for w in weights:
+            wqkv = torch.cat([w.wq, w.wk, w.wv]).to(dt)
+            q, k, v = F.linear(x, wqkv).split(D, dim=-1)
+            o = F.scaled_dot_product_attention(split(q), split(k), split(v),
+                                               scale=1.0 / math.sqrt(D))
+            o = o.transpose(1, 2)[..., :hs].reshape(Bq, Rq, heads * hs)
+            x = layer_tail(x, F.linear(o[..., :D], w.wo.to(dt)), w)
+    return x
 
 
 def phase_attention_train(dev, results):
@@ -829,9 +919,12 @@ def phase_end_to_end(dev, base, state):
             torch.cuda.synchronize()
             counts = dict(_build.launches)
             if kernels:
-                # K2: 2 BiGRU layers per encode; K1: 2 layers; K3: 20 steps
+                # K2: 2 BiGRU layers per encode; K1: 2 layers (in bf16 each
+                # on the tensor-core attention); K3: 20 steps
                 expect = {"birnn_recurrence": 2, "encoder_layer": 2,
                           "region_attention": base.seq_length}
+                if dtype == "bfloat16":
+                    expect["encoder_layer_attention_mma"] = 2
                 check(counts == expect,
                       f"{dtype} kernel run launches {counts} != {expect}")
                 launches[dtype] = counts
@@ -1448,8 +1541,9 @@ def main() -> int:
                    "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                    "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                    "dtype": dt}
-            if "repack_ms" in r:
-                row["repack_ms"] = r["repack_ms"]
+            for extra in ("repack_ms", "exchange_ms"):
+                if extra in r:
+                    row[extra] = r[extra]
             kernels.append(row)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

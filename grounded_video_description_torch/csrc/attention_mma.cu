@@ -176,11 +176,14 @@ struct PackArgs {
   bf16* dst[4];
 };
 
-// dst (B, H, Rt, dp) from src (B, R, D): head h is columns [h hs, h hs +
-// dh); rows at or past R and columns at or past dh are zero.  One thread
-// per 8 packed elements (one 16-byte store); blockIdx.y picks the tensor.
+// dst (B, H, Rt, dp) from src (B, R, D) whose rows are ld elements apart
+// (ld = D, or 3D for K1's (B, R, 3D) QKV buffer, src then pointing at the
+// q, k or v columns): head h is columns [h hs, h hs + dh); rows at or past
+// R and columns at or past dh are zero.  One thread per 8 packed elements
+// (one 16-byte store); blockIdx.y picks the tensor.
 __global__ void __launch_bounds__(256)
-pack_kernel(PackArgs a, int B, int R, int Rt, int D, int hs, int H, int dp) {
+pack_kernel(PackArgs a, int B, int R, int Rt, int D, int hs, int H, int dp,
+            int ld) {
   const int CH = dp / 8;
   const size_t n = (size_t)B * H * Rt * CH;
   const bf16* src = a.src[blockIdx.y];
@@ -193,7 +196,7 @@ pack_kernel(PackArgs a, int B, int R, int Rt, int D, int hs, int H, int dp) {
     const int b = bh / H, h = bh % H;
     const int c0 = h * hs, dh = min(hs, D - c0);
     __align__(16) bf16 v[8];
-    const bf16* s = src + ((size_t)b * R + r) * D + c0;
+    const bf16* s = src + ((size_t)b * R + r) * ld + c0;
 #pragma unroll
     for (int e = 0; e < 8; ++e) {
       const int d = c * 8 + e;
@@ -729,10 +732,10 @@ int packed_width(int hs) {
                                                                          : 0;
 }
 
-// n <= 4 tensors (B, R, D) into dst, n packed (B, H, Rt, dp) one after
-// another.
+// n <= 4 tensors (B, R, D), rows ld elements apart, into dst, n packed
+// (B, H, Rt, dp) one after another.
 int pack_heads_bf16(int n, const void* const* src, void* dst, int B, int R,
-                    int D, int hs, cudaStream_t s) {
+                    int D, int hs, int ld, cudaStream_t s) {
   const int dp = packed_width(hs);
   if (n < 1 || n > 4 || dp == 0) return (int)cudaErrorInvalidValue;
   const int H = (D + hs - 1) / hs, Rt = rows_padded(R);
@@ -744,17 +747,18 @@ int pack_heads_bf16(int n, const void* const* src, void* dst, int B, int R,
   }
   const size_t want = (per / 8 + 255) / 256;
   const int blocks = want < 132 * 16 ? (int)want : 132 * 16;
-  pack_kernel<<<dim3(blocks, n), 256, 0, s>>>(a, B, R, Rt, D, hs, H, dp);
+  pack_kernel<<<dim3(blocks, n), 256, 0, s>>>(a, B, R, Rt, D, hs, H, dp,
+                                               ld);
   return (int)cudaGetLastError();
 }
 
 int attention_fwd_bf16(const void* q, const void* k, const void* v, void* out,
                        float* lse, const long long* seed, void* scratch,
-                       int B, int R, int D, int hs, uint32_t salt_base,
-                       int salt_mul, float inv_scale, float rate, bool drop,
-                       cudaStream_t s) {
+                       int B, int R, int D, int hs, int ld,
+                       uint32_t salt_base, int salt_mul, float inv_scale,
+                       float rate, bool drop, cudaStream_t s) {
   const void* src[3] = {q, k, v};
-  int e = pack_heads_bf16(3, src, scratch, B, R, D, hs, s);
+  int e = pack_heads_bf16(3, src, scratch, B, R, D, hs, ld, s);
   if (e != 0) return e;
   const int dp = packed_width(hs);
   const size_t per = (size_t)B * ((D + hs - 1) / hs) * rows_padded(R) * dp;
@@ -786,7 +790,7 @@ int attention_bwd_bf16(const void* q, const void* k, const void* v,
                        uint32_t salt_base, int salt_mul, float inv_scale,
                        float rate, cudaStream_t s) {
   const void* src[4] = {q, k, v, dout};
-  int e = pack_heads_bf16(4, src, scratch, B, R, D, hs, s);
+  int e = pack_heads_bf16(4, src, scratch, B, R, D, hs, D, s);
   if (e != 0) return e;
   const int dp = packed_width(hs);
   const size_t per = (size_t)B * ((D + hs - 1) / hs) * rows_padded(R) * dp;
@@ -817,17 +821,17 @@ extern "C" int gvd_attention_tile() { return TILE; }
 // the kernels' scratch by it.
 extern "C" int gvd_packed_width(int hs) { return gvd::packed_width(hs); }
 
-// n (1 to 4) bf16 tensors (B, R, D), heads of width ceil(D / n_heads) as
-// column ranges, into dst: n packed (B, H, Rt, dp) tensors one after
-// another (Rt = R rounded up to TILE, dp = gvd_packed_width of a head).
-// The attention runs this first; the entry of its own serves the tests and
-// the timing of the repack alone.
+// n (1 to 4) bf16 tensors (B, R, D), rows ld elements apart, heads of
+// width ceil(D / n_heads) as column ranges, into dst: n packed (B, H, Rt,
+// dp) tensors one after another (Rt = R rounded up to TILE, dp =
+// gvd_packed_width of a head).  The attention runs this first; the entry
+// of its own serves the tests and the timing of the repack alone.
 extern "C" int gvd_pack_heads(int n, const void* s0, const void* s1,
                               const void* s2, const void* s3, void* dst,
-                              int B, int R, int D, int n_heads,
+                              int B, int R, int D, int n_heads, int ld,
                               void* stream) {
   const void* src[4] = {s0, s1, s2, s3};
   return gvd::pack_heads_bf16(n, src, dst, B, R, D,
-                              (D + n_heads - 1) / n_heads,
+                              (D + n_heads - 1) / n_heads, ld,
                               (cudaStream_t)stream);
 }

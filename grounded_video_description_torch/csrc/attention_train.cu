@@ -520,7 +520,7 @@ extern "C" int gvd_attention_train_fwd(int dtype, const void* q,
   const uint32_t sb = (uint32_t)salt_base;
   if (dtype == 1)
     return gvd::attention_fwd_bf16(q, k, v, out, (float*)lse, sd, scratch, B,
-                                   R, D, hs, sb, salt_mul, inv_scale,
+                                   R, D, hs, D, sb, salt_mul, inv_scale,
                                    rate, true, s);
   if (dtype != 0) return (int)cudaErrorInvalidValue;
   switch (nv) {
@@ -593,7 +593,7 @@ extern "C" int gvd_flash_self_attention(int dtype, const void* q,
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 1)
     return gvd::attention_fwd_bf16(q, k, v, out, nullptr, nullptr, scratch,
-                                   N, R, d, d, 0u, 0, 1.0f, 0.0f, false,
+                                   N, R, d, d, d, 0u, 0, 1.0f, 0.0f, false,
                                    s);
   if (dtype != 0) return (int)cudaErrorInvalidValue;
   switch ((d + 63) / 64) {

@@ -9,75 +9,125 @@
 // one shared scale sqrt(D), and LN dividing by (unbiased std + eps).
 //
 // What bounds it on an H100: arithmetic.  At B=100, R=1000, D=1024 a layer
-// is ~1.1 TFLOP of projections and ~0.4 TFLOP of attention, against ~0.4 GB
-// of activations; the (B, 6, R, R) scores would add 2.4 GB per layer of
+// is ~1.05 TFLOP of projections and ~0.4 TFLOP of attention, against ~0.4
+// GB of activations; the (B, 6, R, R) scores would add 2.4 GB per layer of
 // f32 traffic if they were written out.  Design:
-//  * gvd_gemm: a tiled product C = A W^T (+bias, ReLU) with W in PyTorch's
-//    (out, in) layout, 128 x 128 tiles staged through shared memory, an
-//    8 x 8 block of outputs per thread, f32 accumulation; in bf16 (K a
-//    multiple of 8) the tiles go through the tensor cores with wmma
-//    (mma.sync), still accumulating in f32.  It serves the QKV (one product
-//    with N = 3D), output and FFN projections.
-//  * gvd_attention: one block per (query tile of 64, head, batch row),
-//    flash-style: each 64-key tile's scores stay in shared memory and
-//    registers, the softmax runs online over the tiles in f32, and P V is
-//    summed in registers, so no score reaches device memory.  Each thread
-//    computes a 4 x 4 block of scores and a 4 x 12 block of outputs from
-//    16-byte shared-memory reads, so each read is reused in registers.  Heads are column
-//    ranges of the qkv buffer, so the uneven heads need no packing.
+//  * gvd_gemm: C = A W^T (+bias, ReLU) with W in PyTorch's (out, in)
+//    layout, 128 x 128 output tiles, f32 accumulation.  It serves the QKV
+//    (one product with N = 3D), output and FFN projections.
+//    - bf16 (K a multiple of 8; the wrapper zero-pads K otherwise): on the
+//      tensor cores, mma.sync.m16n8k16 with operands from shared memory by
+//      ldmatrix, fed by a three-stage ring of 128 x 64 tiles that cp.async
+//      fills two tiles ahead of the products (two blocks an SM); 8 warps
+//      of 64 x 32 outputs; the epilogue adds the bias, applies the ReLU
+//      and rounds to bf16 straight from the accumulator fragments.  Of
+//      the tilings tried on an H100 (BK 32 with 4 stages, BK 64 with 3
+//      or 4, 128 x 256 tiles with BK 32 or 64) this one was fastest.
+//    - f32: on the SIMT units, an 8 x 8 block of outputs per thread from
+//      16-byte shared-memory reads, K in steps of 16 staged by cp.async
+//      into two buffers, the next step's tiles loading during the current
+//      step's products.
+//  * attention, heads as column ranges of the qkv buffer:
+//    - bf16: the tensor-core forward of csrc/attention_mma.cu without
+//      dropout or log-sum-exp (as K7's bf16 launch), its repack reading q,
+//      k and v straight from the (B, R, 3D) qkv buffer at column offsets
+//      0, D, 2D with a row stride of 3D.  Scores and softmax stay f32 on
+//      the accumulators.
+//    - f32: gvd_attention's SIMT kernel below, flash-style: one block per
+//      (query tile of 64, head, batch row), each 64-key tile's scores in
+//      shared memory and registers, the softmax online over the tiles in
+//      f32, P V summed in registers, so no score reaches device memory.
+//      TF32 products would miss the f32 bars.
 //  * gvd_residual_layer_norm: x + y, then the unbiased-std LayerNorm, one
 //    block per row, statistics in f32.
-// These kernels are simple and right, not yet fast: no wgmma, TMA or
-// pipelining, and the attention runs on the f32 SIMT units in both dtypes.
 
-#include <mma.h>
-
+#include "attention_mma.cuh"
 #include "common.cuh"
 
 namespace {
 
-// ------------------------------------------------------------------ GEMM --
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// cp.async of 4 or 16 bytes; ok = false writes zeros and reads nothing.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(ok ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(ok ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// ------------------------------------------------------------- f32 GEMM --
 // C (M, N) = A (M, K) W (N, K)^T: 128 x 128 output tiles, 256 threads, each
 // thread an 8 x 8 block (two 4-row by two 4-column quarters 64 apart, so a
-// warp's shared-memory reads are conflict-free float4s), K in steps of 8.
-constexpr int BM = 128, BN = 128, BK = 8, GEMM_THREADS = 256;
+// warp's shared-memory reads are conflict-free float4s), K in steps of 16.
+// The tiles are stored k-major (As[k][m]) so those reads are float4s; each
+// 4-byte cp.async writes one element to its transposed place.
+constexpr int BM = 128, BN = 128, BK = 16, GEMM_THREADS = 256;
+constexpr int SLD = BM + 4;        // row stride of a k-major tile
 
-template <typename T>
 __global__ void __launch_bounds__(GEMM_THREADS)
-gemm_kernel(const T* __restrict__ A, const T* __restrict__ W,
-            const float* __restrict__ bias, T* __restrict__ C, int M, int N,
-            int K, int relu) {
-  __shared__ __align__(16) float As[BK][BM];
-  __shared__ __align__(16) float Ws[BK][BN];
+gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ W,
+                const float* __restrict__ bias, float* __restrict__ C, int M,
+                int N, int K, int relu) {
+  __shared__ __align__(16) float As[2][BK][SLD];
+  __shared__ __align__(16) float Ws[2][BK][SLD];
   const int tid = threadIdx.x;
   const int tx = tid % 16, ty = tid / 16;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  // tile loads: thread t copies 4 consecutive k of row t / 2
-  const int lr = tid / 2, lk = (tid % 2) * 4;
   float acc[8][8];
 #pragma unroll
   for (int i = 0; i < 8; ++i)
 #pragma unroll
     for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
 
-  for (int k0 = 0; k0 < K; k0 += BK) {
+  // each operand tile is 128 rows x 16 k: lanes along k, so a warp reads
+  // two 64-byte row segments
+  auto load = [&](int st, int k0) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int gk = k0 + lk + i;
-      const int gm = m0 + lr, gn = n0 + lr;
-      As[lk + i][lr] =
-          (gm < M && gk < K) ? gvd::to_f32(A[(size_t)gm * K + gk]) : 0.0f;
-      Ws[lk + i][lr] =
-          (gn < N && gk < K) ? gvd::to_f32(W[(size_t)gn * K + gk]) : 0.0f;
+    for (int i = 0; i < BM * BK / GEMM_THREADS; ++i) {
+      const int e = tid + i * GEMM_THREADS, r = e / BK, kk = e % BK;
+      const int gk = k0 + kk, gm = m0 + r, gn = n0 + r;
+      const bool ka = gm < M && gk < K, kw = gn < N && gk < K;
+      cp_async4(&As[st][kk][r], ka ? A + (size_t)gm * K + gk : A, ka);
+      cp_async4(&Ws[st][kk][r], kw ? W + (size_t)gn * K + gk : W, kw);
     }
+  };
+
+  const int nk = (K + BK - 1) / BK;
+  load(0, 0);
+  cp_async_commit();
+  for (int kt = 0; kt < nk; ++kt) {
+    if (kt + 1 < nk) load((kt + 1) & 1, (kt + 1) * BK);
+    cp_async_commit();
+    cp_async_wait<1>();
     __syncthreads();
+    const int st = kt & 1;
 #pragma unroll
     for (int kk = 0; kk < BK; ++kk) {
       float a[8], w[8];
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[kk][ty * 4]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&As[kk][64 + ty * 4]);
-      const float4 w0 = *reinterpret_cast<const float4*>(&Ws[kk][tx * 4]);
-      const float4 w1 = *reinterpret_cast<const float4*>(&Ws[kk][64 + tx * 4]);
+      const float4 a0 = *reinterpret_cast<const float4*>(&As[st][kk][ty * 4]);
+      const float4 a1 =
+          *reinterpret_cast<const float4*>(&As[st][kk][64 + ty * 4]);
+      const float4 w0 = *reinterpret_cast<const float4*>(&Ws[st][kk][tx * 4]);
+      const float4 w1 =
+          *reinterpret_cast<const float4*>(&Ws[st][kk][64 + tx * 4]);
       a[0] = a0.x; a[1] = a0.y; a[2] = a0.z; a[3] = a0.w;
       a[4] = a1.x; a[5] = a1.y; a[6] = a1.z; a[7] = a1.w;
       w[0] = w0.x; w[1] = w0.y; w[2] = w0.z; w[3] = w0.w;
@@ -101,92 +151,151 @@ gemm_kernel(const T* __restrict__ A, const T* __restrict__ W,
       float v = acc[i][j];
       if (bias != nullptr) v += bias[n];
       if (relu) v = fmaxf(v, 0.0f);
-      C[(size_t)m * N + n] = gvd::from_f32<T>(v);
+      C[(size_t)m * N + n] = v;
     }
   }
 }
 
-// bf16 on the tensor cores (mma.sync through nvcuda::wmma), f32
-// accumulation: 128 x 128 output tiles, 8 warps as 4 (rows) x 2 (columns),
-// each warp 32 x 64 = 2 x 4 fragments of 16 x 16; K in steps of 32 staged in
-// shared memory with 16-byte loads (needs K % 8 == 0).  The epilogue goes
-// through a per-warp 16 x 16 f32 scratch to add the bias and the ReLU.
-constexpr int WBM = 128, WBN = 128, WBK = 32, WLD = WBK + 8;
+// ------------------------------------------------------------ bf16 GEMM --
+// TBM x TBN output tiles, 8 warps as 2 (rows) x 4 (columns), each warp
+// 64 x WN = 4 x NT8 fragments of m16n8; K in steps of TBK through a ring of
+// STAGES shared-memory stages (rows TLD = TBK + 8 elements apart: an odd
+// number of 16-byte units, so the 8 rows an ldmatrix reads hit distinct
+// banks).
+constexpr int TBM = 128, TBN = 128, TBK = 64, STAGES = 3, TLD = TBK + 8;
+constexpr int WN = TBN / 4, NT8 = WN / 8, MMA_BLOCKS = 2;  // blocks an SM
+constexpr size_t MMA_GEMM_SMEM = (size_t)STAGES * (TBM + TBN) * TLD * 2;
 
-__global__ void __launch_bounds__(GEMM_THREADS)
-gemm_bf16_wmma_kernel(const __nv_bfloat16* __restrict__ A,
-                      const __nv_bfloat16* __restrict__ W,
-                      const float* __restrict__ bias,
-                      __nv_bfloat16* __restrict__ C, int M, int N, int K,
-                      int relu) {
-  using namespace nvcuda;
-  __shared__ __align__(32) __nv_bfloat16 As[WBM * WLD];
-  __shared__ __align__(32) __nv_bfloat16 Ws[WBN * WLD];
-  __shared__ __align__(32) float scratch[GEMM_THREADS / 32][16 * 16];
+__device__ __forceinline__ void ldsm_x4(uint32_t r[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// c (16 x 8, f32) += a (16 x 16, bf16, row-major) b (16 x 8, bf16, col).
+__device__ __forceinline__ void mma16816(float c[4], const uint32_t a[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ float epilogue(float v, const float* bias, int n,
+                                          int relu) {
+  if (bias != nullptr) v += bias[n];
+  return relu ? fmaxf(v, 0.0f) : v;
+}
+
+// K % 8 == 0, A and W 16-byte aligned.
+__global__ void __launch_bounds__(GEMM_THREADS, MMA_BLOCKS)
+gemm_bf16_mma_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W,
+                     const float* __restrict__ bias, bf16* __restrict__ C,
+                     int M, int N, int K, int relu) {
+  extern __shared__ __align__(16) bf16 gsm[];
+  bf16* As = gsm;                          // STAGES x (TBM, TLD)
+  bf16* Bs = gsm + STAGES * TBM * TLD;     // STAGES x (TBN, TLD)
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp / 2, wn = warp % 2;
-  const int m0 = blockIdx.y * WBM, n0 = blockIdx.x * WBN;
+  const int wm = warp / 4, wn = warp % 4;
+  const int m0 = blockIdx.y * TBM, n0 = blockIdx.x * TBN;
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][4];
+  // a stage: TBM (TBN) rows x TBK k of A (W) in 16-byte chunks
+  constexpr int CPR = TBK / 8;                 // chunks a row
+  auto load = [&](int st, int k0) {
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+    for (int c = 0; c < TBM * CPR / GEMM_THREADS; ++c) {
+      const int idx = tid + c * GEMM_THREADS, r = idx / CPR,
+                kc = (idx % CPR) * 8, gk = k0 + kc, gm = m0 + r;
+      const bool ok = gm < M && gk < K;
+      cp_async16(As + (st * TBM + r) * TLD + kc,
+                 ok ? A + (size_t)gm * K + gk : A, ok);
+    }
 #pragma unroll
-    for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
+    for (int c = 0; c < TBN * CPR / GEMM_THREADS; ++c) {
+      const int idx = tid + c * GEMM_THREADS, r = idx / CPR,
+                kc = (idx % CPR) * 8, gk = k0 + kc, gn = n0 + r;
+      const bool ok = gn < N && gk < K;
+      cp_async16(Bs + (st * TBN + r) * TLD + kc,
+                 ok ? W + (size_t)gn * K + gk : W, ok);
+    }
+  };
 
-  const uint4 zero = make_uint4(0, 0, 0, 0);
-  for (int k0 = 0; k0 < K; k0 += WBK) {
-    // each tile is 128 rows x 32 k = 512 chunks of 8; two per thread
+  float acc[4][NT8][4];
 #pragma unroll
-    for (int c = 0; c < 2; ++c) {
-      const int idx = tid + c * GEMM_THREADS;
-      const int r = idx / 4, kc = (idx % 4) * 8, gk = k0 + kc;
-      const int gm = m0 + r, gn = n0 + r;
-      *reinterpret_cast<uint4*>(&As[r * WLD + kc]) =
-          (gm < M && gk < K)
-              ? *reinterpret_cast<const uint4*>(&A[(size_t)gm * K + gk]) : zero;
-      *reinterpret_cast<uint4*>(&Ws[r * WLD + kc]) =
-          (gn < N && gk < K)
-              ? *reinterpret_cast<const uint4*>(&W[(size_t)gn * K + gk]) : zero;
-    }
-    __syncthreads();
+  for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int kk = 0; kk < WBK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major> a[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                     wmma::col_major> w[4];
+    for (int j = 0; j < NT8; ++j)
 #pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(a[i], &As[(wm * 32 + i * 16) * WLD + kk], WLD);
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
+
+  const int nk = (K + TBK - 1) / TBK;
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        wmma::load_matrix_sync(w[j], &Ws[(wn * 64 + j * 16) * WLD + kk], WLD);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) wmma::mma_sync(acc[i][j], a[i], w[j], acc[i][j]);
-    }
-    __syncthreads();
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < nk) load(s, s * TBK);
+    cp_async_commit();
   }
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<STAGES - 2>();     // stage kt has landed
+    __syncthreads();                 // ... for every thread; stage kt - 1 free
+    const int nxt = kt + STAGES - 1;
+    if (nxt < nk) load(nxt % STAGES, nxt * TBK);
+    cp_async_commit();
+    const bf16* as = As + (kt % STAGES) * TBM * TLD;
+    const bf16* bs = Bs + (kt % STAGES) * TBN * TLD;
+#pragma unroll
+    for (int kk = 0; kk < TBK; kk += 16) {
+      uint32_t a[4][4], b[NT8][2];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        ldsm_x4(a[i], as + (wm * 64 + i * 16 + (lane & 15)) * TLD + kk +
+                          (lane >> 4) * 8);
+#pragma unroll
+      for (int jj = 0; jj < NT8 / 2; ++jj) {
+        uint32_t r[4];
+        ldsm_x4(r, bs + (wn * WN + jj * 16 + (lane >> 4) * 8 + (lane & 7)) *
+                            TLD + kk + ((lane >> 3) & 1) * 8);
+        b[2 * jj][0] = r[0];
+        b[2 * jj][1] = r[1];
+        b[2 * jj + 1][0] = r[2];
+        b[2 * jj + 1][1] = r[3];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < NT8; ++j)
+          mma16816(acc[i][j], a[i], b[j][0], b[j][1]);
+    }
+  }
+  cp_async_wait<0>();
 
-  float* sc = scratch[warp];
+  // fragment (i, j): rows g and g + 8 (g = lane / 4), columns 2 (lane % 4)
+  // + {0, 1} of the m16n8 tile
+  const bool pairs = N % 2 == 0;
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
+  for (int i = 0; i < 4; ++i) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      wmma::store_matrix_sync(sc, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      const int mb = m0 + wm * 32 + i * 16, nb = n0 + wn * 64 + j * 16;
-      for (int e = lane; e < 256; e += 32) {
-        const int m = mb + e / 16, n = nb + e % 16;
-        if (m < M && n < N) {
-          float v = sc[e];
-          if (bias != nullptr) v += bias[n];
-          if (relu) v = fmaxf(v, 0.0f);
-          C[(size_t)m * N + n] = __float2bfloat16(v);
+    for (int h = 0; h < 2; ++h) {
+      const int m = m0 + wm * 64 + i * 16 + (lane >> 2) + h * 8;
+      if (m >= M) continue;
+      bf16* crow = C + (size_t)m * N;
+#pragma unroll
+      for (int j = 0; j < NT8; ++j) {
+        const int n = n0 + wn * WN + j * 8 + (lane & 3) * 2;
+        if (n >= N) continue;
+        const float v0 = epilogue(acc[i][j][2 * h], bias, n, relu);
+        if (pairs) {
+          const float v1 = epilogue(acc[i][j][2 * h + 1], bias, n + 1, relu);
+          *reinterpret_cast<__nv_bfloat162*>(crow + n) =
+              __floats2bfloat162_rn(v0, v1);
+        } else {
+          crow[n] = __float2bfloat16(v0);
+          if (n + 1 < N)
+            crow[n + 1] = __float2bfloat16(
+                epilogue(acc[i][j][2 * h + 1], bias, n + 1, relu));
         }
       }
-      __syncwarp();
     }
   }
 }
@@ -402,37 +511,45 @@ extern "C" int gvd_gemm(int dtype, const void* A, const void* W,
                         const void* bias, void* C, int M, int N, int K,
                         int relu, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 1 && K % 8 == 0) {
-    dim3 grid((N + WBN - 1) / WBN, (M + WBM - 1) / WBM);
-    gemm_bf16_wmma_kernel<<<grid, GEMM_THREADS, 0, s>>>(
-        (const __nv_bfloat16*)A, (const __nv_bfloat16*)W, (const float*)bias,
-        (__nv_bfloat16*)C, M, N, K, relu);
+  if (dtype == 1) {
+    if (K % 8 != 0) return (int)cudaErrorInvalidValue;
+    cudaError_t e = gvd::allow_smem(gemm_bf16_mma_kernel, MMA_GEMM_SMEM);
+    if (e != cudaSuccess) return (int)e;
+    dim3 grid((N + TBN - 1) / TBN, (M + TBM - 1) / TBM);
+    gemm_bf16_mma_kernel<<<grid, GEMM_THREADS, MMA_GEMM_SMEM, s>>>(
+        (const bf16*)A, (const bf16*)W, (const float*)bias, (bf16*)C, M, N,
+        K, relu);
     return (int)cudaGetLastError();
   }
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
   dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  GVD_DISPATCH(dtype, T, {
-    gemm_kernel<T><<<grid, GEMM_THREADS, 0, s>>>(
-        (const T*)A, (const T*)W, (const float*)bias, (T*)C, M, N, K, relu);
-  });
+  gemm_f32_kernel<<<grid, GEMM_THREADS, 0, s>>>(
+      (const float*)A, (const float*)W, (const float*)bias, (float*)C, M, N,
+      K, relu);
   return (int)cudaGetLastError();
 }
 
-extern "C" int gvd_attention(int dtype, const void* qkv, void* out, int B,
-                             int R, int D, int n_heads, float inv_scale,
-                             void* stream) {
+// qkv (B, R, 3D) = [q | k | v], out (B, R, D).  bf16 runs the tensor-core
+// forward of csrc/attention_mma.cu (scratch: three packed (B, H, Rt, dp)
+// bf16 tensors, as for K7); f32 the SIMT kernel above (scratch unused).
+extern "C" int gvd_attention(int dtype, const void* qkv, void* out,
+                             void* scratch, int B, int R, int D, int n_heads,
+                             float inv_scale, void* stream) {
   const int hs = (D + n_heads - 1) / n_heads;
-  if (hs > MAX_HEAD) return (int)cudaErrorInvalidValue;
-  const int nv = (hs + 63) / 64;
   cudaStream_t s = (cudaStream_t)stream;
-  GVD_DISPATCH(dtype, T, {
-    switch (nv) {
-      case 1: return launch_attention<T, 1>(qkv, out, B, R, D, hs, inv_scale, s);
-      case 2: return launch_attention<T, 2>(qkv, out, B, R, D, hs, inv_scale, s);
-      case 3: return launch_attention<T, 3>(qkv, out, B, R, D, hs, inv_scale, s);
-      default: return launch_attention<T, 4>(qkv, out, B, R, D, hs, inv_scale, s);
-    }
-  });
-  return (int)cudaErrorInvalidValue;
+  if (dtype == 1) {
+    const bf16* q = (const bf16*)qkv;
+    return gvd::attention_fwd_bf16(q, q + D, q + 2 * D, out, nullptr, nullptr,
+                                   scratch, B, R, D, hs, 3 * D, 0u, 0,
+                                   inv_scale, 0.0f, false, s);
+  }
+  if (dtype != 0 || hs > MAX_HEAD) return (int)cudaErrorInvalidValue;
+  switch ((hs + 63) / 64) {
+    case 1: return launch_attention<float, 1>(qkv, out, B, R, D, hs, inv_scale, s);
+    case 2: return launch_attention<float, 2>(qkv, out, B, R, D, hs, inv_scale, s);
+    case 3: return launch_attention<float, 3>(qkv, out, B, R, D, hs, inv_scale, s);
+    default: return launch_attention<float, 4>(qkv, out, B, R, D, hs, inv_scale, s);
+  }
 }
 
 extern "C" int gvd_residual_layer_norm(int dtype, const void* x,

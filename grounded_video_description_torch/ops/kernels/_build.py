@@ -45,12 +45,16 @@ _SIGNATURES = {
     # dtype, p_pool, att_h, pool, alpha_w, alpha_b, att_mask, pnt_mask,
     # att_res, grd, B, R, H, D, stream
     "gvd_region_attention": [_I] + [_P] * 9 + [_I] * 4 + [_P],
-    # dtype, mode, gi, wh, bh, out, T, B, H, stream
-    "gvd_birnn_recurrence": [_I, _I] + [_P] * 4 + [_I] * 3 + [_P],
+    # dtype, mode, gi, wh, bh, out, T, B, H, then the plan (route, C,
+    # tile, Up, KW, KR, rows per thread or m16 tiles, smem), exchange_only,
+    # stream
+    "gvd_birnn_recurrence": [_I, _I] + [_P] * 4 + [_I] * 12 + [_P],
+    # dtype, mode, H, the plan
+    "gvd_birnn_max_clusters": [_I] * 11,
     # dtype, A, W, bias, C, M, N, K, relu, stream
     "gvd_gemm": [_I] + [_P] * 4 + [_I] * 4 + [_P],
-    # dtype, qkv, out, B, R, D, n_heads, inv_scale, stream
-    "gvd_attention": [_I, _P, _P, _I, _I, _I, _I, _F, _P],
+    # dtype, qkv, out, scratch, B, R, D, n_heads, inv_scale, stream
+    "gvd_attention": [_I, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     # dtype, x, y, gamma, beta, out, rows, D, eps, stream
     "gvd_residual_layer_norm": [_I] + [_P] * 5 + [_I, _I, _F, _P],
     # dtype, q, k, v, out, lse, seed, scratch, B, R, D, n_heads, inv_scale,
@@ -63,8 +67,8 @@ _SIGNATURES = {
                                                               _P],
     # dtype, q, k, v, out, scratch, N, R, d, stream
     "gvd_flash_self_attention": [_I] + [_P] * 5 + [_I] * 3 + [_P],
-    # n, src0, src1, src2, src3, dst, B, R, D, n_heads, stream
-    "gvd_pack_heads": [_I] + [_P] * 5 + [_I] * 4 + [_P],
+    # n, src0, src1, src2, src3, dst, B, R, D, n_heads, ld, stream
+    "gvd_pack_heads": [_I] + [_P] * 5 + [_I] * 5 + [_P],
     # the bf16 attention's tile rows; the packed width of a head (hs)
     "gvd_attention_tile": [],
     "gvd_packed_width": [_I],

@@ -173,7 +173,7 @@ def pack_heads(xs, n_heads: int) -> torch.Tensor:
     out = _pack_scratch(len(xs), B, R, D, n_heads, xs[0].device)
     ptrs = [x.data_ptr() for x in xs] + [None] * (4 - len(xs))
     code = _build.lib().gvd_pack_heads(
-        len(xs), *ptrs, out.data_ptr(), B, R, D, n_heads,
+        len(xs), *ptrs, out.data_ptr(), B, R, D, n_heads, D,
         _build.stream_of(xs[0]))
     _build.check(code, "pack_heads")
     return out

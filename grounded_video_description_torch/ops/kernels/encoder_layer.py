@@ -2,11 +2,16 @@
 
 Replaces ``grounded_video_description_tpu/ops/pallas/encoder_layer.py
 ::fused_encoder_layer`` / ``encoder_apply_fused``.  The CUDA source is
-``csrc/encoder_layer.cu``: a tiled GEMM (QKV, output and FFN projections),
-an attention kernel whose (R, R) scores stay in shared memory, and a
-residual + unbiased-std LayerNorm kernel.  The TPU kernel packed the six
-uneven heads into zero-padded slots for its matrix unit; here a head is a
-column range of the QKV buffer, so no packing is needed.
+``csrc/encoder_layer.cu``: a GEMM (QKV, output and FFN projections; bf16
+on the tensor cores through a cp.async ring, f32 on the SIMT units), the
+attention and a residual + unbiased-std LayerNorm kernel.  In f32 the
+attention is a SIMT kernel whose (R, R) scores stay in shared memory and
+that reads each head as a column range of the QKV buffer.  In bf16 it is
+the tensor-core forward of ``csrc/attention_mma.cu`` (K7's bf16 launch),
+whose repack reads q, k and v from the (B, R, 3D) QKV buffer at column
+offsets 0, D, 2D with a row stride of 3D into zero-padded head slots, as
+the TPU kernel packed its six uneven heads (``qkv_heads_plain`` is that
+repack in plain PyTorch).
 
 ``fused_encoder_layer_plain`` is the same layer in plain PyTorch, with the
 kernel's numerics (scores, softmax and LayerNorm statistics in f32;
@@ -54,18 +59,29 @@ def head_slices(d: int, n_heads: int) -> List[slice]:
 def fused_encoder_layer_plain(x: torch.Tensor, w: EncoderLayerWeights, *,
                               n_heads: int) -> torch.Tensor:
     """x (B, R, D) -> (B, R, D) in x's dtype."""
-    dt, f32 = x.dtype, torch.float32
+    dt = x.dtype
     D = x.shape[-1]
     inv_scale = 1.0 / math.sqrt(D)           # one shared scale sqrt(D)
     q = F.linear(x, w.wq.to(dt))
     k = F.linear(x, w.wk.to(dt))
     v = F.linear(x, w.wv.to(dt))
+    a = self_attention_plain(q, k, v, n_heads, inv_scale)
+    return layer_tail(x, F.linear(a, w.wo.to(dt)), w)
+
+
+def self_attention_plain(q, k, v, n_heads: int,
+                         inv_scale: float) -> torch.Tensor:
+    """softmax(q_h k_h^T * inv_scale) v_h per head (the ``torch.chunk``
+    column ranges), scores and softmax in f32, the heads concatenated
+    back in q's dtype."""
+    f32 = torch.float32
     heads = []
-    for sl in head_slices(D, n_heads):
+    for sl in head_slices(q.shape[-1], n_heads):
         s = (q[..., sl].to(f32) @ k[..., sl].to(f32).transpose(1, 2)) \
             * inv_scale
-        heads.append((torch.softmax(s, dim=-1) @ v[..., sl].to(f32)).to(dt))
-    return layer_tail(x, F.linear(torch.cat(heads, dim=-1), w.wo.to(dt)), w)
+        heads.append((torch.softmax(s, dim=-1) @ v[..., sl].to(f32))
+                     .to(q.dtype))
+    return torch.cat(heads, dim=-1)
 
 
 def layer_tail(x: torch.Tensor, a: torch.Tensor,
@@ -82,8 +98,48 @@ def layer_tail(x: torch.Tensor, a: torch.Tensor,
                              use_std=True).to(dt)
 
 
+def qkv_heads_plain(qkv: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """qkv (B, R, 3D) as K1's QKV GEMM writes it -> (3, B, H, Rt, dp): q,
+    k and v (columns from 0, D and 2D, rows 3D apart) each packed as
+    ``pack_heads_plain``: what the bf16 attention's repack writes into its
+    scratch before the tensor-core forward."""
+    from grounded_video_description_torch.ops.kernels.attention_train import (
+        pack_heads_plain)
+    D = qkv.shape[-1] // 3
+    return torch.stack([pack_heads_plain(qkv[..., i * D:(i + 1) * D],
+                                         n_heads) for i in range(3)])
+
+
+def pack_qkv(qkv: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """``qkv_heads_plain`` on the card: one launch of the bf16 repack
+    kernel, reading the (B, R, 3D) buffer in place at the column offsets
+    and row stride of K1's bf16 attention.  For the tests; counts no
+    launch.  CPU tensors take the plain version."""
+    if not qkv.is_cuda:
+        return qkv_heads_plain(qkv, n_heads)
+    from grounded_video_description_torch.ops.kernels.attention_train import (
+        _pack_scratch)
+    _build.require(qkv.dtype == torch.bfloat16 and qkv.dim() == 3
+                   and qkv.shape[-1] % 3 == 0, "qkv must be bf16 (B, R, 3D)")
+    qkv = qkv.contiguous()
+    B, R, D3 = qkv.shape
+    D = D3 // 3
+    out = _pack_scratch(3, B, R, D, n_heads, qkv.device)
+    p, step = qkv.data_ptr(), D * qkv.element_size()
+    code = _build.lib().gvd_pack_heads(
+        3, p, p + step, p + 2 * step, None, out.data_ptr(), B, R, D,
+        n_heads, 3 * D, _build.stream_of(qkv))
+    _build.check(code, "pack_heads")
+    return out
+
+
 def _gemm(a: torch.Tensor, w: torch.Tensor, bias, relu: bool):
-    """(M, K) x (N, K)^T (+ bias, ReLU) -> (M, N), on the card."""
+    """(M, K) x (N, K)^T (+ bias, ReLU) -> (M, N), on the card.  In bf16
+    a K that is not a multiple of 8 is zero-padded to one (16-byte rows
+    for cp.async), which changes no product."""
+    if a.dtype == torch.bfloat16 and a.shape[1] % 8:
+        pad = (0, -a.shape[1] % 8)
+        a, w = F.pad(a, pad), F.pad(w, pad)
     a, w = _build.aligned16(a), _build.aligned16(w)
     M, K = a.shape
     N = w.shape[0]
@@ -94,6 +150,28 @@ def _gemm(a: torch.Tensor, w: torch.Tensor, bias, relu: bool):
         M, N, K, int(relu), _build.stream_of(a))
     _build.check(code, "gemm")
     return c
+
+
+def _attention(qkv: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """The layer's attention on the card: qkv (B, R, 3D) as the QKV GEMM
+    writes it -> (B, R, D), ``self_attention_plain`` of its q, k, v at the
+    layer's scale 1 / sqrt(D).  bf16 runs the tensor-core forward (one
+    count of ``encoder_layer_attention_mma``), f32 the SIMT kernel."""
+    from grounded_video_description_torch.ops.kernels.attention_train import (
+        _pack_scratch)
+    B, R, D3 = qkv.shape
+    D = D3 // 3
+    bf16 = qkv.dtype == torch.bfloat16
+    attn = torch.empty((B, R, D), dtype=qkv.dtype, device=qkv.device)
+    scratch = _pack_scratch(3, B, R, D, n_heads, qkv.device) if bf16 else None
+    code = _build.lib().gvd_attention(
+        _build.dtype_code(qkv), qkv.data_ptr(), attn.data_ptr(),
+        _build.ptr(scratch), B, R, D, n_heads, 1.0 / math.sqrt(D),
+        _build.stream_of(qkv))
+    _build.check(code, "attention")
+    if bf16:
+        _build.launches["encoder_layer_attention_mma"] += 1
+    return attn
 
 
 def _residual_ln(x: torch.Tensor, y: torch.Tensor, gamma, beta):
@@ -110,8 +188,10 @@ def _residual_ln(x: torch.Tensor, y: torch.Tensor, gamma, beta):
 def fused_encoder_layer(x: torch.Tensor, w: EncoderLayerWeights, *,
                         n_heads: int) -> torch.Tensor:
     """Same contract as ``fused_encoder_layer_plain``.  A CPU tensor takes
-    the plain version; a CUDA tensor launches the kernels.  No backward:
-    an input that requires grad raises under grad mode."""
+    the plain version; a CUDA tensor launches the kernels (one count of
+    ``encoder_layer`` a call, and in bf16 one of
+    ``encoder_layer_attention_mma`` for its tensor-core attention).  No
+    backward: an input that requires grad raises under grad mode."""
     _build.refuse_grad("fused_encoder_layer", x, *w)
     if not x.is_cuda:
         return fused_encoder_layer_plain(x, w, n_heads=n_heads)
@@ -119,7 +199,10 @@ def fused_encoder_layer(x: torch.Tensor, w: EncoderLayerWeights, *,
     req(x.dim() == 3, f"x must be (B, R, D), got {tuple(x.shape)}")
     B, R, D = x.shape
     Fh = w.w1.shape[0]
-    req(-(-D // n_heads) <= 256, "a head is at most 256 wide")
+    from grounded_video_description_torch.ops.kernels.attention_train import (
+        MAX_HEAD)
+    widest = MAX_HEAD if x.dtype == torch.bfloat16 else 256
+    req(-(-D // n_heads) <= widest, f"a head is at most {widest} wide")
     shapes = {"wq": (D, D), "wk": (D, D), "wv": (D, D), "wo": (D, D),
               "w1": (Fh, D), "b1": (Fh,), "w2": (D, Fh), "b2": (D,),
               "g1": (D,), "be1": (D,), "g2": (D,), "be2": (D,)}
@@ -138,12 +221,8 @@ def fused_encoder_layer(x: torch.Tensor, w: EncoderLayerWeights, *,
     x2 = x.contiguous().reshape(B * R, D)
     wqkv = torch.cat([w.wq, w.wk, w.wv], dim=0).to(dt).contiguous()
     qkv = _gemm(x2, wqkv, None, relu=False)                    # (M, 3D)
-    attn = torch.empty((B * R, D), dtype=dt, device=x.device)
-    code = _build.lib().gvd_attention(
-        _build.dtype_code(x), qkv.data_ptr(), attn.data_ptr(), B, R, D,
-        n_heads, 1.0 / math.sqrt(D), _build.stream_of(x))
-    _build.check(code, "attention")
-    a = _gemm(attn, mat(w.wo), None, relu=False)
+    attn = _attention(qkv.view(B, R, 3 * D), n_heads)
+    a = _gemm(attn.view(B * R, D), mat(w.wo), None, relu=False)
     x1 = _residual_ln(x2, a, vec(w.g1), vec(w.be1))
     hdn = _gemm(x1, mat(w.w1), vec(w.b1), relu=True)
     f = _gemm(hdn, mat(w.w2), vec(w.b2), relu=False)

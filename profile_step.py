@@ -1,8 +1,17 @@
 #!/usr/bin/env python3
-"""Profile one bf16 train step of the PyTorch port on one NVIDIA GPU.
+"""Profile one bf16 train step, or one greedy batch, of the PyTorch port
+on one NVIDIA GPU.
 
-    python3 profile_step.py [--path K5 --path K4 ...] [--root DIR]
-                            [--tag NAME] [--out DIR]
+    python3 profile_step.py [--path K5 --path K4 --path serve ...]
+                            [--dtype bfloat16 --dtype float32]
+                            [--root DIR] [--tag NAME] [--out DIR]
+
+``--path serve`` profiles one ``sample_greedy`` at the flagship
+inference configuration (chip_smoke.py's ``flagship``: B = 100, 1000
+ROIs, 480 frames, 20 tokens, K1-K3 on) in each ``--dtype``, after one
+warm-up call, and prints the call's host seconds, the device-busy
+seconds, and the device time of K2, K1's GEMMs, K1's attention, K1's
+LayerNorms and K3, and the largest kernels.
 
 For each path (chip_smoke.py's ``TRAIN_PATHS``: K5, K4, plain) it builds
 the flagship training configuration in bf16 (chip_smoke.py's
@@ -33,10 +42,21 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # kernel names (csrc/attention_train.cu, attention_mma.cu) of the attention
 ATTENTION = ("fwd_kernel", "bwd_kv_kernel", "bwd_q_kernel", "delta_kernel",
              "pack_kernel")
-# K5's other kernels (csrc/encoder_layer_train.cu) and K1's GEMM
-K5_REST = ("gemm_kernel", "gemm_bf16_wmma_kernel", "ln_fwd_kernel",
-           "ln_bwd_kernel", "colsum_partial_kernel", "colsum_final_kernel",
-           "splitk_sum_kernel")
+# K5's other kernels (csrc/encoder_layer_train.cu) and K1's GEMM (the
+# names of this tree and of the trees before it)
+K1_GEMM = ("gemm_kernel", "gemm_bf16_wmma_kernel", "gemm_f32_kernel",
+           "gemm_bf16_mma_kernel")
+K5_REST = K1_GEMM + ("ln_fwd_kernel", "ln_bwd_kernel",
+                     "colsum_partial_kernel", "colsum_final_kernel",
+                     "splitk_sum_kernel")
+# the serving path's kernel groups (csrc/birnn.cu, encoder_layer.cu,
+# attention_mma.cu, region_attention.cu)
+SERVE_GROUPS = {
+    "K2": ("birnn_kernel", "birnn_cluster_kernel", "birnn_mma_kernel"),
+    "K1 GEMM": K1_GEMM,
+    "K1 attention": ("attention_kernel", "fwd_kernel", "pack_kernel"),
+    "K1 LayerNorm": ("residual_ln_kernel",),
+    "K3": ("region_attention_kernel",)}
 
 
 def kernel_name(full: str) -> str:
@@ -57,6 +77,48 @@ def busy_us(intervals) -> float:
             total += b - end
             end = b
     return total
+
+
+def device_times(prof):
+    """(busy seconds, kernel count, device us by kernel name) of a
+    profile's CUDA events."""
+    import torch
+    spans, by_name = [], collections.Counter()
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        tr_ = ev.time_range
+        spans.append((tr_.start, tr_.end))
+        by_name[kernel_name(ev.name)] += tr_.end - tr_.start
+    return busy_us(spans) / 1e6, len(spans), by_name
+
+
+def profile_serve(dtype: str, base, state, dev):
+    import torch
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+    from grounded_video_description_torch.data.synthetic import (
+        synthetic_batch)
+    from grounded_video_description_torch.models import batch_to_tensors
+    from chip_smoke import B, model_of
+
+    model = model_of(base.replace(dtype=dtype), state, dev)
+    batch = batch_to_tensors(synthetic_batch(base, B, seed=0), dev)
+    model.sample_greedy(batch)                               # warm-up
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        model.sample_greedy(batch)
+        torch.cuda.synchronize()
+        call_s = time.perf_counter() - t0
+    busy, n, by_name = device_times(prof)
+    del model
+    torch.cuda.empty_cache()
+    return {"path": "serve", "dtype": dtype, "step_s": call_s,
+            "device_busy_s": busy, "busy_share": busy / call_s,
+            "kernels": n,
+            "groups": {g: sum(by_name[k] for k in names) / 1e6
+                       for g, names in SERVE_GROUPS.items()},
+            "top": [(k, t / 1e6) for k, t in by_name.most_common(12)]}
 
 
 def profile(path: str, state, dev):
@@ -82,27 +144,24 @@ def profile(path: str, state, dev):
         tr.train_step(batch, cfg.learning_rate)
         torch.cuda.synchronize()
         step_s = time.perf_counter() - t0
-    spans, by_name = [], collections.Counter()
-    for ev in prof.events():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        tr_ = ev.time_range
-        spans.append((tr_.start, tr_.end))
-        by_name[kernel_name(ev.name)] += tr_.end - tr_.start
-    busy = busy_us(spans) / 1e6
+    busy, n_kernels, by_name = device_times(prof)
     attn = sum(by_name[n] for n in ATTENTION) / 1e6
     rest = sum(by_name[n] for n in K5_REST) / 1e6
     del tr, model
     torch.cuda.empty_cache()
     return {"path": path, "step_s": step_s, "device_busy_s": busy,
-            "busy_share": busy / step_s, "kernels": len(spans),
+            "busy_share": busy / step_s, "kernels": n_kernels,
             "attention_s": attn, "k5_other_s": rest,
             "top": [(n, t / 1e6) for n, t in by_name.most_common(12)]}
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--path", action="append", choices=["K5", "K4", "plain"])
+    ap.add_argument("--path", action="append",
+                    choices=["K5", "K4", "plain", "serve"])
+    ap.add_argument("--dtype", action="append",
+                    choices=["bfloat16", "float32"],
+                    help="the serve path's dtypes (default bfloat16)")
     ap.add_argument("--root", default=HERE)
     ap.add_argument("--tag", default="tree")
     ap.add_argument("--out", help="a directory for the JSON summaries")
@@ -132,6 +191,29 @@ def main() -> int:
     if args.out:
         os.makedirs(args.out, exist_ok=True)
     for path in args.path or ["K5", "K4"]:
+        if path == "serve":
+            serve = base.replace(seq_per_img=1, drop_prob_lm=0.5,
+                                 use_pallas=True, use_pallas_rnn=True,
+                                 use_pallas_encoder=True)
+            for dt in args.dtype or ["bfloat16"]:
+                r = profile_serve(dt, serve, state, dev)
+                r.update(tag=args.tag, device=smi)
+                print(f"[{args.tag}] {dt} greedy batch of 100: "
+                      f"{r['step_s']:.4f} s, device busy "
+                      f"{r['device_busy_s']:.4f} s "
+                      f"({100 * r['busy_share']:.1f}%), {r['kernels']} "
+                      "kernels; " + ", ".join(
+                          f"{g} {t * 1e3:.3f} ms"
+                          for g, t in r["groups"].items())
+                      + "; top: " + ", ".join(
+                          f"{k} {t * 1e3:.3f}" for k, t in r["top"][:8]),
+                      flush=True)
+                if args.out:
+                    with open(os.path.join(
+                            args.out, f"profile-{args.tag}-serve-{dt}.json"),
+                            "w") as f:
+                        json.dump(r, f, indent=1)
+            continue
         r = profile(path, state, dev)
         r.update(tag=args.tag, device=smi)
         print(f"[{args.tag}] bf16 step {path}: {r['step_s']:.3f} s, device "

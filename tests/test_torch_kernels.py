@@ -14,7 +14,7 @@ from grounded_video_description_tpu.nn import birnn_init
 from grounded_video_description_tpu.ops.pallas.birnn import (
     birnn_recurrence as pallas_birnn)
 from grounded_video_description_tpu.ops.pallas.encoder_layer import (
-    encoder_apply_fused as pallas_encoder)
+    encoder_apply_fused as pallas_encoder, pack_layer_params)
 from grounded_video_description_tpu.ops.pallas.region_attention import (
     fused_region_attention as pallas_region_attention)
 from grounded_video_description_torch.models import transformer as txf
@@ -22,7 +22,8 @@ from grounded_video_description_torch.ops.kernels import _build
 from grounded_video_description_torch.ops.kernels.birnn import (
     birnn_recurrence, birnn_recurrence_plain)
 from grounded_video_description_torch.ops.kernels.encoder_layer import (
-    fused_encoder_layer, fused_encoder_layer_plain)
+    fused_encoder_layer, fused_encoder_layer_plain, pack_qkv,
+    qkv_heads_plain)
 from grounded_video_description_torch.ops.kernels.region_attention import (
     fused_region_attention, fused_region_attention_plain)
 from grounded_video_description_torch.weights import encoder_state_dict
@@ -150,6 +151,38 @@ def test_encoder_layer_plain_matches_pallas(dtype):
         assert g.dtype == tdt and torch.equal(g, w)
         diff = np.abs(_np(g) - np.asarray(r, np.float32)).max()
         assert diff < (2e-5 if dtype == "float32" else 0.1), diff
+
+
+@pytest.mark.parametrize("D,R", [(64, 70), (1024, 9)])
+def test_qkv_repack_matches_jax_head_slots(D, R):
+    """K1's bf16 attention reads q, k and v from the (B, R, 3D) QKV buffer
+    at column offsets 0, D, 2D, rows 3D apart, into one zero-padded slot
+    per head, rows padded to the tile.  Its plain version puts the same
+    values in the same slots as the JAX kernel's ``pack_layer_params``
+    (q = x cols(wq), head h in columns [h dp, h dp + |h|)), up to the
+    JAX slot width (16 at D = 64, 176 at the flagship's 171 x 5 + 169),
+    and zeros past it.  On a CPU tensor ``pack_qkv`` is that plain
+    version."""
+    HEADS, B = 6, 2
+    params, enc = _encoder_pair(D, D // 2, 1, 4)
+    lp = params["layers"][0]
+    x = np.random.RandomState(5).randn(B, R, D).astype(np.float32)
+    w = enc.layers[0].weights()
+    with torch.no_grad():
+        qkv = torch.nn.functional.linear(
+            _t(x), torch.cat([w.wq, w.wk, w.wv]))
+        got = qkv_heads_plain(qkv, HEADS)
+        assert torch.equal(pack_qkv(qkv, HEADS), got)
+    assert got.shape[:4] == (3, B, HEADS, -(-R // 64) * 64)
+    packed = pack_layer_params(lp, HEADS, jnp.float32)
+    for i in range(3):                       # q, k, v
+        ref = np.asarray(jnp.asarray(x) @ packed[i])     # (B, R, h * dp)
+        dpj = ref.shape[-1] // HEADS
+        ref = ref.reshape(B, R, HEADS, dpj).transpose(0, 2, 1, 3)
+        np.testing.assert_allclose(_np(got[i, :, :, :R, :dpj]), ref,
+                                   atol=1e-5)
+        assert not got[i, :, :, :R, dpj:].any()
+        assert not got[i, :, :, R:].any()
 
 
 def test_encoder_kernel_twin_matches_head_sequential_encoder():
