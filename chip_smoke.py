@@ -633,7 +633,7 @@ def k5_ties(x, lw, seed, drop):
         encoder_layer_train as k5)
     dt = x.dtype
     with torch.no_grad():
-        hid_k = k5._kernel_forward(x, lw, seed, 6, drop)[1][7]
+        hid_k = k5._kernel_forward(x, lw, seed, 6, drop)[1].hid
         x1 = k5.attention_sublayer_plain(x, lw, seed, n_heads=6, drop=drop)
         z = F.linear(x1.to(dt).float(), lw.w1.to(dt).float()) + lw.b1
         tie = ((hid_k.float() > 0) != (z.flatten(0, 1) > 0)).view(
@@ -672,14 +672,126 @@ def k5_held(got, ref, dt, ties):
     return res
 
 
+def k5_library(x, lw, heads, drop):
+    """K5's layer by library calls, timed only (the port never calls
+    this): ``F.linear`` for QKV (one product, N = 3D),
+    ``scaled_dot_product_attention`` with ``dropout_p`` = drop over the
+    heads of ceil(D / heads) zero-padded to a multiple of 8 (176 at
+    D = 1024), ``F.linear`` for Wo, then the twin's dropout (the
+    library's masks, not K5's: only the time compares), residual and
+    unbiased-std LayerNorm, the ReLU FFN (``F.linear``) and its dropout,
+    residual and LayerNorm.  Differentiable by autograd."""
+    import torch
+    import torch.nn.functional as F
+    from grounded_video_description_torch.nn.core import layer_norm_affine
+    from grounded_video_description_torch.ops.kernels.encoder_layer import (
+        LN_EPS)
+    Bq, Rq, D = x.shape
+    hs = -(-D // heads)
+    hp = -(-hs // 8) * 8
+
+    def split(t):
+        t = F.pad(t, (0, heads * hs - D)).view(Bq, Rq, heads, hs)
+        return F.pad(t, (0, hp - hs)).transpose(1, 2)
+
+    def ln(y, g, b):
+        return layer_norm_affine(g, b, y, LN_EPS, use_std=True)
+
+    dt = x.dtype
+    wqkv = torch.cat([lw.wq, lw.wk, lw.wv]).to(dt)
+    q, k, v = F.linear(x, wqkv).split(D, dim=-1)
+    o = F.scaled_dot_product_attention(split(q), split(k), split(v),
+                                       dropout_p=drop,
+                                       scale=1.0 / math.sqrt(D))
+    o = o.transpose(1, 2)[..., :hs].reshape(Bq, Rq, heads * hs)[..., :D]
+    a = F.linear(o, lw.wo.to(dt)).float()
+    x1 = ln(x.float() + F.dropout(a, drop), lw.g1, lw.be1)
+    hid = F.relu(F.linear(x1.to(dt), lw.w1.to(dt), lw.b1.to(dt)))
+    f = F.linear(hid, lw.w2.to(dt), lw.b2.to(dt)).float()
+    return ln(x1 + F.dropout(f, drop), lw.g2, lw.be2).to(dt)
+
+
+# K5's GEMM layouts at the flagship training layer's shapes: (layout name,
+# (M, N, K)) for Wo (x W^T), dattn (dY W) and dWo (A^T B over the rows)
+K5_GEMM_SHAPES = (("NT", (30000, 1024, 1024)), ("NN", (30000, 1024, 1024)),
+                  ("TN", (1024, 1024, 30000)))
+
+
+def k5_gemm_rates(dev, dt):
+    """Each K5 GEMM layout alone at ``K5_GEMM_SHAPES`` in ``dt``, f32 out:
+    held to 1e-4 of max |ref| against the f32 product of the same
+    operands (the sums in another order), its ms and TFLOP/s beside
+    ``torch.matmul``'s on the same operands (timed only).  Returns
+    {layout: (TFLOP/s, torch.matmul's)}."""
+    import torch
+    from grounded_video_description_torch.ops.kernels import (
+        encoder_layer_train as k5)
+    g = torch.Generator(device=dev).manual_seed(23)
+    rates = {}
+    for name, (M, N, K) in K5_GEMM_SHAPES:
+        layout = getattr(k5, name)
+        a_shape = (K, M) if layout == k5.TN else (M, K)
+        b_shape = (N, K) if layout == k5.NT else (K, N)
+        a = (0.1 * torch.randn(a_shape, generator=g, device=dev)).to(dt)
+        b = (0.1 * torch.randn(b_shape, generator=g, device=dev)).to(dt)
+        op_a = a.t() if layout == k5.TN else a
+        op_b = b.t() if layout == k5.NT else b
+        got = k5._mm(layout, a, b, M, N, K, out_f32=True)
+        ref = op_a.float() @ op_b.float()
+        torch.cuda.synchronize()
+        err = scaled_reading(got, ref)
+        check(err <= 1e-4, f"K5 GEMM {name} {dt}: err {err} of max |ref|")
+        del got, ref
+        ms = time_ms(lambda: k5._mm(layout, a, b, M, N, K, out_f32=True), 5)
+        lib_ms = time_ms(lambda: torch.matmul(op_a, op_b), 5)
+        flops = 2 * M * N * K
+        rates[name] = (flops / ms / 1e9, flops / lib_ms / 1e9)
+        print(f"K5 GEMM {name} {str(dt)[6:]} ({M} x {N} x {K}): err "
+              f"{err:.2e} of max |ref|; kernel {ms:.3f} ms "
+              f"({rates[name][0]:.1f} TFLOP/s), torch.matmul {lib_ms:.3f} "
+              f"ms ({rates[name][1]:.1f} TFLOP/s)", flush=True)
+    return rates
+
+
+def k5_library_ms(x, enc, w, drop):
+    """Forward and backward (autograd, cotangent w) ms of ``k5_library``
+    on x and the layer's tensors."""
+    import torch
+    xl = x.clone().requires_grad_(True)
+    leaves = [xl] + list(enc.layers[0].weights())
+
+    def fwd():
+        return k5_library(xl, enc.layers[0].weights(), 6, drop)
+
+    out = fwd()
+    fwd_ms = time_ms(fwd, 3)
+    bwd_ms = time_ms(lambda: torch.autograd.grad(out, leaves, w,
+                                                 retain_graph=True), 3)
+    return fwd_ms, bwd_ms
+
+
+def k5_gemm_counts(dt: str, calls: int) -> dict:
+    """The GEMM launches of ``calls`` K5 forward and backward passes in
+    dtype ``dt``: every product on the tensor-core route in bf16 (none on
+    the SIMT route), on the SIMT route in f32."""
+    from grounded_video_description_torch.ops.kernels import (
+        encoder_layer_train as k5)
+    route = "k5_gemm_tc" if dt == "bfloat16" else "k5_gemm_simt"
+    return {route: calls * (k5.FWD_GEMMS + k5.BWD_GEMMS)}
+
+
 def phase_encoder_layer_train(dev, results):
     """K5 at the obj_interact training shapes: x (30, 1000, 1024), six
     uneven heads, FFN 512, the microbatch of batch 240 in 8; f32 and bf16,
     drop 0.2 (the flagship's enc_drop) and 0.  The output and the 13
     gradients (x and the 12 layer tensors) against the plain twin's
     autograd on the same seed and masks (``k5_held``), both passes timed
-    alone, and the peak memory of one forward + backward on each side."""
+    alone beside the library chain ``k5_library``, the peak memory of one
+    forward + backward on each side, the launches of one pass each way
+    (every product on the dtype's GEMM route), and the GEMM's three
+    layouts alone (``k5_gemm_rates``)."""
     import torch
+    from grounded_video_description_torch.ops.kernels import _build
     from grounded_video_description_torch.ops.kernels.encoder_layer_train \
         import fused_encoder_layer_train, fused_encoder_layer_train_plain
 
@@ -699,6 +811,7 @@ def phase_encoder_layer_train(dev, results):
         # each with the f32 weights in (and their f32 gradients out)
         bound_fwd = bound(flops_fwd, 2 * act + w_bytes, name)
         bound_bwd = bound(flops_bwd, 3 * act + 2 * w_bytes, name)
+        rates = k5_gemm_rates(dev, dt)
         for drop in (0.2, 0.0):
             x, w = x0.to(dt), cot.to(dt)
             runs = {}
@@ -714,11 +827,20 @@ def phase_encoder_layer_train(dev, results):
                     return fn(xl, enc.layers[0].weights(), seed, n_heads=6,
                               drop=drop)
 
+                _build.reset_launches()
                 out = fwd()
                 grads = torch.autograd.grad(out, leaves, w,
                                             retain_graph=True)
                 torch.cuda.synchronize()
                 peak_mb = (torch.cuda.max_memory_allocated() - held) / 2**20
+                if which == "kernel":
+                    # one pass each way, every product on dt's route
+                    want = {"encoder_layer_train_fwd": 1,
+                            "encoder_layer_train_bwd": 1,
+                            **k5_gemm_counts(name, 1)}
+                    route = dict(_build.launches)
+                    check(route == want,
+                          f"K5 {name} launches {route} != {want}")
                 fwd_ms = time_ms(fwd, 3)
                 bwd_ms = time_ms(lambda: torch.autograd.grad(
                     out, leaves, w, retain_graph=True), 3)
@@ -727,6 +849,8 @@ def phase_encoder_layer_train(dev, results):
                 del out, grads, xl, leaves
             (got, k_fwd, k_bwd, k_mb), (ref, p_fwd, p_bwd, p_mb) = (
                 runs["kernel"], runs["plain"])
+            if drop > 0:
+                lib_fwd, lib_bwd = k5_library_ms(x, enc, w, drop)
             for part, a, b in zip(K5_PARTS, got, ref):
                 check(a.dtype == b.dtype and a.shape == b.shape,
                       f"K5 {name} drop {drop} {part}: {a.dtype} "
@@ -762,14 +886,20 @@ def phase_encoder_layer_train(dev, results):
                   f"backward: kernel {k_mb:.0f}, plain {p_mb:.0f}",
                   flush=True)
             if drop > 0:
+                print(f"K5 {name} drop {drop}: library chain (F.linear, "
+                      f"scaled_dot_product_attention with dropout, the "
+                      f"twin's LayerNorm) forward {lib_fwd:.3f} ms, "
+                      f"backward {lib_bwd:.3f} ms", flush=True)
+                tflops = {k: round(v[0], 1) for k, v in rates.items()}
                 results[("encoder_layer_train_fwd", name)] = dict(
                     max_abs_err=errs["out"], ms=k_fwd, plain_ms=p_fwd,
-                    library_ms=None, peak_mb=k_mb, plain_peak_mb=p_mb,
-                    **bound_fwd)
+                    library_ms=lib_fwd, peak_mb=k_mb, plain_peak_mb=p_mb,
+                    gemm_tflops=tflops, **bound_fwd)
                 results[("encoder_layer_train_bwd", name)] = dict(
                     max_abs_err=max(v for k, v in errs.items()
                                     if k != "out"),
-                    ms=k_bwd, plain_ms=p_bwd, library_ms=None, **bound_bwd)
+                    ms=k_bwd, plain_ms=p_bwd, library_ms=lib_bwd,
+                    gemm_tflops=tflops, **bound_bwd)
             del got, ref
             torch.cuda.empty_cache()
 
@@ -822,6 +952,11 @@ def phase_train(dev, state):
                "attention_train_bwd": 2 * ACCUM},
         "plain": {}}
 
+    def step_counts(name, dt):
+        if name != "K5":
+            return per_step[name]
+        return {**per_step[name], **k5_gemm_counts(dt, 2 * ACCUM)}
+
     def trainer_for(cfg):
         model = GVDModel(cfg)
         model.load_state_dict(state)
@@ -837,7 +972,7 @@ def phase_train(dev, state):
         m = tr.train_step(batch_to_device(cfg, batch, dev),
                           cfg.learning_rate)
         stats[name] = {k: float(v) for k, v in m.items()}
-        check(dict(_build.launches) == per_step[name],
+        check(dict(_build.launches) == step_counts(name, "float32"),
               f"f32 {name} step launches {dict(_build.launches)}")
         f32_counts.update(_build.launches)
         del tr
@@ -873,8 +1008,8 @@ def phase_train(dev, state):
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
             got = dict(_build.launches)
-            check(got == per_step[name],
-                  f"bf16 {name} step launches {got} != {per_step[name]}")
+            want = step_counts(name, "bfloat16")
+            check(got == want, f"bf16 {name} step launches {got} != {want}")
             for k, n in got.items():
                 counts[k] = counts.get(k, 0) + n
             losses = {k: float(v) for k, v in m.items()}
@@ -1304,7 +1439,8 @@ def phase_driver(dev, state):
     per_epoch = {"encoder_layer_train_fwd": layers,
                  "encoder_layer_train_bwd": layers, "decode_scan": 1,
                  "flash_self_attention": 4, "birnn_recurrence": 4,
-                 "region_attention": base.seq_length}
+                 "region_attention": base.seq_length,
+                 **k5_gemm_counts("bfloat16", layers)}
 
     def trainer_for(cfg, weights):
         model = GVDModel(cfg)
@@ -1541,7 +1677,7 @@ def main() -> int:
                    "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                    "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                    "dtype": dt}
-            for extra in ("repack_ms", "exchange_ms"):
+            for extra in ("repack_ms", "exchange_ms", "gemm_tflops"):
                 if extra in r:
                     row[extra] = r[extra]
             kernels.append(row)

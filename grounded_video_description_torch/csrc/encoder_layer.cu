@@ -43,35 +43,18 @@
 
 #include "attention_mma.cuh"
 #include "common.cuh"
+#include "gemm_sm90.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// cp.async of 4 or 16 bytes; ok = false writes zeros and reads nothing.
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          bool ok) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(ok ? 4 : 0));
-}
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(ok ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
+using gvd::cp_async16;
+using gvd::cp_async4;
+using gvd::cp_async_commit;
+using gvd::cp_async_wait;
+using gvd::ldsm_x4;
+using gvd::mma16816;
 
 // ------------------------------------------------------------- f32 GEMM --
 // C (M, N) = A (M, K) W (N, K)^T: 128 x 128 output tiles, 256 threads, each
@@ -165,23 +148,6 @@ gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ W,
 constexpr int TBM = 128, TBN = 128, TBK = 64, STAGES = 3, TLD = TBK + 8;
 constexpr int WN = TBN / 4, NT8 = WN / 8, MMA_BLOCKS = 2;  // blocks an SM
 constexpr size_t MMA_GEMM_SMEM = (size_t)STAGES * (TBM + TBN) * TLD * 2;
-
-__device__ __forceinline__ void ldsm_x4(uint32_t r[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-// c (16 x 8, f32) += a (16 x 16, bf16, row-major) b (16 x 8, bf16, col).
-__device__ __forceinline__ void mma16816(float c[4], const uint32_t a[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 __device__ __forceinline__ float epilogue(float v, const float* bias, int n,
                                           int relu) {

@@ -72,18 +72,18 @@ _SIGNATURES = {
     # the bf16 attention's tile rows; the packed width of a head (hs)
     "gvd_attention_tile": [],
     "gvd_packed_width": [_I],
-    # dtype, a_f32, layout, A, B, M, N, K, splits, bias, relu, mask, resid,
-    # C, c_f32, partial, stream
-    "gvd_k5_gemm": [_I] * 3 + [_P] * 2 + [_I] * 4 + [_P, _I, _P, _P, _P, _I,
-                                                     _P, _P],
+    # dtype, layout, A, lda, B, ldb, M, N, K, splits, k_split, bias, relu,
+    # mask, resid, C, c_f32, c2, partial, stream
+    "gvd_k5_gemm": [_I, _I, _P, _I, _P] + [_I] * 6 + [_P, _I, _P, _P, _P,
+                                                      _I, _P, _P, _P],
     # dtype, x_f32, x, a, seed, salt_base, R, rate, keep, gamma, beta,
     # out_f32, out_t, normed, sigma, rows, D, eps, stream
     "gvd_k5_ln_fwd": [_I, _I] + [_P] * 3 + [_I, _I, _F, _F] + [_P] * 6
                      + [_I, _I, _F, _P],
     # dtype, g_f32, g, normed, sigma, gamma, seed, salt_base, R, rate, keep,
-    # dy, dyd, rows, D, eps, stream
-    "gvd_k5_ln_bwd": [_I, _I] + [_P] * 5 + [_I, _I, _F, _F, _P, _P, _I, _I,
-                                             _F, _P],
+    # dy, dyd, dyd_t, rows, D, eps, stream
+    "gvd_k5_ln_bwd": [_I, _I] + [_P] * 5 + [_I, _I, _F, _F, _P, _P, _P, _I,
+                                             _I, _F, _P],
     # dtype, a_f32, a, b, M, N, chunks, partial, out1, out2, stream
     "gvd_k5_colsum": [_I, _I, _P, _P, _I, _I, _I, _P, _P, _P, _P],
     # dtype, 4 banks and the pnt mask, 13 weights, 10 state buffers,

@@ -5,9 +5,12 @@ Replaces ``grounded_video_description_tpu/ops/pallas/encoder_layer_train.py
 ::fused_encoder_layer_train`` (``_fwd_kernel``, ``_bwd_kernel``).  The
 CUDA source is ``csrc/encoder_layer_train.cu``; the layer is one
 ``torch.autograd.Function`` whose forward and backward are sequences of
-the port's own kernels (K1's GEMM, K4's attention with K5's salts, and
-that file's GEMM layouts, LayerNorm passes and column sums).  No product
-goes to cuBLAS, and no (B, heads, R, R) tensor reaches device memory.
+the port's own kernels (that file's GEMM, LayerNorm passes and column
+sums, and K4's attention with K5's salts).  Every product, six forward
+and twelve backward, runs on the one GEMM in three layouts (x W^T, dY W,
+A^T B), each launch planned by ``k5_gemm_plan``: in bf16 on the tensor
+cores, in f32 on the SIMT units.  No product goes to cuBLAS, and no
+(B, heads, R, R) tensor reaches device memory.
 
 The layer: per batch row b of the call, q/k/v projections, per head
 softmax(q_h k_h^T / sqrt(D)) with dropout on the probs, the output
@@ -36,6 +39,7 @@ CPU tensors take it, and it is the reference on the card.
 from __future__ import annotations
 
 import math
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -45,7 +49,7 @@ from grounded_video_description_torch.ops.kernels import _build
 from grounded_video_description_torch.ops.kernels.attention_train import (
     MAX_HEAD, MMA_TILE, attention_backward, attention_forward, uniform_hash)
 from grounded_video_description_torch.ops.kernels.encoder_layer import (
-    LN_EPS, EncoderLayerWeights, _gemm, head_slices)
+    LN_EPS, EncoderLayerWeights, head_slices)
 
 SITE_PROBS = 0x10000000
 SITE_RESID1 = 0x20000000
@@ -154,17 +158,15 @@ class _Plain:
                                  use_std=True)
 
 
-def attention_sublayer_plain(x: torch.Tensor, w: EncoderLayerWeights,
-                             seed: torch.Tensor, *, n_heads: int,
-                             drop: float) -> torch.Tensor:
-    """The twin's first half: x1 = LN1(x + drop(attention(x) Wo)) in f32,
-    the FFN's input (its ReLU pre-activation is mm(x1, W1) + b1)."""
-    ops = _Plain(x, seed, drop)
+def attention_heads_plain(q, k, v, seed: torch.Tensor, *, n_heads: int,
+                          drop: float) -> torch.Tensor:
+    """The twin's attention: concat_h drop(softmax(q_h k_h^T / sqrt(D)))
+    v_h for q, k, v (B, R, D) in the compute dtype, returned in it;
+    differentiable, with the bf16 kernels' rounding of P~ and dS."""
+    ops = _Plain(q, seed, drop)
     dt, R, D = ops.dt, ops.R, ops.D
     Rp = -(-R // 128) * 128
     inv_scale = 1.0 / math.sqrt(D)
-    xf = x.float()            # one node, so dx is rounded once, at the end
-    q, k, v = (ops.mm(xf, m).to(dt) for m in (w.wq, w.wk, w.wv))
     heads = []
     for h, sl in enumerate(head_slices(D, n_heads)):
         # in bf16 the score gradient dS enters dQ and dK in bf16, and P~
@@ -184,7 +186,19 @@ def attention_sublayer_plain(x: torch.Tensor, w: EncoderLayerWeights,
             heads.append(_FlashPV.apply(p, rho, vh, dt).to(dt))
         else:
             heads.append((p @ vh).to(dt))
-    o = torch.cat(heads, dim=-1)
+    return torch.cat(heads, dim=-1)
+
+
+def attention_sublayer_plain(x: torch.Tensor, w: EncoderLayerWeights,
+                             seed: torch.Tensor, *, n_heads: int,
+                             drop: float) -> torch.Tensor:
+    """The twin's first half: x1 = LN1(x + drop(attention(x) Wo)) in f32,
+    the FFN's input (its ReLU pre-activation is mm(x1, W1) + b1)."""
+    ops = _Plain(x, seed, drop)
+    dt = ops.dt
+    xf = x.float()            # one node, so dx is rounded once, at the end
+    q, k, v = (ops.mm(xf, m).to(dt) for m in (w.wq, w.wk, w.wv))
+    o = attention_heads_plain(q, k, v, seed, n_heads=n_heads, drop=drop)
     a = ops.grad_rounded(ops.mm(o, w.wo))
     return ops.ln(xf + ops.resid_drop(a, SITE_RESID1), w.g1, w.be1)
 
@@ -215,47 +229,203 @@ def fused_encoder_layer_train_plain(x: torch.Tensor, w: EncoderLayerWeights,
 # --------------------------------------------------------------------- #
 # the kernel path
 # --------------------------------------------------------------------- #
+# Each launch below runs its kernel on a CUDA tensor.  On a CPU tensor it
+# runs that kernel's plain version instead (the GEMM as its planned tiles
+# and splits, the LayerNorm passes and column sums as formulas, the
+# attention as the twin's), so the CPU tests can hold the whole planned
+# sequence of ``_kernel_forward`` and ``_kernel_backward`` against the
+# twin's autograd.  ``fused_encoder_layer_train`` itself gives CPU
+# tensors the twin.
+
+# route, output tile (rows, columns), K step, blocks an SM, for each dtype
+GEMM_ROUTES = {torch.bfloat16: ("tc", 128, 128, 64, 2),
+               torch.float32: ("simt", 128, 128, 16, 2)}
+H100_SMS = 132
+SPLIT_MIN_ROWS = 1024   # a weight gradient's split sums at least this many
+# the layouts of the layer's products in launch order: the forward's Q, K,
+# V, Wo, W1 and W2; the backward's dW2, dz1, dW1, dx1, dWo, dattn, dWq,
+# dWk, dWv and the dx chain through Wq, Wk, Wv
+GEMM_LAYOUTS = (NT,) * 6 + (TN, NN, TN, NN, TN, NN, TN, TN, TN, NN, NN, NN)
+FWD_GEMMS, BWD_GEMMS = 6, 12
+
+
+class GemmPlan(NamedTuple):
+    """One launch of ``gvd_k5_gemm``: C (M, N) = A op B over K."""
+    route: str          # "tc": bf16 on the tensor cores; "simt": f32
+    layout: int         # NT, NN or TN
+    M: int
+    N: int
+    K: int
+    tile_m: int
+    tile_n: int
+    tile_k: int
+    splits: int         # blocks along K (the grid's z)
+    k_split: int        # K rows per split, a multiple of tile_k
+    lda: int            # the operands' row strides as launched: their
+    ldb: int            # row lengths, padded where a row is not 16-byte
+                        # aligned (bf16 rows go to TMA)
+
+    @property
+    def grid(self) -> Tuple[int, int, int]:
+        return (-(-self.N // self.tile_n), -(-self.M // self.tile_m),
+                self.splits)
+
+    def blocks(self):
+        """(split z, output rows, output columns, K rows) of each block of
+        the grid, in launch order."""
+        gx, gy, gz = self.grid
+        for z in range(gz):
+            ks = slice(z * self.k_split, min(self.K, (z + 1) * self.k_split))
+            for by in range(gy):
+                rows = slice(by * self.tile_m,
+                             min(self.M, (by + 1) * self.tile_m))
+                for bx in range(gx):
+                    cols = slice(bx * self.tile_n,
+                                 min(self.N, (bx + 1) * self.tile_n))
+                    yield z, rows, cols, ks
+
+
+def row_lengths(layout: int, M: int, N: int, K: int) -> Tuple[int, int]:
+    """The contiguous (row) length of A and of B in ``layout``: NT A (M, K)
+    B (N, K); NN A (M, K) B (K, N); TN A (K, M) B (K, N)."""
+    return (M if layout == TN else K), (K if layout == NT else N)
+
+
+def k5_gemm_plan(layout: int, M: int, N: int, K: int, dtype, *,
+                 splits: Optional[int] = None,
+                 sms: int = H100_SMS) -> GemmPlan:
+    """The launch of one K5 product in ``dtype`` (the operands' compute
+    dtype).  bf16 takes the tensor-core route, whose TMA reads rows 16
+    bytes apart: a row length that is not a multiple of 8 is padded.  f32
+    takes the SIMT route (4-byte copies: no padding).  A weight gradient
+    (TN, K = the B * R rows) is split along K so that its few output tiles
+    fill the card's ``sms`` once (``splits`` overrides), each split at
+    least SPLIT_MIN_ROWS rows, none empty; the other layouts take one."""
+    route, tm, tn, tk, per_sm = GEMM_ROUTES[dtype]
+    align = 8 if route == "tc" else 1
+    la, lb = row_lengths(layout, M, N, K)
+    if splits is None:
+        splits = 1
+        if layout == TN:
+            tiles = -(-M // tm) * -(-N // tn)
+            splits = max(1, min(sms * per_sm // tiles, K // SPLIT_MIN_ROWS))
+    k_split = _round_up(-(-K // splits), tk)
+    return GemmPlan(route, layout, M, N, K, tm, tn, tk, -(-K // k_split),
+                    k_split, _round_up(la, align), _round_up(lb, align))
+
+
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def _padded(t: torch.Tensor, ld: int) -> torch.Tensor:
+    """t (rows, n) with rows ``ld`` >= n elements apart (zeros after n)."""
+    if t.shape[1] != ld:
+        t = F.pad(t, (0, ld - t.shape[1]))
+    return _build.aligned16(t)
+
+
+def gemm_plain(plan: GemmPlan, a, b, *, out_f32: bool, bias=None,
+               relu=False, mask=None, resid=None,
+               copy_bf16: bool = False):
+    """What the launch of ``plan`` computes, in plain PyTorch: each block's
+    f32 sum over its split's K rows of its output tile, from A and B in
+    the compute dtype (b's), the splits summed in order, then the
+    epilogue (bias, ReLU, zero where mask <= 0, + resid) and the output
+    as f32 or the compute dtype, with its bf16 copy when asked."""
+    dt = b.dtype
+    A = a.to(dt).float()
+    Bm = b.float()
+    op_a = A.t() if plan.layout == TN else A           # (M, K)
+    op_b = Bm.t() if plan.layout == NT else Bm         # (K, N)
+    acc = torch.zeros((plan.splits, plan.M, plan.N), dtype=torch.float32,
+                      device=b.device)
+    for z, rows, cols, ks in plan.blocks():
+        acc[z, rows, cols] = op_a[rows, ks] @ op_b[ks, cols]
+    c = acc[0]
+    for z in range(1, plan.splits):
+        c = c + acc[z]
+    if bias is not None:
+        c = c + bias
+    if relu:
+        c = torch.relu(c)
+    if mask is not None:
+        c = torch.where(mask.float() > 0, c, 0.0)
+    if resid is not None:
+        c = c + resid
+    out = c if out_f32 else c.to(dt)
+    return (out, c.to(torch.bfloat16)) if copy_bf16 else out
+
 
 def _mm(layout: int, a, b, M: int, N: int, K: int, *, out_f32: bool,
         bias=None, relu=False, mask=None, resid=None, out=None,
-        splits: int = 1):
-    """gvd_k5_gemm: C (M, N) = A op B, with B in the compute dtype and A
-    in it or in f32 (rounded to it as it loads)."""
+        copy_bf16: bool = False, splits: Optional[int] = None):
+    """C (M, N) = A op B on ``gvd_k5_gemm``, planned by ``k5_gemm_plan``
+    in b's dtype (A in another dtype is rounded to it first; the layer
+    hands it the bf16 copies its producers wrote).  ``out`` (f32) may be
+    ``resid``.  With ``copy_bf16`` also returns C's bf16 copy.  One count
+    of ``k5_gemm_tc`` or ``k5_gemm_simt`` a launch."""
     dt = b.dtype
+    dev = b.device
+    plan = k5_gemm_plan(layout, M, N, K, dt, splits=splits,
+                        sms=(torch.cuda.get_device_properties(dev)
+                             .multi_processor_count if b.is_cuda
+                             else H100_SMS))
+    if not b.is_cuda:
+        got = gemm_plain(plan, a, b, out_f32=out_f32, bias=bias, relu=relu,
+                         mask=mask, resid=resid, copy_bf16=copy_bf16)
+        if out is None:
+            return got
+        out.copy_(got[0] if copy_bf16 else got)
+        return (out, got[1]) if copy_bf16 else out
+    a = _padded(a.to(dt), plan.lda)
+    b = _padded(b, plan.ldb)
     if out is None:
-        out = torch.empty((M, N), device=b.device,
+        out = torch.empty((M, N), device=dev,
                           dtype=torch.float32 if out_f32 else dt)
-    partial = (torch.empty((splits, M, N), dtype=torch.float32,
-                           device=b.device) if splits > 1 else None)
+    c2 = (torch.empty((M, N), device=dev, dtype=torch.bfloat16)
+          if copy_bf16 else None)
+    partial = (torch.empty((plan.splits, M, N), dtype=torch.float32,
+                           device=dev) if plan.splits > 1 else None)
     ptr = _build.ptr
     code = _build.lib().gvd_k5_gemm(
-        _build.dtype_code(b), int(a.dtype == torch.float32), layout,
-        a.data_ptr(), b.data_ptr(), M, N, K, splits, ptr(bias), int(relu),
-        ptr(mask), ptr(resid), out.data_ptr(), int(out_f32), ptr(partial),
-        _build.stream_of(b))
+        _build.dtype_code(b), layout, a.data_ptr(), plan.lda, b.data_ptr(),
+        plan.ldb, M, N, K, plan.splits, plan.k_split, ptr(bias), int(relu),
+        ptr(mask), ptr(resid), out.data_ptr(), int(out_f32), ptr(c2),
+        ptr(partial), _build.stream_of(b))
     _build.check(code, "k5_gemm")
-    return out
-
-
-def _row_splits(M: int, N: int, K: int) -> int:
-    """Blocks along the K rows of a weight gradient A^T B, so that its
-    (M / 128) x (N / 128) output tiles fill the card about twice; each
-    split keeps at least 1024 rows."""
-    tiles = -(-M // 128) * -(-N // 128)
-    return max(1, min(-(-264 // tiles), K // 1024))
+    _build.launches[f"k5_gemm_{plan.route}"] += 1
+    return (out, c2) if copy_bf16 else out
 
 
 def _grad_w(dy, x):
     """dW = dy^T x over the rows: (N_out, N_in) in f32."""
     K, M = dy.shape
-    N = x.shape[1]
-    return _mm(TN, dy, x, M, N, K, out_f32=True,
-               splits=_row_splits(M, N, K))
+    return _mm(TN, dy, x, M, x.shape[1], K, out_f32=True)
+
+
+def _resid_masks(seed, site, R, rows, D, drop, device):
+    """The residual site's dropout uniforms (rows, D), rows = B * R."""
+    salts = site + torch.arange(rows // R, device=device)
+    return uniform_hash((R, D), seed, salts).reshape(rows, D)
 
 
 def _ln_fwd(x, a, seed, site, R, drop, gamma, beta, *, f32_out: bool,
             dt):
+    """y = x + drop(a), then the unbiased-std LayerNorm: (out in dt, out
+    in f32 (or the dt one where f32_out is off or dt is f32), normed,
+    sigma)."""
     rows, D = a.shape
+    if not a.is_cuda:
+        if drop > 0.0:
+            a = _dropped(a, _resid_masks(seed, site, R, rows, D, drop,
+                                         a.device), drop)
+        y = x.float() + a
+        mean = y.mean(-1, keepdim=True)
+        sigma = y.std(-1, keepdim=True)
+        normed = (y - mean) / (sigma + LN_EPS)
+        o = gamma * normed + beta
+        return o.to(dt), (o if f32_out else o.to(dt)), normed, sigma[:, 0]
     out_t = torch.empty((rows, D), dtype=dt, device=a.device)
     out_f32 = (torch.empty_like(a) if f32_out and dt != torch.float32
                else None)
@@ -265,29 +435,48 @@ def _ln_fwd(x, a, seed, site, R, drop, gamma, beta, *, f32_out: bool,
         _build.dtype_code(out_t), int(x.dtype == torch.float32),
         x.data_ptr(), a.data_ptr(), seed.data_ptr(), site, R, drop,
         1.0 - drop, gamma.data_ptr(), beta.data_ptr(),
-        out_f32.data_ptr() if out_f32 is not None else None,
-        out_t.data_ptr(), normed.data_ptr(), sigma.data_ptr(), rows, D,
-        LN_EPS, _build.stream_of(a))
+        _build.ptr(out_f32), out_t.data_ptr(), normed.data_ptr(),
+        sigma.data_ptr(), rows, D, LN_EPS, _build.stream_of(a))
     _build.check(code, "k5_ln_fwd")
     return out_t, (out_f32 if out_f32 is not None else out_t), normed, sigma
 
 
 def _ln_bwd(g, normed, sigma, gamma, seed, site, R, drop, dt):
+    """The LayerNorm's backward for its output gradient g: (dy, drop(dy),
+    drop(dy) as the compute dtype's operand): f32, f32, and bf16 (or the
+    f32 one itself in f32)."""
     rows, D = normed.shape
+    lowp = dt != torch.float32
+    if not normed.is_cuda:
+        dn = g.float() * gamma
+        t = ((dn * normed).sum(-1, keepdim=True)
+             / ((D - 1) * sigma.clamp_min(1e-30)[:, None]))
+        dy = ((dn - dn.mean(-1, keepdim=True)) / (sigma[:, None] + LN_EPS)
+              - normed * t)
+        dyd = dy
+        if drop > 0.0:
+            dyd = _dropped(dy, _resid_masks(seed, site, R, rows, D, drop,
+                                            dy.device), drop)
+        return dy, dyd, (dyd.to(torch.bfloat16) if lowp else dyd)
     dy, dyd = torch.empty_like(normed), torch.empty_like(normed)
+    dyd_t = (torch.empty((rows, D), dtype=torch.bfloat16, device=dy.device)
+             if lowp else None)
     code = _build.lib().gvd_k5_ln_bwd(
         _build.DTYPE_CODES[dt],
         int(g.dtype == torch.float32), g.data_ptr(), normed.data_ptr(),
         sigma.data_ptr(), gamma.data_ptr(), seed.data_ptr(), site, R, drop,
-        1.0 - drop, dy.data_ptr(), dyd.data_ptr(), rows, D, LN_EPS,
-        _build.stream_of(normed))
+        1.0 - drop, dy.data_ptr(), dyd.data_ptr(), _build.ptr(dyd_t), rows,
+        D, LN_EPS, _build.stream_of(normed))
     _build.check(code, "k5_ln_bwd")
-    return dy, dyd
+    return dy, dyd, (dyd_t if lowp else dyd)
 
 
 def _colsum(a, b=None, *, dt):
     """(sum over rows of a, of a * b) per column, in f32."""
     M, N = a.shape
+    if not a.is_cuda:
+        af = a.float()
+        return af.sum(0), ((af * b).sum(0) if b is not None else None)
     chunks = -(-M // COLSUM_ROWS)
     partial = torch.empty((2, chunks, N), dtype=torch.float32,
                           device=a.device)
@@ -295,80 +484,136 @@ def _colsum(a, b=None, *, dt):
     out2 = torch.empty_like(out1) if b is not None else None
     code = _build.lib().gvd_k5_colsum(
         _build.DTYPE_CODES[dt],
-        int(a.dtype == torch.float32), a.data_ptr(),
-        b.data_ptr() if b is not None else None, M, N, chunks,
-        partial.data_ptr(), out1.data_ptr(),
-        out2.data_ptr() if out2 is not None else None,
+        int(a.dtype == torch.float32), a.data_ptr(), _build.ptr(b), M, N,
+        chunks, partial.data_ptr(), out1.data_ptr(), _build.ptr(out2),
         _build.stream_of(a))
     _build.check(code, "k5_colsum")
     return out1, out2
 
 
+def _attn_fwd(q, k, v, seed, n_heads, drop):
+    """K4's forward with K5's salts: the output and the row log-sum-exp
+    (None on the CPU, whose backward recomputes the attention)."""
+    if q.is_cuda:
+        return attention_forward(q, k, v, seed, n_heads=n_heads,
+                                 scale=math.sqrt(q.shape[-1]), drop=drop,
+                                 salt_base=SITE_PROBS, salt_mul=SALT_MUL)
+    return attention_heads_plain(q, k, v, seed, n_heads=n_heads,
+                                 drop=drop), None
+
+
+def _attn_bwd(q, k, v, o, lse, seed, dout, n_heads, drop):
+    """K4's backward with K5's salts: dq, dk, dv in q's dtype."""
+    if q.is_cuda:
+        return attention_backward(q, k, v, o, lse, seed, dout,
+                                  n_heads=n_heads, scale=math.sqrt(
+                                      q.shape[-1]), drop=drop,
+                                  salt_base=SITE_PROBS, salt_mul=SALT_MUL)
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    with torch.enable_grad():
+        out = attention_heads_plain(*leaves, seed, n_heads=n_heads,
+                                    drop=drop)
+        return torch.autograd.grad(out, leaves, dout)
+
+
+class K5Saved(NamedTuple):
+    """What K5's forward saves for its backward (beside x)."""
+    x2: torch.Tensor            # x (M, D), the compute dtype (T)
+    q: torch.Tensor             # (B, R, D) T
+    k: torch.Tensor
+    v: torch.Tensor
+    o: torch.Tensor             # the attention's output (M, D) T
+    lse: torch.Tensor           # its row log-sum-exp (B, heads, R) f32
+    x1c: torch.Tensor           # LN1's output (M, D) T, the FFN's input
+    hid: torch.Tensor           # the FFN activation (M, F) T
+    n1: torch.Tensor            # LN1's normalised values (M, D) f32
+    s1: torch.Tensor            # and its sigma (M,)
+    n2: torch.Tensor
+    s2: torch.Tensor
+    wq: torch.Tensor            # the linear weights in T
+    wk: torch.Tensor
+    wv: torch.Tensor
+    wo: torch.Tensor
+    w1: torch.Tensor
+    w2: torch.Tensor
+    g1: torch.Tensor            # the LayerNorm scales in f32
+    g2: torch.Tensor
+    seed: torch.Tensor
+
+
 def _kernel_forward(x, w, seed, n_heads, drop):
-    """Returns the output (B, R, D) and the tensors the backward reads."""
+    """Returns the output (B, R, D) and the ``K5Saved`` of the backward."""
     B, R, D = x.shape
     M, dt = B * R, x.dtype
-    scale = math.sqrt(D)
+    Fh = w.w1.shape[0]
     x2 = x.reshape(M, D)
     wq, wk, wv, wo, w1, w2 = (_build.aligned16(t.to(dt)) for t in (
         w.wq, w.wk, w.wv, w.wo, w.w1, w.w2))
     b1, b2, g1, be1, g2, be2 = (t.float().contiguous() for t in (
         w.b1, w.b2, w.g1, w.be1, w.g2, w.be2))
-    q, k, v = (_gemm(x2, m, None, relu=False).view(B, R, D)
+    q, k, v = (_mm(NT, x2, m, M, D, D, out_f32=False).view(B, R, D)
                for m in (wq, wk, wv))
-    o, lse = attention_forward(q, k, v, seed, n_heads=n_heads, scale=scale,
-                               drop=drop, salt_base=SITE_PROBS,
-                               salt_mul=SALT_MUL)
-    o = o.view(M, D)
+    o, lse = _attn_fwd(q, k, v, seed, n_heads, drop)
+    o = o.reshape(M, D)
     a = _mm(NT, o, wo, M, D, D, out_f32=True)
     x1c, x1, n1, s1 = _ln_fwd(x2, a, seed, SITE_RESID1, R, drop, g1, be1,
                               f32_out=True, dt=dt)
     del a
-    hid = _gemm(x1c, w1, b1, relu=True)
-    f = _mm(NT, hid, w2, M, D, w2.shape[1], out_f32=True, bias=b2)
+    hid = _mm(NT, x1c, w1, M, Fh, D, out_f32=False, bias=b1, relu=True)
+    f = _mm(NT, hid, w2, M, D, Fh, out_f32=True, bias=b2)
     out, _, n2, s2 = _ln_fwd(x1, f, seed, SITE_RESID2, R, drop, g2, be2,
                              f32_out=False, dt=dt)
-    saved = (x2, q, k, v, o, lse, x1c, hid, n1, s1, n2, s2,
-             wq, wk, wv, wo, w1, w2, g1, g2, seed)
-    return out.view(B, R, D), saved
+    return out.view(B, R, D), K5Saved(x2, q, k, v, o, lse, x1c, hid, n1, s1,
+                                      n2, s2, wq, wk, wv, wo, w1, w2, g1,
+                                      g2, seed)
 
 
-def _kernel_backward(g, saved, n_heads, drop, shape):
-    """dx and the twelve weight gradients (f32) for the output gradient g."""
-    (x2, q, k, v, o, lse, x1c, hid, n1, s1, n2, s2,
-     wq, wk, wv, wo, w1, w2, g1, g2, seed) = saved
+def _kernel_backward(g, saved: K5Saved, n_heads, drop, shape):
+    """dx and the twelve weight gradients (f32) for the output gradient g.
+    In bf16 every product takes bf16 operands: the f32 gradients df, dz1
+    and dacc enter as the bf16 copies their producers write, while db1,
+    db2 and the LayerNorm gradients sum the f32 values."""
+    s = saved
     B, R, D = shape
-    M, dt, Fh = B * R, x2.dtype, hid.shape[1]
+    M, dt, Fh = B * R, s.x2.dtype, s.hid.shape[1]
     g2d = g.reshape(M, D).contiguous()
+    lowp = dt != torch.float32
     # LN2, the FFN and its dropout
-    dy2, df = _ln_bwd(g2d, n2, s2, g2, seed, SITE_RESID2, R, drop, dt)
-    dbe2, dg2 = _colsum(g2d, n2, dt=dt)
+    dy2, df, df_t = _ln_bwd(g2d, s.n2, s.s2, s.g2, s.seed, SITE_RESID2, R,
+                            drop, dt)
+    dbe2, dg2 = _colsum(g2d, s.n2, dt=dt)
     db2, _ = _colsum(df, dt=dt)
-    dw2 = _grad_w(df, hid)
-    dz1 = _mm(NN, df, w2, M, Fh, D, out_f32=True, mask=hid)
     del df
+    dw2 = _grad_w(df_t, s.hid)
+    if lowp:
+        dz1, dz1_t = _mm(NN, df_t, s.w2, M, Fh, D, out_f32=True,
+                         mask=s.hid, copy_bf16=True)
+    else:
+        dz1 = dz1_t = _mm(NN, df_t, s.w2, M, Fh, D, out_f32=True,
+                          mask=s.hid)
+    del df_t
     db1, _ = _colsum(dz1, dt=dt)
-    dw1 = _grad_w(dz1, x1c)
-    dx1 = _mm(NN, dz1, w1, M, D, Fh, out_f32=True, resid=dy2, out=dy2)
     del dz1
+    dw1 = _grad_w(dz1_t, s.x1c)
+    dx1 = _mm(NN, dz1_t, s.w1, M, D, Fh, out_f32=True, resid=dy2, out=dy2)
+    del dz1_t
     # LN1, the output projection and its dropout
-    dbe1, dg1 = _colsum(dx1, n1, dt=dt)
-    dy1, dacc = _ln_bwd(dx1, n1, s1, g1, seed, SITE_RESID1, R, drop, dt)
-    del dx1
-    dwo = _grad_w(dacc, o)
-    dattn = _mm(NN, dacc, wo, M, D, D, out_f32=False)
-    del dacc
+    dbe1, dg1 = _colsum(dx1, s.n1, dt=dt)
+    dy1, dacc, dacc_t = _ln_bwd(dx1, s.n1, s.s1, s.g1, s.seed, SITE_RESID1,
+                                R, drop, dt)
+    del dx1, dacc                    # its products read dacc_t
+    dwo = _grad_w(dacc_t, s.o)
+    dattn = _mm(NN, dacc_t, s.wo, M, D, D, out_f32=False)
+    del dacc_t
     # the attention, then the projections
-    dq, dk, dv = attention_backward(
-        q, k, v, o.view(B, R, D), lse, seed, dattn.view(B, R, D),
-        n_heads=n_heads, scale=math.sqrt(D), drop=drop,
-        salt_base=SITE_PROBS, salt_mul=SALT_MUL)
+    dq, dk, dv = _attn_bwd(s.q, s.k, s.v, s.o.view(B, R, D), s.lse, s.seed,
+                           dattn.view(B, R, D), n_heads, drop)
     del dattn
-    dq, dk, dv = (t.view(M, D) for t in (dq, dk, dv))
-    dwq, dwk, dwv = (_grad_w(t, x2) for t in (dq, dk, dv))
-    _mm(NN, dq, wq, M, D, D, out_f32=True, resid=dy1, out=dy1)
-    _mm(NN, dk, wk, M, D, D, out_f32=True, resid=dy1, out=dy1)
-    dx = _mm(NN, dv, wv, M, D, D, out_f32=False, resid=dy1)
+    dq, dk, dv = (t.reshape(M, D) for t in (dq, dk, dv))
+    dwq, dwk, dwv = (_grad_w(t, s.x2) for t in (dq, dk, dv))
+    _mm(NN, dq, s.wq, M, D, D, out_f32=True, resid=dy1, out=dy1)
+    _mm(NN, dk, s.wk, M, D, D, out_f32=True, resid=dy1, out=dy1)
+    dx = _mm(NN, dv, s.wv, M, D, D, out_f32=False, resid=dy1)
     return dx.view(B, R, D), (dwq, dwk, dwv, dwo, dw1, db1, dw2, db2, dg1,
                               dbe1, dg2, dbe2)
 
@@ -387,8 +632,8 @@ class _EncoderLayerTrain(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         n_heads, drop, shape, wdtypes = ctx.args
-        dx, dw = _kernel_backward(dout, ctx.saved_tensors, n_heads, drop,
-                                  shape)
+        dx, dw = _kernel_backward(dout, K5Saved(*ctx.saved_tensors), n_heads,
+                                  drop, shape)
         _build.launches["encoder_layer_train_bwd"] += 1
         return (dx, None, None, None,
                 *(d.to(t) for d, t in zip(dw, wdtypes)))

@@ -46,7 +46,7 @@ ATTENTION = ("fwd_kernel", "bwd_kv_kernel", "bwd_q_kernel", "delta_kernel",
 # names of this tree and of the trees before it)
 K1_GEMM = ("gemm_kernel", "gemm_bf16_wmma_kernel", "gemm_f32_kernel",
            "gemm_bf16_mma_kernel")
-K5_REST = K1_GEMM + ("ln_fwd_kernel", "ln_bwd_kernel",
+K5_REST = K1_GEMM + ("gemm_tc_kernel", "ln_fwd_kernel", "ln_bwd_kernel",
                      "colsum_partial_kernel", "colsum_final_kernel",
                      "splitk_sum_kernel")
 # the serving path's kernel groups (csrc/birnn.cu, encoder_layer.cu,

@@ -380,20 +380,49 @@ def test_encoder_layer_train_kernel(dev, dtype, drop):
             assert _within(a, r, dtype), i
 
 
+K5_ROUTES = {torch.float32: ("k5_gemm_simt", "k5_gemm_tc"),
+             torch.bfloat16: ("k5_gemm_tc", "k5_gemm_simt")}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_encoder_layer_train_gemm_route(dev, dtype):
+    """One K5 forward and backward runs each of its products on the
+    compute dtype's GEMM route (bf16: all on the tensor cores, none on
+    SIMT), six forward and twelve backward."""
+    from grounded_video_description_torch.ops.kernels import (
+        encoder_layer_train as k5)
+    enc, x, w = _k5_setup(dev, dtype)
+    seed = torch.tensor([0xDEADBEEF], device=dev)
+    _k5_run(k5.fused_encoder_layer_train, enc, x, w, seed, 0.2)
+    torch.cuda.synchronize()
+    route, other = K5_ROUTES[dtype]
+    assert dict(_build.launches) == {
+        "encoder_layer_train_fwd": 1, "encoder_layer_train_bwd": 1,
+        route: k5.FWD_GEMMS + k5.BWD_GEMMS}
+    assert not _build.launches[other]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("layout", [0, 1, 2])
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_k5_gemm_layouts(dev, dtype, layout):
-    """K5's GEMM in its three layouts at odd shapes, A in the compute dtype
-    and in f32 (rounded as it loads), against f32 products of the same
-    rounded operands; the A^T B layout also split over 3 row blocks, and
-    the epilogue (bias, ReLU, mask, residual) on the other two."""
+    """K5's GEMM in its three layouts at odd shapes (M 300, N 200, K 170:
+    bf16 rows that are not 16 bytes long are padded for TMA) on its
+    dtype's route (bf16: the tensor cores; f32: SIMT), A in the compute
+    dtype and in f32 (rounded to the compute dtype first), against f32
+    products of the same rounded operands: split over 1 and 3 blocks of
+    K; on the x W^T and dY W layouts also the epilogue (bias, ReLU, mask,
+    residual) and a residual that is C itself, with C's bf16 copy in
+    bf16.  One count of the route a launch, none of the other."""
     from grounded_video_description_torch.ops.kernels import (
         encoder_layer_train as k5)
     M, N, K = 300, 200, 170
     g = torch.Generator(device=dev).manual_seed(4)
     a_shape = (K, M) if layout == 2 else (M, K)
     b_shape = (N, K) if layout == 0 else (K, N)
+    route, other = K5_ROUTES[dtype]
+    n = 0
     for a_dtype in {dtype, torch.float32}:
         a = torch.randn(a_shape, generator=g, device=dev).to(a_dtype)
         b = torch.randn(b_shape, generator=g, device=dev).to(dtype)
@@ -401,11 +430,12 @@ def test_k5_gemm_layouts(dev, dtype, layout):
         op_a = af.t() if layout == 2 else af
         op_b = bf.t() if layout == 0 else bf
         ref = op_a @ op_b
+        for splits in (1, 3):
+            got = k5._mm(layout, a, b, M, N, K, out_f32=True,
+                         splits=splits)
+            n += 1
+            assert _within(got, ref, torch.float32, 1e-3), splits
         if layout == 2:
-            for splits in (1, 3):
-                got = k5._mm(layout, a, b, M, N, K, out_f32=True,
-                             splits=splits)
-                assert _within(got, ref, torch.float32, 1e-3), splits
             continue
         bias = torch.randn(N, generator=g, device=dev)
         mask = (torch.rand(M, N, generator=g, device=dev) > 0.5).to(dtype)
@@ -416,6 +446,46 @@ def test_k5_gemm_layouts(dev, dtype, layout):
         torch.cuda.synchronize()
         assert got.dtype == dtype
         assert _within(got, want.to(dtype), dtype, 1e-3)
+        c = resid.clone()
+        lowp = dtype == torch.bfloat16
+        got = k5._mm(layout, a, b, M, N, K, out_f32=True, resid=c, out=c,
+                     copy_bf16=lowp)
+        n += 2
+        torch.cuda.synchronize()
+        if lowp:
+            got, copy = got
+            assert torch.equal(copy, c.to(torch.bfloat16))
+        assert got is c
+        assert _within(c, ref + resid, torch.float32, 1e-3)
+    assert _build.launches[route] == n and not _build.launches[other]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", [0, 1, 2])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_k5_gemm_flagship_width(dev, dtype, layout):
+    """K5's GEMM at the flagship training layer's width: x W^T and dY W
+    at M 30000, N 1024, K 1024, the weight gradient A^T B at M 1024,
+    N 1024 over K = 30000 rows (split as planned), f32 out, within 1e-4
+    of max |ref| of the f32 product of the same operands (sums of up to
+    30000 terms in another order); on the dtype's route only."""
+    from grounded_video_description_torch.ops.kernels import (
+        encoder_layer_train as k5)
+    M, N, K = (1024, 1024, 30000) if layout == 2 else (30000, 1024, 1024)
+    g = torch.Generator(device=dev).manual_seed(5)
+    a_shape = (K, M) if layout == 2 else (M, K)
+    b_shape = (N, K) if layout == 0 else (K, N)
+    a = torch.randn(a_shape, generator=g, device=dev).to(dtype)
+    b = torch.randn(b_shape, generator=g, device=dev).to(dtype)
+    ref = ((a.float().t() if layout == 2 else a.float())
+           @ (b.float().t() if layout == 0 else b.float()))
+    got = k5._mm(layout, a, b, M, N, K, out_f32=True)
+    again = k5._mm(layout, a, b, M, N, K, out_f32=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert float((got - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+    route, other = K5_ROUTES[dtype]
+    assert _build.launches[route] == 2 and not _build.launches[other]
 
 
 def _decode_setup(dev, dtype):
