@@ -24,8 +24,9 @@ NVIDIA GPU.
    (0.02 + 0.02 |ref| on every element): a witness that its tensor-core
    attention differs from an f32 attention by the rounding of P~ and dS
    alone.  K5 runs with its tensor-core attention, and with its attention
-   on the f32 SIMT kernels (q, k, v, o and dO widened to f32, the results
-   rounded to bf16: the numerics of the earlier bf16 SIMT kernels); each
+   on the f32 kernels (q, k, v, o and dO widened to f32, the results
+   rounded to bf16: the numerics of the earlier bf16 SIMT kernels; the
+   f32 kernels are 3xTF32, f32-accurate products); each
    is held against the twin that rounds P~ and dS as the tensor cores do
    (the port's) and against a twin that keeps them in f32 (the one before
    the tensor-core kernels, copied here).  It prints each pairing's ratio
@@ -196,7 +197,7 @@ def k5_witness(dev, summary):
             dout.float(), **kw))
 
     attentions = {"tensor-core": (real["fwd"], real["bwd"]),
-                  "f32 SIMT": (fwd_f32, bwd_f32)}
+                  "f32": (fwd_f32, bwd_f32)}
     twins = {"rounds P~, dS": real["twin"],
              "f32 P~, dS": attention_sublayer_f32_probs}
 

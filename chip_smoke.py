@@ -36,9 +36,11 @@ run with a non-zero exit.
 Output: human-readable lines, then the card's name and power limit, then
 one JSON line with a row per kernel and dtype (f32, bf16): its launches
 on the main path in that dtype, its error against the plain version, its
-time, its plain version's, its bound and the library call's (the bf16 K4
+time, its plain version's, its bound and the library call's (the K4
 rows also the time of the repack that its tensor-core kernels run
-first), and as the last line ``{"ok": true, "device": {...}}``.
+first; f32 K4, K5's attention and K7 run in 3xTF32, and their launches
+also count that route, ``attention_tf32x3``), and as the last line
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -82,22 +84,40 @@ def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
 
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}   # H100 SXM, dense
+# H100 SXM, dense: f32 on the SIMT units, bf16 on the tensor cores, and
+# f32-accurate products on the tensor cores in 3xTF32 (three TF32 products
+# each, at 494.7 TFLOP/s TF32)
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "tf32x3": 494.7e12 / 3}
 PEAK_BYTES = 3.35e12
+# the f32 attention's route (K4, K5's attention, K7), counted per launch
+TF32_ROUTE = "attention_tf32x3"
 
 
 def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def bound(flops: float, n_bytes: float, dtype: str) -> dict:
+def bound(flops, n_bytes: float, dtype: str) -> dict:
     """The least time the card could take for work of ``flops`` operations
     (at the peak rate of ``dtype``: f32 outside the tensor cores, bf16 on
-    them) moving ``n_bytes`` (each input read once, each output written
-    once), and which of the two bounds it."""
-    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], n_bytes / PEAK_BYTES
+    them, ``tf32x3`` f32 products on them in 3xTF32; or a dict of
+    operations per rate, whose times add, for work whose parts depend on
+    each other) moving ``n_bytes`` (each input read once, each output
+    written once), which of the two bounds it, and the rates that the
+    operations were counted at (``bound_rates``)."""
+    if not isinstance(flops, dict):
+        flops = {dtype: flops}
+    t_ops = sum(f / PEAK_FLOPS[rate] for rate, f in flops.items())
+    t_bytes = n_bytes / PEAK_BYTES
     return dict(bound_ms=1e3 * max(t_ops, t_bytes),
-                bound_by="operations" if t_ops >= t_bytes else "bytes")
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                bound_rates="+".join(sorted(flops)))
+
+
+def attention_rate(name: str) -> str:
+    """The peak rate that bounds the attention kernels in dtype ``name``:
+    f32 runs them in 3xTF32."""
+    return "tf32x3" if name == "float32" else name
 
 
 def bf16_ratio(got, ref):
@@ -468,6 +488,7 @@ def phase_attention_train(dev, results):
     q/k/v gradients against the plain twin's autograd on the same seed,
     and both passes timed alone."""
     import torch
+    from grounded_video_description_torch.ops.kernels import _build
     from grounded_video_description_torch.ops.kernels.attention_train \
         import mha_probs_dropout, mha_probs_dropout_plain, pack_heads
 
@@ -485,10 +506,18 @@ def phase_attention_train(dev, results):
             for which, fn in (("kernel", mha_probs_dropout),
                               ("plain", mha_probs_dropout_plain)):
                 leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+                _build.reset_launches()
                 out = fn(*leaves, seed, drop=drop, **kw)
                 grads = torch.autograd.grad(out, leaves, w,
                                             retain_graph=True)
                 torch.cuda.synchronize()
+                if which == "kernel":
+                    want = {"attention_train_fwd": 1,
+                            "attention_train_bwd": 1}
+                    if dt == torch.float32:
+                        want[TF32_ROUTE] = 2
+                    check(dict(_build.launches) == want,
+                          f"K4 {name} launches {dict(_build.launches)}")
                 fwd_ms = time_ms(lambda: fn(*leaves, seed, drop=drop, **kw),
                                  5)
                 bwd_ms = time_ms(lambda: torch.autograd.grad(
@@ -521,23 +550,22 @@ def phase_attention_train(dev, results):
             if drop > 0:
                 act = nbytes(q)
                 # forward: QK^T and PV; backward: QK^T again, dV, dP, dQ, dK
+                rate = attention_rate(name)
                 results[("attention_train_fwd", name)] = dict(
                     max_abs_err=errs["out"], ms=k_fwd, plain_ms=p_fwd,
-                    **bound(4 * Bm * R * R * D_RNN, 4 * act, name))
+                    **bound(4 * Bm * R * R * D_RNN, 4 * act, rate))
                 results[("attention_train_bwd", name)] = dict(
                     max_abs_err=max(errs["dq"], errs["dk"], errs["dv"]),
                     ms=k_bwd, plain_ms=p_bwd,
-                    **bound(10 * Bm * R * R * D_RNN, 8 * act, name))
-                if dt == torch.bfloat16:
-                    # the bf16 kernels first repack q, k, v (and dO in the
-                    # backward) head-major; inside k_fwd and k_bwd
-                    for part, xs in (("fwd", [q, k, v]),
-                                     ("bwd", [q, k, v, w])):
-                        rp = time_ms(lambda: pack_heads(xs, heads), 5)
-                        results[(f"attention_train_{part}", name)][
-                            "repack_ms"] = rp
-                        print(f"K4 bf16 repack of {len(xs)} tensors "
-                              f"({part}): {rp:.3f} ms", flush=True)
+                    **bound(10 * Bm * R * R * D_RNN, 8 * act, rate))
+                # the kernels first repack q, k, v (and dO in the
+                # backward) head-major; inside k_fwd and k_bwd
+                for part, xs in (("fwd", [q, k, v]), ("bwd", [q, k, v, w])):
+                    rp = time_ms(lambda: pack_heads(xs, heads), 5)
+                    results[(f"attention_train_{part}", name)][
+                        "repack_ms"] = rp
+                    print(f"K4 {name} repack of {len(xs)} tensors "
+                          f"({part}): {rp:.3f} ms", flush=True)
                 print(f"K4 {name}: bound forward " + ", backward ".join(
                     f"{results[(k, name)]['bound_ms']:.3f} ms "
                     f"({results[(k, name)]['bound_by']})" for k in (
@@ -773,11 +801,15 @@ def k5_library_ms(x, enc, w, drop):
 def k5_gemm_counts(dt: str, calls: int) -> dict:
     """The GEMM launches of ``calls`` K5 forward and backward passes in
     dtype ``dt``: every product on the tensor-core route in bf16 (none on
-    the SIMT route), on the SIMT route in f32."""
+    the SIMT route), on the SIMT route in f32, where the attention counts
+    its 3xTF32 route each way too."""
     from grounded_video_description_torch.ops.kernels import (
         encoder_layer_train as k5)
     route = "k5_gemm_tc" if dt == "bfloat16" else "k5_gemm_simt"
-    return {route: calls * (k5.FWD_GEMMS + k5.BWD_GEMMS)}
+    counts = {route: calls * (k5.FWD_GEMMS + k5.BWD_GEMMS)}
+    if dt == "float32":             # its attention, forward and backward
+        counts[TF32_ROUTE] = 2 * calls
+    return counts
 
 
 def phase_encoder_layer_train(dev, results):
@@ -800,17 +832,22 @@ def phase_encoder_layer_train(dev, results):
     lw = list(enc.layers[0].weights())
     # the backward: two products per forward product (q, k, v and o are
     # saved), and the attention's five (QK^T again, dV, dP, dQ, dK)
-    flops_fwd = layer_flops(Bm, R, D_RNN, Fh)
-    flops_bwd = (2 * layer_gemm_flops(Bm, R, D_RNN, Fh)
-                 + 10 * Bm * R * R * D_RNN)
+    # (in f32 the products on the SIMT units, the attention in 3xTF32)
+    gemm_fwd = layer_gemm_flops(Bm, R, D_RNN, Fh)
+    attn_fwd = layer_flops(Bm, R, D_RNN, Fh) - gemm_fwd
+    attn_bwd = 10 * Bm * R * R * D_RNN
     w_bytes = nbytes(*lw)
     for dt in (torch.float32, torch.bfloat16):
         name = str(dt).replace("torch.", "")
         act = nbytes(x0.to(dt))
         # forward: x in, out; backward: x and the cotangent in, dx out;
         # each with the f32 weights in (and their f32 gradients out)
-        bound_fwd = bound(flops_fwd, 2 * act + w_bytes, name)
-        bound_bwd = bound(flops_bwd, 3 * act + 2 * w_bytes, name)
+        rate = attention_rate(name)
+        bound_fwd = bound({name: gemm_fwd, rate: attn_fwd} if rate != name
+                          else gemm_fwd + attn_fwd, 2 * act + w_bytes, name)
+        bound_bwd = bound({name: 2 * gemm_fwd, rate: attn_bwd}
+                          if rate != name else 2 * gemm_fwd + attn_bwd,
+                          3 * act + 2 * w_bytes, name)
         rates = k5_gemm_rates(dev, dt)
         for drop in (0.2, 0.0):
             x, w = x0.to(dt), cot.to(dt)
@@ -953,9 +990,11 @@ def phase_train(dev, state):
         "plain": {}}
 
     def step_counts(name, dt):
-        if name != "K5":
-            return per_step[name]
-        return {**per_step[name], **k5_gemm_counts(dt, 2 * ACCUM)}
+        if name == "K5":
+            return {**per_step[name], **k5_gemm_counts(dt, 2 * ACCUM)}
+        if name == "K4" and dt == "float32":
+            return {**per_step[name], TF32_ROUTE: 4 * ACCUM}
+        return per_step[name]
 
     def trainer_for(cfg):
         model = GVDModel(cfg)
@@ -1188,6 +1227,7 @@ def phase_flash_mha(dev, results):
     1/sqrt(1024); f32 and bf16."""
     import torch
     import torch.nn.functional as F
+    from grounded_video_description_torch.ops.kernels import _build
     from grounded_video_description_torch.ops.kernels.mha import (
         flash_self_attention, flash_self_attention_plain)
 
@@ -1198,9 +1238,15 @@ def phase_flash_mha(dev, results):
     for dt in (torch.float32, torch.bfloat16):
         name = str(dt).replace("torch.", "")
         q, k, v = (t.to(dt) for t in base)
+        _build.reset_launches()
         got = flash_self_attention(q, k, v)
         ref = flash_self_attention_plain(q, k, v)
         torch.cuda.synchronize()
+        want = {"flash_self_attention": 1}
+        if dt == torch.float32:
+            want[TF32_ROUTE] = 1
+        check(dict(_build.launches) == want,
+              f"K7 {name} launches {dict(_build.launches)}")
         check(got.dtype == dt and got.shape == (N, R, d), "K7 output")
         check(bool(torch.isfinite(got.float()).all()), "K7 not finite")
         err, scaled = max_err(got, ref), ""
@@ -1216,7 +1262,8 @@ def phase_flash_mha(dev, results):
         q4, k4, v4 = (t[:, None] for t in (q, k, v))
         lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
             q4, k4, v4, scale=1.0), 5)
-        b = bound(4 * N * R * R * d, nbytes(q, k, v, got), name)
+        b = bound(4 * N * R * R * d, nbytes(q, k, v, got),
+                  attention_rate(name))
         print(f"K7 flash_self_attention {name} ({N} x {R} x {d}): err "
               f"{err:.3e}{scaled}; kernel {ms:.3f} ms, plain "
               f"{plain_ms:.3f} ms, "
@@ -1364,7 +1411,9 @@ def phase_eval(dev, base, state):
                 stats.update(ev.eval_grounding_gt(
                     counted(counts["grounding_gt"]), out_dir=out_dir))
                 for call, got in counts.items():
-                    want = per_batch[call] if kernels else {}
+                    want = dict(per_batch[call]) if kernels else {}
+                    if kernels and dtype == "float32":   # K7's route
+                        want[TF32_ROUTE] = want["flash_self_attention"]
                     check(got == [want] * len(batches),
                           f"{dtype} kernels={kernels} {call} launches per "
                           f"batch {got} != {want}")
@@ -1635,11 +1684,11 @@ def main() -> int:
              "grounded_video_description_tpu/ops/pallas/"
              "encoder_layer.py:184"),
             ("attention_train_fwd", "attention_train_fwd",
-             "grounded_video_description_torch/csrc/attention_train.cu",
+             "grounded_video_description_torch/csrc/attention_tf32x3.cu",
              "grounded_video_description_tpu/ops/pallas/"
              "attention_train.py:163"),
             ("attention_train_bwd", "attention_train_bwd",
-             "grounded_video_description_torch/csrc/attention_train.cu",
+             "grounded_video_description_torch/csrc/attention_tf32x3.cu",
              "grounded_video_description_tpu/ops/pallas/"
              "attention_train.py:185"),
             ("encoder_layer_train_fwd", "encoder_layer_train_fwd",
@@ -1654,7 +1703,7 @@ def main() -> int:
              "grounded_video_description_torch/csrc/decode_scan.cu",
              "grounded_video_description_tpu/ops/pallas/decode_scan.py:325"),
             ("flash_self_attention", "flash_self_attention",
-             "grounded_video_description_torch/csrc/attention_train.cu",
+             "grounded_video_description_torch/csrc/attention_tf32x3.cu",
              "grounded_video_description_tpu/ops/pallas/mha.py:70")]
     bf16_source = {      # the bf16 launches of K4, K5's attention and K7
         "attention_train_fwd": "grounded_video_description_torch/csrc/"
@@ -1677,7 +1726,8 @@ def main() -> int:
                    "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                    "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                    "dtype": dt}
-            for extra in ("repack_ms", "exchange_ms", "gemm_tflops"):
+            for extra in ("repack_ms", "exchange_ms", "gemm_tflops",
+                          "bound_rates"):
                 if extra in r:
                     row[extra] = r[extra]
             kernels.append(row)

@@ -7,8 +7,10 @@
 // (see its note): per (batch row b, head h) P = softmax(q_h k_h^T *
 // inv_scale), P~ = P * keep / (1 - rate) with the JAX counter hash bit for
 // bit, o_h = P~ v_h, the row log-sum-exp in f32, and the FlashAttention-2
-// backward.  f32 inputs keep that file's SIMT kernels: TF32 products would
-// miss the f32 bars (1e-4 against the twin, and the CPU parity with JAX).
+// backward.  f32 inputs run csrc/attention_tf32x3.cu: the same skeleton
+// with each product split into three TF32 products (3xTF32), since one
+// plain TF32 product keeps ~11 bits and would miss the f32 bars.  The
+// repack below serves both dtypes.
 //
 // What bounds it on an H100: the tensor cores.  At the flagship microbatch
 // (B = 30, R = 1000, six heads of 171) the forward is 2 and the backward 7
@@ -56,7 +58,7 @@
 namespace {
 
 using bf16 = __nv_bfloat16;
-constexpr int TILE = 64;           // query and key rows per tile
+constexpr int TILE = gvd::ATTN_TILE;  // query and key rows per tile
 constexpr int FWD_THREADS = 128;   // 4 warps x 16 query rows
 constexpr int BWD_THREADS = 256;   // 8 warps
 constexpr int ST_LD = TILE + 8;    // row stride of a 64 x 64 bf16 P~ or dS tile
@@ -171,23 +173,27 @@ __device__ __forceinline__ float quad_sum(float v) {
 }
 
 // ------------------------------------------------------------------ pack --
+template <typename T>
 struct PackArgs {
-  const bf16* src[4];
-  bf16* dst[4];
+  const T* src[4];
+  T* dst[4];
 };
 
 // dst (B, H, Rt, dp) from src (B, R, D) whose rows are ld elements apart
 // (ld = D, or 3D for K1's (B, R, 3D) QKV buffer, src then pointing at the
 // q, k or v columns): head h is columns [h hs, h hs + dh); rows at or past
-// R and columns at or past dh are zero.  One thread per 8 packed elements
-// (one 16-byte store); blockIdx.y picks the tensor.
+// R and columns at or past dh are zero.  One thread per 16 packed bytes
+// (8 bf16 or 4 f32 elements, one 16-byte store); blockIdx.y picks the
+// tensor.
+template <typename T>
 __global__ void __launch_bounds__(256)
-pack_kernel(PackArgs a, int B, int R, int Rt, int D, int hs, int H, int dp,
-            int ld) {
-  const int CH = dp / 8;
+pack_kernel(PackArgs<T> a, int B, int R, int Rt, int D, int hs, int H,
+            int dp, int ld) {
+  constexpr int VEC = 16 / sizeof(T);
+  const int CH = dp / VEC;
   const size_t n = (size_t)B * H * Rt * CH;
-  const bf16* src = a.src[blockIdx.y];
-  bf16* dst = a.dst[blockIdx.y];
+  const T* src = a.src[blockIdx.y];
+  T* dst = a.dst[blockIdx.y];
   for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n;
        i += (size_t)gridDim.x * blockDim.x) {
     const int c = (int)(i % CH);
@@ -195,16 +201,35 @@ pack_kernel(PackArgs a, int B, int R, int Rt, int D, int hs, int H, int dp,
     const int r = (int)(row % Rt), bh = (int)(row / Rt);
     const int b = bh / H, h = bh % H;
     const int c0 = h * hs, dh = min(hs, D - c0);
-    __align__(16) bf16 v[8];
-    const bf16* s = src + ((size_t)b * R + r) * ld + c0;
+    __align__(16) T v[VEC];
+    const T* s = src + ((size_t)b * R + r) * ld + c0;
 #pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      const int d = c * 8 + e;
-      v[e] = r < R && d < dh ? s[d] : __float2bfloat16(0.0f);
+    for (int e = 0; e < VEC; ++e) {
+      const int d = c * VEC + e;
+      v[e] = r < R && d < dh ? s[d] : gvd::from_f32<T>(0.0f);
     }
-    *reinterpret_cast<uint4*>(dst + row * dp + c * 8) =
+    *reinterpret_cast<uint4*>(dst + row * dp + c * VEC) =
         *reinterpret_cast<const uint4*>(v);
   }
+}
+
+template <typename T>
+int pack_heads_as(int n, const void* const* src, void* dst, int B, int R,
+                  int D, int hs, int ld, cudaStream_t s) {
+  const int dp = gvd::packed_width(hs);
+  if (n < 1 || n > 4 || dp == 0) return (int)cudaErrorInvalidValue;
+  const int H = (D + hs - 1) / hs, Rt = gvd::rows_padded(R);
+  const size_t per = (size_t)B * H * Rt * dp;
+  PackArgs<T> a{};
+  for (int i = 0; i < n; ++i) {
+    a.src[i] = (const T*)src[i];
+    a.dst[i] = (T*)dst + i * per;
+  }
+  const size_t want = (per / (16 / sizeof(T)) + 255) / 256;
+  const int blocks = want < 132 * 16 ? (int)want : 132 * 16;
+  pack_kernel<T><<<dim3(blocks, n), 256, 0, s>>>(a, B, R, Rt, D, hs, H, dp,
+                                                  ld);
+  return (int)cudaGetLastError();
 }
 
 // --------------------------------------------------------------- forward --
@@ -679,7 +704,7 @@ constexpr size_t bwd_q_smem(int dp) {
   return ((size_t)6 * TILE * (dp + 8) + TILE * ST_LD) * sizeof(bf16);
 }
 
-int rows_padded(int R) { return (R + TILE - 1) / TILE * TILE; }
+using gvd::rows_padded;
 
 template <int DP, bool DROP>
 int launch_fwd(const bf16* qp, const bf16* kp, const bf16* vp, void* out,
@@ -726,30 +751,19 @@ int launch_bwd(const bf16* qp, const bf16* kp, const bf16* vp,
 namespace gvd {
 
 // The instantiated packed head widths: the head width rounded up to 64,
-// 128, 176 or 192 (0 above 192).
+// 128, 176 or 192 (0 above 192).  Both dtypes' kernels take these.
 int packed_width(int hs) {
   return hs <= 64 ? 64 : hs <= 128 ? 128 : hs <= 176 ? 176 : hs <= 192 ? 192
                                                                          : 0;
 }
 
-// n <= 4 tensors (B, R, D), rows ld elements apart, into dst, n packed
-// (B, H, Rt, dp) one after another.
-int pack_heads_bf16(int n, const void* const* src, void* dst, int B, int R,
-                    int D, int hs, int ld, cudaStream_t s) {
-  const int dp = packed_width(hs);
-  if (n < 1 || n > 4 || dp == 0) return (int)cudaErrorInvalidValue;
-  const int H = (D + hs - 1) / hs, Rt = rows_padded(R);
-  const size_t per = (size_t)B * H * Rt * dp;
-  PackArgs a{};
-  for (int i = 0; i < n; ++i) {
-    a.src[i] = (const bf16*)src[i];
-    a.dst[i] = (bf16*)dst + i * per;
-  }
-  const size_t want = (per / 8 + 255) / 256;
-  const int blocks = want < 132 * 16 ? (int)want : 132 * 16;
-  pack_kernel<<<dim3(blocks, n), 256, 0, s>>>(a, B, R, Rt, D, hs, H, dp,
-                                               ld);
-  return (int)cudaGetLastError();
+int pack_heads(int dtype, int n, const void* const* src, void* dst, int B,
+               int R, int D, int hs, int ld, cudaStream_t s) {
+  if (dtype == 0)
+    return pack_heads_as<float>(n, src, dst, B, R, D, hs, ld, s);
+  if (dtype == 1)
+    return pack_heads_as<bf16>(n, src, dst, B, R, D, hs, ld, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 int attention_fwd_bf16(const void* q, const void* k, const void* v, void* out,
@@ -758,7 +772,7 @@ int attention_fwd_bf16(const void* q, const void* k, const void* v, void* out,
                        uint32_t salt_base, int salt_mul, float inv_scale,
                        float rate, bool drop, cudaStream_t s) {
   const void* src[3] = {q, k, v};
-  int e = pack_heads_bf16(3, src, scratch, B, R, D, hs, ld, s);
+  int e = pack_heads(1, 3, src, scratch, B, R, D, hs, ld, s);
   if (e != 0) return e;
   const int dp = packed_width(hs);
   const size_t per = (size_t)B * ((D + hs - 1) / hs) * rows_padded(R) * dp;
@@ -790,7 +804,7 @@ int attention_bwd_bf16(const void* q, const void* k, const void* v,
                        uint32_t salt_base, int salt_mul, float inv_scale,
                        float rate, cudaStream_t s) {
   const void* src[4] = {q, k, v, dout};
-  int e = pack_heads_bf16(4, src, scratch, B, R, D, hs, D, s);
+  int e = pack_heads(1, 4, src, scratch, B, R, D, hs, D, s);
   if (e != 0) return e;
   const int dp = packed_width(hs);
   const size_t per = (size_t)B * ((D + hs - 1) / hs) * rows_padded(R) * dp;
@@ -821,17 +835,18 @@ extern "C" int gvd_attention_tile() { return TILE; }
 // the kernels' scratch by it.
 extern "C" int gvd_packed_width(int hs) { return gvd::packed_width(hs); }
 
-// n (1 to 4) bf16 tensors (B, R, D), rows ld elements apart, heads of
-// width ceil(D / n_heads) as column ranges, into dst: n packed (B, H, Rt,
-// dp) tensors one after another (Rt = R rounded up to TILE, dp =
-// gvd_packed_width of a head).  The attention runs this first; the entry
-// of its own serves the tests and the timing of the repack alone.
-extern "C" int gvd_pack_heads(int n, const void* s0, const void* s1,
-                              const void* s2, const void* s3, void* dst,
-                              int B, int R, int D, int n_heads, int ld,
-                              void* stream) {
+// n (1 to 4) tensors (B, R, D) of one dtype (0 f32, 1 bf16), rows ld
+// elements apart, heads of width ceil(D / n_heads) as column ranges, into
+// dst: n packed (B, H, Rt, dp) tensors one after another (Rt = R rounded up
+// to TILE, dp = gvd_packed_width of a head).  The attention of either
+// dtype runs this first; the entry of its own serves the tests and the
+// timing of the repack alone.
+extern "C" int gvd_pack_heads(int dtype, int n, const void* s0,
+                              const void* s1, const void* s2, const void* s3,
+                              void* dst, int B, int R, int D, int n_heads,
+                              int ld, void* stream) {
   const void* src[4] = {s0, s1, s2, s3};
-  return gvd::pack_heads_bf16(n, src, dst, B, R, D,
-                              (D + n_heads - 1) / n_heads, ld,
-                              (cudaStream_t)stream);
+  return gvd::pack_heads(dtype, n, src, dst, B, R, D,
+                         (D + n_heads - 1) / n_heads, ld,
+                         (cudaStream_t)stream);
 }

@@ -21,7 +21,7 @@
 // orders them and plans each GEMM: k5_gemm_plan):
 //  * forward: gvd_k5_gemm for Q, K, V, Wo, W1 (+ b1, ReLU) and W2 (+ b2);
 //    K4's flash forward (csrc/attention_mma.cu in bf16,
-//    csrc/attention_train.cu in f32) with K5's prob salts, which keeps
+//    csrc/attention_tf32x3.cu in f32) with K5's prob salts, which keeps
 //    each (R, R) tile on chip and saves the row log-sum-exp; gvd_k5_ln_fwd
 //    for dropout + residual + LayerNorm, which saves each row's normalised
 //    values and sigma.

@@ -67,8 +67,8 @@ _SIGNATURES = {
                                                               _P],
     # dtype, q, k, v, out, scratch, N, R, d, stream
     "gvd_flash_self_attention": [_I] + [_P] * 5 + [_I] * 3 + [_P],
-    # n, src0, src1, src2, src3, dst, B, R, D, n_heads, ld, stream
-    "gvd_pack_heads": [_I] + [_P] * 5 + [_I] * 5 + [_P],
+    # dtype, n, src0, src1, src2, src3, dst, B, R, D, n_heads, ld, stream
+    "gvd_pack_heads": [_I, _I] + [_P] * 5 + [_I] * 5 + [_P],
     # the bf16 attention's tile rows; the packed width of a head (hs)
     "gvd_attention_tile": [],
     "gvd_packed_width": [_I],

@@ -6,13 +6,17 @@ Replaces ``grounded_video_description_tpu/ops/pallas/attention_train.py
 ``mha_probs_dropout_hybrid``.  The CUDA sources: a flash-style forward
 that saves the row log-sum-exp, and a FlashAttention-2 backward that
 recomputes the probs, so q, k, v, the output and the log-sum-exp are the
-only residuals.  f32 runs the SIMT kernels of ``csrc/attention_train.cu``;
-bf16 the tensor-core kernels of ``csrc/attention_mma.cu``, which first
-repack each head into a zero-padded, 16-byte aligned (B, H, Rt, dp) bf16
-tensor (Rt = R rounded up to ``MMA_TILE``, dp the packed width of the
-head) in scratch that the wrapper allocates, sized by the library's own
-``gvd_packed_width``; ``pack_heads_plain`` is that repack in plain
-PyTorch.
+only residuals.  Both dtypes run on Hopper's tensor cores, after a repack
+of each head into a zero-padded, 16-byte aligned (B, H, Rt, dp) tensor of
+the input's dtype (Rt = R rounded up to ``MMA_TILE``, dp the packed width
+of the head) in scratch that the wrapper allocates, sized by the
+library's own ``gvd_packed_width``; ``pack_heads_plain`` is that repack
+in plain PyTorch.  bf16 runs ``csrc/attention_mma.cu``; f32 runs
+``csrc/attention_tf32x3.cu``, whose products are 3xTF32: each operand
+split into two TF32 terms (``split_tf32``), three TF32 products summed
+in f32 (``mm_3xtf32``, the plain version of that arithmetic, which the
+tests hold to f32 accuracy).  Each f32 launch also counts
+``TF32_ROUTE``.
 
 Layout: q, k, v (B, R, D) with the heads as ``torch.chunk`` column
 ranges (171 x 5 + 169 at D = 1024), the port's layout, where the JAX
@@ -43,7 +47,7 @@ from grounded_video_description_torch.ops.kernels.encoder_layer import (
 
 MASK32 = 0xFFFFFFFF
 SITE_ATTN = 0x40000000
-MAX_HEAD = 192          # widest head the kernels take (csrc MAX_HEAD)
+MAX_HEAD = 192          # widest head the kernels take (gvd_packed_width)
 # Rows of a query or key tile of the bf16 kernels, and the multiple their
 # packed rows are padded to (csrc/attention_mma.cu TILE; ``_mma_lib``
 # holds the two equal before any bf16 launch).
@@ -52,6 +56,46 @@ MMA_TILE = 64
 # repack; the kernels take theirs from gvd_packed_width (held equal to
 # ``packed_width`` for every head width by tests/test_torch_cuda.py).
 PACKED_WIDTHS = (64, 128, 176, 192)
+# The launch count of the f32 attention's route (3xTF32 on the tensor
+# cores), beside the kernel's own count: K4's forward and backward, K5's
+# attention and K7 each add one per f32 launch.
+TF32_ROUTE = "attention_tf32x3"
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """f32 x rounded to TF32 (10 mantissa bits) to nearest, ties away from
+    zero, as ``cvt.rna.tf32.f32`` rounds: the 13 low bits of the pattern
+    cleared after adding half their range.  inf and NaN stay as they
+    are; a finite value past TF32's range becomes inf."""
+    bits = x.float().contiguous().view(torch.int32).long() & MASK32
+    r = ((bits + 0x1000) & 0xFFFFE000)
+    r = torch.where(r >= 1 << 31, r - (1 << 32), r).to(torch.int32)
+    return torch.where(torch.isfinite(x), r.view(torch.float32), x.float())
+
+
+def tf32_trunc(x: torch.Tensor) -> torch.Tensor:
+    """f32 x cut to TF32: the 13 low bits of the pattern cleared, as the
+    tensor cores read an f32 register as a TF32 operand."""
+    bits = x.float().contiguous().view(torch.int32)
+    return (bits & -0x2000).view(torch.float32)
+
+
+def split_tf32(x: torch.Tensor):
+    """x = hi + lo as the f32 kernels split each operand element: hi =
+    ``tf32_round(x)``, lo = x - hi as the tensor cores read it
+    (``tf32_trunc``)."""
+    hi = tf32_round(x)
+    return hi, tf32_trunc(x.float() - hi)
+
+
+def mm_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b as the f32 kernels compute it: lo_a hi_b + hi_a lo_b + hi_a
+    hi_b, each a product of TF32 values (exact in f32) summed in f32, the
+    small terms first; lo_a lo_b and what the cut of lo drops, ~2^-21 of
+    the product, are lost."""
+    ah, al = split_tf32(a)
+    bh, bl = split_tf32(b)
+    return (al @ bh + ah @ bl) + ah @ bh
 
 
 def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
@@ -142,23 +186,28 @@ def _mma_lib():
     return lib
 
 
-def _pack_scratch(n: int, B: int, R: int, D: int, n_heads: int,
-                  device) -> torch.Tensor:
-    """Room for n packed (B, H, Rt, dp) bf16 copies, dp from the
+def _pack_scratch(n: int, B: int, R: int, D: int, n_heads: int, device,
+                  dtype=torch.bfloat16) -> torch.Tensor:
+    """Room for n packed (B, H, Rt, dp) copies in ``dtype``, dp from the
     library."""
+    return torch.empty((n,) + _lib_packed_shape(B, R, D, n_heads),
+                       dtype=dtype, device=device)
+
+
+def _lib_packed_shape(B: int, R: int, D: int, n_heads: int):
+    """``packed_shape`` at the library's packed width."""
     dp = _mma_lib().gvd_packed_width(-(-D // n_heads))
     _build.require(dp > 0, f"a head is at most {MAX_HEAD} wide")
-    return torch.empty((n,) + packed_shape(B, R, D, n_heads, dp),
-                       dtype=torch.bfloat16, device=device)
+    return packed_shape(B, R, D, n_heads, dp)
 
 
 def pack_heads(xs, n_heads: int) -> torch.Tensor:
     """One to four tensors (B, R, D) of one shape -> (len(xs), B, H, Rt,
-    dp), each packed as ``pack_heads_plain``.  The bf16 attention runs
-    this repack inside its own launches; this entry of its own is for the
+    dp), each packed as ``pack_heads_plain``.  The attention runs this
+    repack inside its own launches; this entry of its own is for the
     tests and for timing the repack alone, so it counts no launch.  CPU
-    tensors take the plain version; bf16 CUDA tensors one launch of the
-    repack kernel."""
+    tensors take the plain version; f32 or bf16 CUDA tensors one launch of
+    the repack kernel."""
     xs = list(xs)
     req = _build.require
     req(1 <= len(xs) <= 4, "pack_heads takes one to four tensors")
@@ -166,14 +215,16 @@ def pack_heads(xs, n_heads: int) -> torch.Tensor:
         "pack_heads takes (B, R, D) tensors of one shape")
     if not xs[0].is_cuda:
         return torch.stack([pack_heads_plain(x, n_heads) for x in xs])
-    req(all(x.dtype == torch.bfloat16 and x.device == xs[0].device
-            for x in xs), "the repack kernel takes bf16 on one device")
+    req(all(x.dtype == xs[0].dtype and x.device == xs[0].device
+            for x in xs), "the repack kernel takes one dtype on one device")
+    code = _build.dtype_code(xs[0])
     xs = [x.contiguous() for x in xs]
     B, R, D = xs[0].shape
-    out = _pack_scratch(len(xs), B, R, D, n_heads, xs[0].device)
+    out = _pack_scratch(len(xs), B, R, D, n_heads, xs[0].device,
+                        xs[0].dtype)
     ptrs = [x.data_ptr() for x in xs] + [None] * (4 - len(xs))
     code = _build.lib().gvd_pack_heads(
-        len(xs), *ptrs, out.data_ptr(), B, R, D, n_heads, D,
+        code, len(xs), *ptrs, out.data_ptr(), B, R, D, n_heads, D,
         _build.stream_of(xs[0]))
     _build.check(code, "pack_heads")
     return out
@@ -216,20 +267,25 @@ def _check(q, k, v, seed, n_heads):
 
 
 def packed_scratch(n: int, q: torch.Tensor, n_heads: int):
-    """Room for n packed copies of q's heads, which the bf16 kernels fill
-    first; None for f32, whose kernels read the heads in place."""
-    if q.dtype != torch.bfloat16:
-        return None
+    """Room for n packed copies of q's heads in q's dtype, which the
+    kernels fill first."""
     B, R, D = q.shape
-    return _pack_scratch(n, B, R, D, n_heads, q.device)
+    return _pack_scratch(n, B, R, D, n_heads, q.device, q.dtype)
+
+
+def count_route(q: torch.Tensor) -> None:
+    """One count of ``TF32_ROUTE`` for an f32 attention launch."""
+    if q.dtype == torch.float32:
+        _build.launches[TF32_ROUTE] += 1
 
 
 def attention_forward(q, k, v, seed, *, n_heads: int, scale: float,
                       drop: float, salt_base: int, salt_mul: int):
     """The forward kernel on CUDA tensors (B, R, D), the masks of (row b,
     head h) salted ``salt_base + b * salt_mul + h``: returns the output
-    and the row log-sum-exp (B, heads, R) f32.  Counts no launch: K4's
-    and K5's wrappers count their own."""
+    and the row log-sum-exp (B, heads, R) f32.  Counts only the f32
+    route's launch (``count_route``): K4's and K5's wrappers count their
+    own."""
     B, R, D = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((B, len(head_slices(D, n_heads)), R),
@@ -237,10 +293,11 @@ def attention_forward(q, k, v, seed, *, n_heads: int, scale: float,
     scratch = packed_scratch(3, q, n_heads)
     code = _build.lib().gvd_attention_train_fwd(
         _build.dtype_code(q), q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        out.data_ptr(), lse.data_ptr(), seed.data_ptr(), _build.ptr(scratch),
+        out.data_ptr(), lse.data_ptr(), seed.data_ptr(), scratch.data_ptr(),
         B, R, D, n_heads, 1.0 / scale, drop, salt_base, salt_mul,
         _build.stream_of(q))
     _build.check(code, "attention_train_fwd")
+    count_route(q)
     return out, lse
 
 
@@ -248,19 +305,27 @@ def attention_backward(q, k, v, out, lse, seed, dout, *, n_heads: int,
                        scale: float, drop: float, salt_base: int,
                        salt_mul: int):
     """The backward kernels for ``attention_forward``'s output: dq, dk, dv
-    in q's dtype.  Counts no launch."""
+    in q's dtype.  Counts only the f32 route's launch."""
     B, R, D = q.shape
     dout = dout.contiguous()
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     delta = torch.empty_like(lse)
-    scratch = packed_scratch(4, q, n_heads)
+    if q.dtype == torch.float32:
+        # four packed copies, then dS^T (B, H, Rt, Rt) f32, which the f32
+        # backward writes for its dQ product
+        _, H, Rt, dp = _lib_packed_shape(B, R, D, n_heads)
+        scratch = torch.empty(B * H * Rt * (4 * dp + Rt),
+                              dtype=torch.float32, device=q.device)
+    else:
+        scratch = packed_scratch(4, q, n_heads)
     code = _build.lib().gvd_attention_train_bwd(
         _build.dtype_code(q), q.data_ptr(), k.data_ptr(), v.data_ptr(),
         out.data_ptr(), dout.data_ptr(), lse.data_ptr(), seed.data_ptr(),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
-        _build.ptr(scratch), B, R, D, n_heads, 1.0 / scale, drop,
+        scratch.data_ptr(), B, R, D, n_heads, 1.0 / scale, drop,
         salt_base, salt_mul, _build.stream_of(q))
     _build.check(code, "attention_train_bwd")
+    count_route(q)
     return dq, dk, dv
 
 

@@ -127,7 +127,7 @@ def pack_qkv(qkv: torch.Tensor, n_heads: int) -> torch.Tensor:
     out = _pack_scratch(3, B, R, D, n_heads, qkv.device)
     p, step = qkv.data_ptr(), D * qkv.element_size()
     code = _build.lib().gvd_pack_heads(
-        3, p, p + step, p + 2 * step, None, out.data_ptr(), B, R, D,
+        1, 3, p, p + step, p + 2 * step, None, out.data_ptr(), B, R, D,
         n_heads, 3 * D, _build.stream_of(qkv))
     _build.check(code, "pack_heads")
     return out

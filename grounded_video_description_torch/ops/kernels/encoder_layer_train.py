@@ -9,8 +9,10 @@ the port's own kernels (that file's GEMM, LayerNorm passes and column
 sums, and K4's attention with K5's salts).  Every product, six forward
 and twelve backward, runs on the one GEMM in three layouts (x W^T, dY W,
 A^T B), each launch planned by ``k5_gemm_plan``: in bf16 on the tensor
-cores, in f32 on the SIMT units.  No product goes to cuBLAS, and no
-(B, heads, R, R) tensor reaches device memory.
+cores, in f32 on the SIMT units.  The attention runs on the tensor cores
+in both dtypes (in f32 in 3xTF32, counting ``attention_tf32x3``).  No
+product goes to cuBLAS, and no (B, heads, R, R) tensor reaches device
+memory.
 
 The layer: per batch row b of the call, q/k/v projections, per head
 softmax(q_h k_h^T / sqrt(D)) with dropout on the probs, the output

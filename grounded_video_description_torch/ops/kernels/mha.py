@@ -5,10 +5,11 @@ Replaces ``grounded_video_description_tpu/ops/pallas/mha.py
 ::flash_self_attention``.  No second attention body: on the card this is
 K4's forward kernel with dropout compiled out, one head as wide as the
 input (n_heads 1), no score scale (the caller pre-scales q) and no
-log-sum-exp written; the C entry is ``gvd_flash_self_attention``.  f32
-runs the SIMT forward of ``csrc/attention_train.cu``, bf16 the
-tensor-core forward of ``csrc/attention_mma.cu`` (q, k, v repacked to
-(N, 1, Rt, dp) in scratch first).  The obj_interact encoder calls it with
+log-sum-exp written; the C entry is ``gvd_flash_self_attention``.  q,
+k, v are repacked to (N, 1, Rt, dp) in scratch first; f32 then runs the
+3xTF32 tensor-core forward of ``csrc/attention_tf32x3.cu`` (one count
+of ``TF32_ROUTE`` beside the kernel's), bf16 the tensor-core forward of
+``csrc/attention_mma.cu``.  The obj_interact encoder calls it with
 q, k, v of (B * 6, R, 171): its heads zero-padded to one width, as the
 JAX package splits them.
 
@@ -23,7 +24,7 @@ import torch
 
 from grounded_video_description_torch.ops.kernels import _build
 from grounded_video_description_torch.ops.kernels.attention_train import (
-    MAX_HEAD, packed_scratch)
+    MAX_HEAD, count_route, packed_scratch)
 
 
 def flash_self_attention_plain(q: torch.Tensor, k: torch.Tensor,
@@ -55,7 +56,8 @@ def flash_self_attention(q: torch.Tensor, k: torch.Tensor,
     scratch = packed_scratch(3, q, 1)
     code = _build.lib().gvd_flash_self_attention(
         _build.dtype_code(q), q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        out.data_ptr(), _build.ptr(scratch), N, R, d, _build.stream_of(q))
+        out.data_ptr(), scratch.data_ptr(), N, R, d, _build.stream_of(q))
     _build.check(code, "flash_self_attention")
     _build.launches["flash_self_attention"] += 1
+    count_route(q)
     return out

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Profile one bf16 train step, or one greedy batch, of the PyTorch port
-on one NVIDIA GPU.
+"""Profile one train step, or one greedy batch, of the PyTorch port on one
+NVIDIA GPU, in bf16 or f32.
 
     python3 profile_step.py [--path K5 --path K4 --path serve ...]
                             [--dtype bfloat16 --dtype float32]
@@ -13,9 +13,10 @@ warm-up call, and prints the call's host seconds, the device-busy
 seconds, and the device time of K2, K1's GEMMs, K1's attention, K1's
 LayerNorms and K3, and the largest kernels.
 
-For each path (chip_smoke.py's ``TRAIN_PATHS``: K5, K4, plain) it builds
-the flagship training configuration in bf16 (chip_smoke.py's
-``train_config``: batch 240 in 8 microbatches, the flagship dropout),
+For each path (chip_smoke.py's ``TRAIN_PATHS``: K5, K4, plain) and each
+``--dtype`` it builds the flagship training configuration in that dtype
+(chip_smoke.py's ``train_config``: batch 240 in 8 microbatches, the
+flagship dropout),
 random weights from a seeded generator, runs one warm-up step, then one
 step under ``torch.profiler`` with CUDA activity only, and prints:
 the step's host seconds, the device-busy seconds (the union of the kernel
@@ -39,9 +40,12 @@ import sys
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-# kernel names (csrc/attention_train.cu, attention_mma.cu) of the attention
-ATTENTION = ("fwd_kernel", "bwd_kv_kernel", "bwd_q_kernel", "delta_kernel",
-             "pack_kernel")
+# kernel names of the attention: the repack, the forward and the two
+# backward kernels in bf16 (csrc/attention_mma.cu) and f32 (3xTF32,
+# csrc/attention_tf32x3.cu: its dQ kernel is bwd_dq_kernel; before it the
+# SIMT kernels of csrc/attention_train.cu), and delta_kernel
+ATTENTION = ("fwd_kernel", "bwd_kv_kernel", "bwd_q_kernel", "bwd_dq_kernel",
+             "delta_kernel", "pack_kernel")
 # K5's other kernels (csrc/encoder_layer_train.cu) and K1's GEMM (the
 # names of this tree and of the trees before it)
 K1_GEMM = ("gemm_kernel", "gemm_bf16_wmma_kernel", "gemm_f32_kernel",
@@ -121,7 +125,7 @@ def profile_serve(dtype: str, base, state, dev):
             "top": [(k, t / 1e6) for k, t in by_name.most_common(12)]}
 
 
-def profile(path: str, state, dev):
+def profile(path: str, dtype: str, state, dev):
     import torch
     from torch.profiler import ProfilerActivity, profile as torch_profile
     from grounded_video_description_torch.data.synthetic import (
@@ -131,7 +135,7 @@ def profile(path: str, state, dev):
     from grounded_video_description_torch.models import GVDModel
     from chip_smoke import TRAIN_PATHS, train_config
 
-    cfg = train_config().replace(dtype="bfloat16", **TRAIN_PATHS[path])
+    cfg = train_config().replace(dtype=dtype, **TRAIN_PATHS[path])
     model = GVDModel(cfg)
     model.load_state_dict(state)
     tr = Trainer(cfg, model.to(dev))
@@ -149,7 +153,8 @@ def profile(path: str, state, dev):
     rest = sum(by_name[n] for n in K5_REST) / 1e6
     del tr, model
     torch.cuda.empty_cache()
-    return {"path": path, "step_s": step_s, "device_busy_s": busy,
+    return {"path": path, "dtype": dtype, "step_s": step_s,
+            "device_busy_s": busy,
             "busy_share": busy / step_s, "kernels": n_kernels,
             "attention_s": attn, "k5_other_s": rest,
             "top": [(n, t / 1e6) for n, t in by_name.most_common(12)]}
@@ -161,7 +166,7 @@ def main() -> int:
                     choices=["K5", "K4", "plain", "serve"])
     ap.add_argument("--dtype", action="append",
                     choices=["bfloat16", "float32"],
-                    help="the serve path's dtypes (default bfloat16)")
+                    help="the dtypes of every path (default bfloat16)")
     ap.add_argument("--root", default=HERE)
     ap.add_argument("--tag", default="tree")
     ap.add_argument("--out", help="a directory for the JSON summaries")
@@ -214,18 +219,21 @@ def main() -> int:
                             "w") as f:
                         json.dump(r, f, indent=1)
             continue
-        r = profile(path, state, dev)
-        r.update(tag=args.tag, device=smi)
-        print(f"[{args.tag}] bf16 step {path}: {r['step_s']:.3f} s, device "
-              f"busy {r['device_busy_s']:.3f} s ({100 * r['busy_share']:.1f}"
-              f"%), {r['kernels']} kernels; attention {r['attention_s']:.3f}"
-              f" s, K5's other kernels {r['k5_other_s']:.3f} s; top: "
-              + ", ".join(f"{n} {t:.3f}" for n, t in r["top"][:8]),
-              flush=True)
-        if args.out:
-            with open(os.path.join(args.out, f"profile-{args.tag}-{path}"
-                                   ".json"), "w") as f:
-                json.dump(r, f, indent=1)
+        for dt in args.dtype or ["bfloat16"]:
+            r = profile(path, dt, state, dev)
+            r.update(tag=args.tag, device=smi)
+            print(f"[{args.tag}] {dt} step {path}: {r['step_s']:.3f} s, "
+                  f"device busy {r['device_busy_s']:.3f} s "
+                  f"({100 * r['busy_share']:.1f}%), {r['kernels']} kernels; "
+                  f"attention {r['attention_s']:.3f} s, K5's other kernels "
+                  f"{r['k5_other_s']:.3f} s; top: "
+                  + ", ".join(f"{n} {t:.3f}" for n, t in r["top"][:8]),
+                  flush=True)
+            if args.out:
+                with open(os.path.join(
+                        args.out, f"profile-{args.tag}-{path}-{dt}.json"),
+                        "w") as f:
+                    json.dump(r, f, indent=1)
     return 0
 
 

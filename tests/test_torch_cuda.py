@@ -29,8 +29,9 @@ from grounded_video_description_torch.ops.kernels.encoder_layer import (
 from grounded_video_description_torch.ops.kernels.region_attention import (
     fused_region_attention, fused_region_attention_plain)
 from grounded_video_description_torch.ops.kernels.attention_train import (
-    MAX_HEAD, MMA_TILE, mha_probs_dropout, mha_probs_dropout_hybrid,
-    mha_probs_dropout_plain, pack_heads, pack_heads_plain, packed_width)
+    MAX_HEAD, MMA_TILE, TF32_ROUTE, mha_probs_dropout,
+    mha_probs_dropout_hybrid, mha_probs_dropout_plain, pack_heads,
+    pack_heads_plain, packed_width)
 from grounded_video_description_torch.ops.kernels.decode_scan import (
     greedy_decode_fused, greedy_decode_fused_plain)
 from grounded_video_description_torch.ops.kernels.mha import (
@@ -243,11 +244,11 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     assert not _build.launches
 
 
-def _k4_inputs(dev, dtype, seed, B, D):
-    """(B, 300, D): R = 300 not a multiple of the 64-row tiles (Rp = 384),
+def _k4_inputs(dev, dtype, seed, B, D, R=300):
+    """(B, R, D): R = 300 not a multiple of the 64-row tiles (Rp = 384),
     and a random output cotangent."""
     g = torch.Generator(device=dev).manual_seed(seed)
-    q, k, v, w = (torch.randn(B, 300, D, generator=g, device=dev)
+    q, k, v, w = (torch.randn(B, R, D, generator=g, device=dev)
                   for _ in range(4))
     return [t.to(dtype) for t in (q, k, v)], w.to(dtype)
 
@@ -261,8 +262,8 @@ def _k4_run(fn, qkv, w, seed, drop):
 
 
 # (B, D) in six heads: 16 wide; the flagship's 171 x 5 + 169; 20 wide (a
-# width that is no multiple of 16)
-K4_SHAPES = [(3, 96), (2, 1024), (3, 120)]
+# width that is no multiple of 16); 192 wide (the widest packed width)
+K4_SHAPES = [(3, 96), (2, 1024), (3, 120), (1, 1152)]
 
 
 @pytest.mark.cuda
@@ -272,9 +273,9 @@ K4_SHAPES = [(3, 96), (2, 1024), (3, 120)]
 def test_attention_train_kernel(dev, shape, dtype, drop):
     """K4 forward and q/k/v gradients against the plain twin's autograd on
     the same seed and masks; f32 within 1e-4 (sums of 300 terms in another
-    order), bf16 at the bf16 attention's bars.  The hybrid schedule (plain
-    forward, kernel backward) too, and a second call gives the same
-    bits."""
+    order; every f32 launch on the 3xTF32 route), bf16 at the bf16
+    attention's bars.  The hybrid schedule (plain forward, kernel
+    backward) too, and a second call gives the same bits."""
     qkv, w = _k4_inputs(dev, dtype, 5, *shape)
     seed = torch.tensor([0xDEADBEEF], device=dev)
     ref = _k4_run(mha_probs_dropout_plain, qkv, w, seed, drop)
@@ -284,6 +285,8 @@ def test_attention_train_kernel(dev, shape, dtype, drop):
     torch.cuda.synchronize()
     assert _build.launches["attention_train_fwd"] == 2
     assert _build.launches["attention_train_bwd"] == 3
+    assert _build.launches[TF32_ROUTE] == (5 if dtype == torch.float32
+                                           else 0)
     for name, a, b, c, r in zip(("out", "dq", "dk", "dv"), got, again, hyb,
                                 ref):
         assert torch.equal(a, b), name
@@ -292,16 +295,36 @@ def test_attention_train_kernel(dev, shape, dtype, drop):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("drop", [0.0, 0.2])
+def test_attention_train_kernel_flagship_depth(dev, drop):
+    """f32 K4 at the flagship's heads and depth, (2, 1000, 1024) in six
+    heads (171 x 5 + 169): output and q/k/v gradients within 1e-4 of the
+    plain twin's autograd (chip_smoke's bar), on the 3xTF32 route, and a
+    second call gives the same bits."""
+    qkv, w = _k4_inputs(dev, torch.float32, 6, 2, 1024, R=1000)
+    seed = torch.tensor([0x9E3779B9], device=dev)
+    ref = _k4_run(mha_probs_dropout_plain, qkv, w, seed, drop)
+    got = _k4_run(mha_probs_dropout, qkv, w, seed, drop)
+    again = _k4_run(mha_probs_dropout, qkv, w, seed, drop)
+    torch.cuda.synchronize()
+    assert _build.launches[TF32_ROUTE] == 4
+    for name, a, b, r in zip(("out", "dq", "dk", "dv"), got, again, ref):
+        assert torch.equal(a, b), name
+        assert float((a - r).abs().max()) <= 1e-4, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("shape", [(3, 300, 96, 6), (2, 300, 1024, 6),
                                    (4, 300, 171, 1)])
-def test_pack_heads_kernel(dev, shape):
-    """The bf16 attention's repack kernel equals its plain version bit for
-    bit (zero pads, up to four tensors), at the library's packed width;
-    the repack entry counts no launch (the attention runs the repack
-    inside its own)."""
+def test_pack_heads_kernel(dev, shape, dtype):
+    """The attention's repack kernel equals its plain version bit for bit
+    in both dtypes (zero pads, up to four tensors), at the library's
+    packed width; the repack entry counts no launch (the attention runs
+    the repack inside its own)."""
     B, R, D, H = shape
     g = torch.Generator(device=dev).manual_seed(10)
-    xs = [torch.randn(B, R, D, generator=g, device=dev).to(torch.bfloat16)
+    xs = [torch.randn(B, R, D, generator=g, device=dev).to(dtype)
           for _ in range(4)]
     got = pack_heads(xs, H)
     torch.cuda.synchronize()
@@ -370,6 +393,9 @@ def test_encoder_layer_train_kernel(dev, dtype, drop):
     assert _build.launches["encoder_layer_train_fwd"] == 2
     assert _build.launches["encoder_layer_train_bwd"] == 2
     assert not _build.launches["attention_train_fwd"]
+    # its attention: f32 on the 3xTF32 route, forward and backward
+    assert _build.launches[TF32_ROUTE] == (4 if dtype == torch.float32
+                                           else 0)
     for i, (a, b, r) in enumerate(zip(got, again, ref)):
         assert torch.equal(a, b), i
         assert a.dtype == r.dtype and a.shape == r.shape, i
@@ -389,7 +415,8 @@ K5_ROUTES = {torch.float32: ("k5_gemm_simt", "k5_gemm_tc"),
 def test_encoder_layer_train_gemm_route(dev, dtype):
     """One K5 forward and backward runs each of its products on the
     compute dtype's GEMM route (bf16: all on the tensor cores, none on
-    SIMT), six forward and twelve backward."""
+    SIMT), six forward and twelve backward; in f32 its attention counts
+    the 3xTF32 route once each way."""
     from grounded_video_description_torch.ops.kernels import (
         encoder_layer_train as k5)
     enc, x, w = _k5_setup(dev, dtype)
@@ -397,9 +424,11 @@ def test_encoder_layer_train_gemm_route(dev, dtype):
     _k5_run(k5.fused_encoder_layer_train, enc, x, w, seed, 0.2)
     torch.cuda.synchronize()
     route, other = K5_ROUTES[dtype]
-    assert dict(_build.launches) == {
-        "encoder_layer_train_fwd": 1, "encoder_layer_train_bwd": 1,
-        route: k5.FWD_GEMMS + k5.BWD_GEMMS}
+    want = {"encoder_layer_train_fwd": 1, "encoder_layer_train_bwd": 1,
+            route: k5.FWD_GEMMS + k5.BWD_GEMMS}
+    if dtype == torch.float32:
+        want[TF32_ROUTE] = 2
+    assert dict(_build.launches) == want
     assert not _build.launches[other]
 
 
@@ -542,8 +571,8 @@ def test_decode_scan_kernel(dev, dtype):
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_flash_self_attention_kernel(dev, dtype):
     """K7 at R = 300 (no multiple of the 64-key tiles) and d = 171 (an odd
-    row stride): f32 within 1e-5, bf16 at the bf16 attention's bars; a
-    second launch gives the same bits."""
+    row stride): f32 within 1e-5 (on the 3xTF32 route), bf16 at the bf16
+    attention's bars; a second launch gives the same bits."""
     g = torch.Generator(device=dev).manual_seed(9)
     q, k, v = (torch.randn(4, 300, 171, generator=g, device=dev).to(dtype)
                for _ in range(3))
@@ -553,6 +582,8 @@ def test_flash_self_attention_kernel(dev, dtype):
     again = flash_self_attention(q, k, v)
     torch.cuda.synchronize()
     assert _build.launches["flash_self_attention"] == 2
+    assert _build.launches[TF32_ROUTE] == (2 if dtype == torch.float32
+                                           else 0)
     assert got.dtype == dtype and got.shape == (4, 300, 171)
     assert torch.equal(got, again)
     assert _attention_within(got, ref, dtype, f32_atol=1e-5)
