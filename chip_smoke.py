@@ -38,9 +38,11 @@ one JSON line with a row per kernel and dtype (f32, bf16): its launches
 on the main path in that dtype, its error against the plain version, its
 time, its plain version's, its bound and the library call's (the K4
 rows also the time of the repack that its tensor-core kernels run
-first; f32 K4, K5's attention and K7 run in 3xTF32, and their launches
-also count that route, ``attention_tf32x3``), and as the last line
-``{"ok": true, "device": {...}}``.
+first; f32 K4, K5's attention, K7 and K1's attention run in 3xTF32, and
+their launches also count that route, ``attention_tf32x3``; K1's rows
+also its QKV GEMM's TFLOP/s beside cuBLAS's; K6's rows also the
+streaming floor and the split of a decode by phase), and as the last
+line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -89,7 +91,8 @@ def max_err(a, b) -> float:
 # each, at 494.7 TFLOP/s TF32)
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "tf32x3": 494.7e12 / 3}
 PEAK_BYTES = 3.35e12
-# the f32 attention's route (K4, K5's attention, K7), counted per launch
+# the f32 attention's route (K4, K5's attention, K7, K1's attention),
+# counted per launch
 TF32_ROUTE = "attention_tf32x3"
 
 
@@ -400,11 +403,12 @@ def phase_encoder_layer(dev, results):
             gemm_ms = time_ms(lambda: _gemm(a, wqkv, None, relu=False), 5)
             lib_ms = time_ms(lambda: F.linear(a, wqkv), 5)
             qkv_flops = 2 * a.shape[0] * wqkv.shape[0] * a.shape[1]
+            gemm_tflops = qkv_flops / gemm_ms / 1e9
+            lib_tflops = qkv_flops / lib_ms / 1e9
             print(f"K1 GEMM {name} (100000 x 3072 x 1024): err "
                   f"{e_gemm:.3e}; kernel {gemm_ms:.3f} ms "
-                  f"({qkv_flops / gemm_ms / 1e9:.1f} TFLOP/s), cuBLAS "
-                  f"{lib_ms:.3f} ms ({qkv_flops / lib_ms / 1e9:.1f} TFLOP/s)",
-                  flush=True)
+                  f"({gemm_tflops:.1f} TFLOP/s), cuBLAS "
+                  f"{lib_ms:.3f} ms ({lib_tflops:.1f} TFLOP/s)", flush=True)
             del a, c_k, c_p
 
             x = x0.to(dt)
@@ -426,9 +430,7 @@ def phase_encoder_layer(dev, results):
             _build.reset_launches()
             encoder_apply(enc, xin, n_heads=6, use_kernel=True)
             route = dict(_build.launches)
-            want = {"encoder_layer": 2}
-            if dt == torch.bfloat16:     # the tensor-core attention
-                want["encoder_layer_attention_mma"] = 2
+            want = k1_counts(name, 2)
             check(route == want, f"K1 {name} launches {route} != {want}")
             ms = time_ms(lambda: encoder_apply(enc, xin, n_heads=6,
                                                use_kernel=True), 3)
@@ -436,8 +438,9 @@ def phase_encoder_layer(dev, results):
                                3)
             library_ms = time_ms(lambda: k1_library(xin, weights, 6), 3)
             n_w = sum(nbytes(*w) for w in weights)
+            # f32: the products and the attention in 3xTF32
             b = bound(2 * layer_flops(B, R, D_RNN, D_RNN // 2),
-                      2 * nbytes(xin) * 2 + n_w, name)
+                      2 * nbytes(xin) * 2 + n_w, attention_rate(name))
             print(f"K1 encoder_layer x2 {name}: per-layer err "
                   f"{[f'{e:.3e}' for e in errs]}; kernel {ms:.3f} ms, "
                   f"plain {plain_ms:.3f} ms, bound {b['bound_ms']:.3f} ms "
@@ -446,7 +449,21 @@ def phase_encoder_layer(dev, results):
                   f"{library_ms:.3f} ms; launches {route}", flush=True)
             results[("encoder_layer", name)] = dict(
                 max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
-                library_ms=library_ms, **b)
+                library_ms=library_ms, gemm_tflops=gemm_tflops,
+                library_gemm_tflops=lib_tflops, **b)
+
+
+def k1_counts(dtype: str, layers: int) -> dict:
+    """K1's launch counts for ``layers`` layer calls at the flagship's
+    heads of 171: each layer, and its attention's route (the tensor-core
+    forward in either dtype; f32 also counts the 3xTF32 route)."""
+    from grounded_video_description_torch.ops.kernels.encoder_layer import (
+        ATTENTION_ROUTES)
+    route = "mma" if dtype == "bfloat16" else "tf32x3"
+    counts = {"encoder_layer": layers, ATTENTION_ROUTES[route]: layers}
+    if dtype == "float32":
+        counts[TF32_ROUTE] = layers
+    return counts
 
 
 def k1_library(x, weights, heads):
@@ -1093,12 +1110,11 @@ def phase_end_to_end(dev, base, state):
             torch.cuda.synchronize()
             counts = dict(_build.launches)
             if kernels:
-                # K2: 2 BiGRU layers per encode; K1: 2 layers (in bf16 each
-                # on the tensor-core attention); K3: 20 steps
-                expect = {"birnn_recurrence": 2, "encoder_layer": 2,
-                          "region_attention": base.seq_length}
-                if dtype == "bfloat16":
-                    expect["encoder_layer_attention_mma"] = 2
+                # K2: 2 BiGRU layers per encode; K1: 2 layers, each on its
+                # tensor-core attention; K3: 20 steps
+                expect = {"birnn_recurrence": 2,
+                          "region_attention": base.seq_length,
+                          **k1_counts(dtype, 2)}
                 check(counts == expect,
                       f"{dtype} kernel run launches {counts} != {expect}")
                 launches[dtype] = counts
@@ -1135,8 +1151,9 @@ def phase_decode_kernel(dev, results, base, state):
     import torch
     from grounded_video_description_torch.data.synthetic import synthetic_batch
     from grounded_video_description_torch.models import batch_to_tensors
+    from grounded_video_description_torch.ops.kernels import _build
     from grounded_video_description_torch.ops.kernels.decode_scan import (
-        greedy_decode_fused, greedy_decode_fused_plain)
+        GEMM_ROUTES, greedy_decode_fused, greedy_decode_fused_plain)
 
     batch = batch_to_tensors(synthetic_batch(base, B, seed=0), dev)
     g = torch.Generator(device=dev).manual_seed(17)
@@ -1147,9 +1164,14 @@ def phase_decode_kernel(dev, results, base, state):
         m = model_of(base.replace(dtype=dt, use_pallas=False), state, dev)
         with torch.no_grad():
             enc = m.encode(batch)
+            _build.reset_launches()
             got = greedy_decode_fused(m, enc, pnt)
             ref = greedy_decode_fused_plain(m, enc, pnt)
             torch.cuda.synchronize()
+            # one launch, its GEMM phases on the dtype's tensor-core route
+            want = {"decode_scan": 1, GEMM_ROUTES[getattr(torch, dt)]: 1}
+            check(dict(_build.launches) == want,
+                  f"K6 {dt} launches {dict(_build.launches)} != {want}")
             for name, a, b in zip(("seq", "logprobs", "att2"), got, ref):
                 check(a.dtype == b.dtype and a.shape == b.shape,
                       f"K6 {dt} {name}: {a.dtype} {tuple(a.shape)} vs "
@@ -1187,28 +1209,45 @@ def phase_decode_kernel(dev, results, base, state):
                                3)
             banks = [enc[k] for k in ("conv_feats", "p_conv_feats",
                                       "pool_feats", "p_pool_feats")]
-            b = bound(decode_flops(m, B, T_FRAMES, R, L),
+            gemm_f, attn_f, weights = decode_work(m, B, T_FRAMES, R, L)
+            # the products at the tensor cores' rate for the dtype (f32 in
+            # 3xTF32), the attention terms at the SIMT f32 rate
+            b = bound({attention_rate(dt): gemm_f, "float32": attn_f},
                       nbytes(*banks, pnt, *m.core.parameters(),
                              *m.logit.parameters(), *m.embed.parameters(),
                              *got), dt)
+            # what the kernel streams: the banks and the products' weights
+            # once a step
+            floor_ms = 1e3 * L * (nbytes(*banks) + weights
+                                  * banks[0].element_size()) / PEAK_BYTES
+            phases, split = decode_phase_split(m, enc, pnt)
         print(f"K6 decode_scan {dt}: token agreement {agree:.4f}, logprob "
               f"err {e_lp:.3e}, grounding logit err {e_grd:.3e}; kernel "
               f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
-              f"{b['bound_ms']:.3f} ms ({b['bound_by']})", flush=True)
+              f"{b['bound_ms']:.3f} ms ({b['bound_by']}), streaming floor "
+              f"{floor_ms:.3f} ms; launches {want}", flush=True)
+        print(f"K6 {dt} split of a decode (ms, block 0's %globaltimer, "
+              f"median of 3): " + ", ".join(f"{k} {v:.3f}"
+                                            for k, v in split.items()),
+              flush=True)
+        print(f"K6 {dt} by phase (ms a decode, its barriers taken out): "
+              + ", ".join(f"{k} {v:.3f}" for k, v in phases.items()),
+              flush=True)
         results[("decode_scan", dt)] = dict(
             max_abs_err=max(e_lp, e_grd), ms=ms, plain_ms=plain_ms,
-            library_ms=None, **b)
+            library_ms=None, stream_floor_ms=floor_ms, phase_ms=split, **b)
         del m, enc, got, ref
         torch.cuda.empty_cache()
 
 
-def decode_flops(model, B_, T_, R_, L):
-    """Operations of a greedy decode of L steps: per step and row, the two
-    LSTM cells (the fc part of the attention LSTM's input is computed once,
-    before the steps), both h2att projections and the vocabulary head, 2
-    per multiply-add; the temporal and region attentions (3 ops per score
-    column, 2 per weighted-sum column).  The next-token embedding is a
-    gather, not counted."""
+def decode_work(model, B_, T_, R_, L):
+    """A greedy decode of L steps: (the products' operations, the
+    attentions' operations, the products' weight elements).  Per step and
+    row the two LSTM cells (the fc part of the attention LSTM's input is
+    computed once, before the steps), both h2att projections and the
+    vocabulary head, 2 per multiply-add; the temporal and region
+    attentions, 3 ops per score column and 2 per weighted-sum column.  The
+    next-token embedding is a gather, not counted."""
     core, H = model.core, model.cfg.rnn_size
     A = model.cfg.att_hid_size
     mats = (core.att_lstm.weight_ih.numel() - 4 * H * H
@@ -1217,8 +1256,48 @@ def decode_flops(model, B_, T_, R_, L):
             + core.lang_lstm.weight_hh.numel()
             + core.attention.h2att.weight.numel()
             + core.attention2.h2att.weight.numel()
-            + model.logit.weight.numel())
-    return L * (2 * B_ * mats + B_ * (T_ + R_) * (3 * A + 2 * H))
+            + model.cfg.vocab_size * H)
+    return (L * 2 * B_ * mats, L * B_ * (T_ + R_) * (3 * A + 2 * H), mats)
+
+
+# K6's ten phases a step (csrc/decode_scan.cu), and how the split groups
+# them: the four products, their split sums' epilogues, the two bank
+# phases and the finish
+DECODE_PHASES = ("att GEMM", "att cell", "h2att GEMM", "h2att bias",
+                 "scores", "sums", "lang GEMM", "lang cell", "logit GEMM",
+                 "finish")
+DECODE_GROUPS = {"GEMM": (0, 2, 6, 8), "GEMM epilogues": (1, 3, 7),
+                 "banks": (4, 5), "finish": (9,)}
+
+
+def decode_phase_split(m, enc, pnt, runs: int = 3):
+    """K6's decode split by phase from block 0's %globaltimer stamps
+    (``greedy_decode_timed``): each phase's interval ends at the barrier
+    after it, so a second launch that runs only the barriers gives their
+    cost, taken out of every interval.  Returns (ms a decode by phase, ms
+    by group with the barriers and the whole), medians of ``runs``."""
+    import torch
+    from grounded_video_description_torch.ops.kernels.decode_scan import (
+        PHASES, greedy_decode_timed)
+    L = m.cfg.seq_length
+
+    def per_phase(barriers_only):
+        runs_ms = []
+        for _ in range(runs):
+            st = greedy_decode_timed(m, enc, pnt,
+                                     barriers_only=barriers_only).cpu()
+            d = (st[1:] - st[:-1]).double().reshape(L, PHASES) / 1e6
+            runs_ms.append(d.sum(0))
+        return torch.stack(runs_ms).median(0).values
+
+    full, bars = per_phase(False), per_phase(True)
+    work = full - bars
+    phases = {name: float(work[i]) for i, name in enumerate(DECODE_PHASES)}
+    split = {k: sum(float(work[i]) for i in idx)
+             for k, idx in DECODE_GROUPS.items()}
+    split[f"{PHASES * L} barriers"] = float(bars.sum())
+    split["whole"] = float(full.sum())
+    return phases, split
 
 
 def phase_flash_mha(dev, results):
@@ -1345,6 +1424,8 @@ def phase_eval(dev, base, state):
     from grounded_video_description_torch.engine.evaluator import (
         Evaluator, grounding_eval_cfg)
     from grounded_video_description_torch.ops.kernels import _build
+    from grounded_video_description_torch.ops.kernels.decode_scan import (
+        GEMM_ROUTES)
 
     vocab = eval_vocab(base)
     batches = []
@@ -1414,6 +1495,8 @@ def phase_eval(dev, base, state):
                     want = dict(per_batch[call]) if kernels else {}
                     if kernels and dtype == "float32":   # K7's route
                         want[TF32_ROUTE] = want["flash_self_attention"]
+                    if kernels and "decode_scan" in want:   # K6's GEMMs
+                        want[GEMM_ROUTES[getattr(torch, dtype)]] = 1
                     check(got == [want] * len(batches),
                           f"{dtype} kernels={kernels} {call} launches per "
                           f"batch {got} != {want}")
@@ -1470,6 +1553,8 @@ def phase_driver(dev, state):
     from grounded_video_description_torch.engine.trainer import Trainer
     from grounded_video_description_torch.models import GVDModel
     from grounded_video_description_torch.ops.kernels import _build
+    from grounded_video_description_torch.ops.kernels.decode_scan import (
+        GEMM_ROUTES)
     from grounded_video_description_torch.utils.logging import MetricLogger
 
     base = train_config().replace(
@@ -1487,6 +1572,7 @@ def phase_driver(dev, state):
     layers = 2 * base.grad_accum          # 2 layers x 8 microbatches
     per_epoch = {"encoder_layer_train_fwd": layers,
                  "encoder_layer_train_bwd": layers, "decode_scan": 1,
+                 GEMM_ROUTES[torch.bfloat16]: 1,
                  "flash_self_attention": 4, "birnn_recurrence": 4,
                  "region_attention": base.seq_length,
                  **k5_gemm_counts("bfloat16", layers)}
@@ -1727,7 +1813,8 @@ def main() -> int:
                    "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                    "dtype": dt}
             for extra in ("repack_ms", "exchange_ms", "gemm_tflops",
-                          "bound_rates"):
+                          "library_gemm_tflops", "bound_rates",
+                          "stream_floor_ms", "phase_ms"):
                 if extra in r:
                     row[extra] = r[extra]
             kernels.append(row)

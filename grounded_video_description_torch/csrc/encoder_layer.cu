@@ -11,133 +11,59 @@
 // What bounds it on an H100: arithmetic.  At B=100, R=1000, D=1024 a layer
 // is ~1.05 TFLOP of projections and ~0.4 TFLOP of attention, against ~0.4
 // GB of activations; the (B, 6, R, R) scores would add 2.4 GB per layer of
-// f32 traffic if they were written out.  Design:
+// f32 traffic if they were written out.  In f32 both run on the tensor
+// cores in 3xTF32 (csrc/tf32x3.cuh), 164.9 TFLOP/s of f32-accurate
+// products against the SIMT units' 67.  Design:
 //  * gvd_gemm: C = A W^T (+bias, ReLU) with W in PyTorch's (out, in)
 //    layout, 128 x 128 output tiles, f32 accumulation.  It serves the QKV
-//    (one product with N = 3D), output and FFN projections.
-//    - bf16 (K a multiple of 8; the wrapper zero-pads K otherwise): on the
-//      tensor cores, mma.sync.m16n8k16 with operands from shared memory by
-//      ldmatrix, fed by a three-stage ring of 128 x 64 tiles that cp.async
-//      fills two tiles ahead of the products (two blocks an SM); 8 warps
-//      of 64 x 32 outputs; the epilogue adds the bias, applies the ReLU
-//      and rounds to bf16 straight from the accumulator fragments.  Of
-//      the tilings tried on an H100 (BK 32 with 4 stages, BK 64 with 3
-//      or 4, 128 x 256 tiles with BK 32 or 64) this one was fastest.
-//    - f32: on the SIMT units, an 8 x 8 block of outputs per thread from
-//      16-byte shared-memory reads, K in steps of 16 staged by cp.async
-//      into two buffers, the next step's tiles loading during the current
-//      step's products.
-//  * attention, heads as column ranges of the qkv buffer:
-//    - bf16: the tensor-core forward of csrc/attention_mma.cu without
-//      dropout or log-sum-exp (as K7's bf16 launch), its repack reading q,
-//      k and v straight from the (B, R, 3D) qkv buffer at column offsets
-//      0, D, 2D with a row stride of 3D.  Scores and softmax stay f32 on
-//      the accumulators.
-//    - f32: gvd_attention's SIMT kernel below, flash-style: one block per
-//      (query tile of 64, head, batch row), each 64-key tile's scores in
-//      shared memory and registers, the softmax online over the tiles in
-//      f32, P V summed in registers, so no score reaches device memory.
-//      TF32 products would miss the f32 bars.
+//    (one product with N = 3D), output and FFN projections.  A and W are
+//    both K-major, so A is mma.sync's row operand and W its col operand as
+//    they lie, by ldmatrix from shared memory, fed by a three-stage ring
+//    that cp.async fills two tiles ahead of the products (two blocks an
+//    SM); 8 warps of 64 x 32 outputs; the epilogue adds the bias and
+//    applies the ReLU in f32 straight from the accumulator fragments.
+//    - bf16 (K a multiple of 8; the wrapper zero-pads K otherwise):
+//      mma.sync.m16n8k16, tiles 64 deep, rounded to bf16 at the store.  Of
+//      the tilings tried on an H100 (BK 32 with 4 stages, BK 64 with 3 or
+//      4, 128 x 256 tiles with BK 32 or 64) this one was fastest.
+//    - f32 (K a multiple of 4; the wrapper zero-pads K otherwise):
+//      mma.sync.m16n8k8 in 3xTF32, tiles 32 deep, each operand element
+//      split into hi + lo as its fragment is loaded, W's too (W split once
+//      a call into hi and lo copies, which would double its bytes in each
+//      stage, was not tried).  wgmma (TF32, both operands K-major from
+//      shared memory) would need hi and lo split into shared memory
+//      first; not tried yet.
+//  * attention, heads as column ranges of the qkv buffer: the tensor-core
+//    forwards without dropout or log-sum-exp (as K7's launches), their
+//    repack reading q, k and v straight from the (B, R, 3D) qkv buffer at
+//    column offsets 0, D, 2D with a row stride of 3D.  Scores and softmax
+//    stay f32 on the accumulators.
+//    - bf16: csrc/attention_mma.cu's forward.
+//    - f32: csrc/attention_tf32x3.cu's forward (3xTF32), for heads up to
+//      192, the widest packed width.  A head of 193-256 takes the SIMT
+//      kernel below (its own launch count): the 3xTF32 forward's 128-query
+//      tile at a packed width of 256 would need 266 KB of shared memory,
+//      past the 227 KB a block can have, and no configuration of the repo
+//      has such heads (the flagship's are 171).
 //  * gvd_residual_layer_norm: x + y, then the unbiased-std LayerNorm, one
 //    block per row, statistics in f32.
 
 #include "attention_mma.cuh"
 #include "common.cuh"
 #include "gemm_sm90.cuh"
+#include "tf32x3.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
 
 using gvd::cp_async16;
-using gvd::cp_async4;
 using gvd::cp_async_commit;
 using gvd::cp_async_wait;
 using gvd::ldsm_x4;
 using gvd::mma16816;
 
-// ------------------------------------------------------------- f32 GEMM --
-// C (M, N) = A (M, K) W (N, K)^T: 128 x 128 output tiles, 256 threads, each
-// thread an 8 x 8 block (two 4-row by two 4-column quarters 64 apart, so a
-// warp's shared-memory reads are conflict-free float4s), K in steps of 16.
-// The tiles are stored k-major (As[k][m]) so those reads are float4s; each
-// 4-byte cp.async writes one element to its transposed place.
-constexpr int BM = 128, BN = 128, BK = 16, GEMM_THREADS = 256;
-constexpr int SLD = BM + 4;        // row stride of a k-major tile
-
-__global__ void __launch_bounds__(GEMM_THREADS)
-gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ W,
-                const float* __restrict__ bias, float* __restrict__ C, int M,
-                int N, int K, int relu) {
-  __shared__ __align__(16) float As[2][BK][SLD];
-  __shared__ __align__(16) float Ws[2][BK][SLD];
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
-
-  // each operand tile is 128 rows x 16 k: lanes along k, so a warp reads
-  // two 64-byte row segments
-  auto load = [&](int st, int k0) {
-#pragma unroll
-    for (int i = 0; i < BM * BK / GEMM_THREADS; ++i) {
-      const int e = tid + i * GEMM_THREADS, r = e / BK, kk = e % BK;
-      const int gk = k0 + kk, gm = m0 + r, gn = n0 + r;
-      const bool ka = gm < M && gk < K, kw = gn < N && gk < K;
-      cp_async4(&As[st][kk][r], ka ? A + (size_t)gm * K + gk : A, ka);
-      cp_async4(&Ws[st][kk][r], kw ? W + (size_t)gn * K + gk : W, kw);
-    }
-  };
-
-  const int nk = (K + BK - 1) / BK;
-  load(0, 0);
-  cp_async_commit();
-  for (int kt = 0; kt < nk; ++kt) {
-    if (kt + 1 < nk) load((kt + 1) & 1, (kt + 1) * BK);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const int st = kt & 1;
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      float a[8], w[8];
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[st][kk][ty * 4]);
-      const float4 a1 =
-          *reinterpret_cast<const float4*>(&As[st][kk][64 + ty * 4]);
-      const float4 w0 = *reinterpret_cast<const float4*>(&Ws[st][kk][tx * 4]);
-      const float4 w1 =
-          *reinterpret_cast<const float4*>(&Ws[st][kk][64 + tx * 4]);
-      a[0] = a0.x; a[1] = a0.y; a[2] = a0.z; a[3] = a0.w;
-      a[4] = a1.x; a[5] = a1.y; a[6] = a1.z; a[7] = a1.w;
-      w[0] = w0.x; w[1] = w0.y; w[2] = w0.z; w[3] = w0.w;
-      w[4] = w1.x; w[5] = w1.y; w[6] = w1.z; w[7] = w1.w;
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] += a[i] * w[j];
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int m = m0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
-    if (m >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int n = n0 + (j < 4 ? tx * 4 + j : 64 + tx * 4 + j - 4);
-      if (n >= N) continue;
-      float v = acc[i][j];
-      if (bias != nullptr) v += bias[n];
-      if (relu) v = fmaxf(v, 0.0f);
-      C[(size_t)m * N + n] = v;
-    }
-  }
-}
+constexpr int GEMM_THREADS = 256;
 
 // ------------------------------------------------------------ bf16 GEMM --
 // TBM x TBN output tiles, 8 warps as 2 (rows) x 4 (columns), each warp
@@ -266,17 +192,134 @@ gemm_bf16_mma_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W,
   }
 }
 
-// ------------------------------------------------------------- attention --
-// One block per (query tile of BQ = 64, head, batch row), 256 threads seen
-// as a 16 x 16 grid (tq, tk).  Thread (tq, tk) owns queries 4 tq + i of the
-// tile: for the scores, keys tk + 16 j of each 64-key tile (a 4 x 4 block);
-// for P V, head dims 4 tk + 64 j + e (NV groups of 4).  Rows are stored
-// with a stride of 4 (mod 8) floats, so the 16-byte reads of 8 consecutive
-// threads hit distinct banks.  The softmax runs online over the key tiles
-// (running max m, normaliser l, accumulator rescaled by exp(m_old - m_new)),
-// so shared memory holds one score tile and two blocks fit on an SM.
+// ----------------------------------------------------- f32 GEMM, 3xTF32 --
+// The bf16 kernel's tiling in f32: K in steps of FBK through the same
+// ring, rows FLD = FBK + 4 floats apart (an odd number of 16-byte units,
+// so the 8 rows an ldmatrix reads hit distinct banks).  Per 16-deep step
+// a warp loads its W fragments (B of 32 columns, two 8-deep halves) once
+// and the A fragments of one m16 tile at a time, each split into hi + lo,
+// takes the step's six TF32 products into fresh accumulators and adds
+// them to its 4 x 4 running sums in f32 (mma3_n_set: the tensor cores'
+// truncating additions would drift over K).  Of the flushes tried on an
+// H100 (every 8 or 16 deep, one or two blocks an SM) this was fastest;
+// summing K in the tensor cores' accumulators alone ran faster still but
+// missed the f32 bar.
+constexpr int FBK = 32, FLD = FBK + 4;
+constexpr size_t TF32_GEMM_SMEM = (size_t)STAGES * (TBM + TBN) * FLD * 4;
+
+// K % 4 == 0, A and W 16-byte aligned.
+__global__ void __launch_bounds__(GEMM_THREADS, MMA_BLOCKS)
+gemm_tf32x3_kernel(const float* __restrict__ A, const float* __restrict__ W,
+                   const float* __restrict__ bias, float* __restrict__ C,
+                   int M, int N, int K, int relu) {
+  extern __shared__ __align__(16) float fsm[];
+  float* As = fsm;                         // STAGES x (TBM, FLD)
+  float* Bs = fsm + STAGES * TBM * FLD;    // STAGES x (TBN, FLD)
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp / 4, wn = warp % 4;
+  const int m0 = blockIdx.y * TBM, n0 = blockIdx.x * TBN;
+
+  // a stage: TBM (TBN) rows x FBK k of A (W) in 16-byte chunks
+  constexpr int CPR = FBK / 4;                 // chunks a row
+  auto load = [&](int st, int k0) {
+#pragma unroll
+    for (int c = 0; c < TBM * CPR / GEMM_THREADS; ++c) {
+      const int idx = tid + c * GEMM_THREADS, r = idx / CPR,
+                kc = (idx % CPR) * 4, gk = k0 + kc, gm = m0 + r, gn = n0 + r;
+      const bool oa = gm < M && gk < K, ow = gn < N && gk < K;
+      cp_async16(As + (st * TBM + r) * FLD + kc,
+                 oa ? A + (size_t)gm * K + gk : A, oa);
+      cp_async16(Bs + (st * TBN + r) * FLD + kc,
+                 ow ? W + (size_t)gn * K + gk : W, ow);
+    }
+  };
+
+  float acc[4][NT8][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < NT8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
+
+  const int nk = (K + FBK - 1) / FBK;
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < nk) load(s, s * FBK);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<STAGES - 2>();     // stage kt has landed
+    __syncthreads();                 // ... for every thread; stage kt - 1 free
+    const int nxt = kt + STAGES - 1;
+    if (nxt < nk) load(nxt % STAGES, nxt * FBK);
+    cp_async_commit();
+    const float* as = As + (kt % STAGES) * TBM * FLD;
+    const float* bs = Bs + (kt % STAGES) * TBN * FLD;
+#pragma unroll
+    for (int kk = 0; kk < FBK; kk += 16) {
+      gvd::FragB b0[NT8], b1[NT8];
+#pragma unroll
+      for (int j = 0; j < NT8; j += 2) {
+        gvd::load_b_nk2(b0 + j, bs, FLD, wn * WN + j * 8, kk, lane);
+        gvd::load_b_nk2(b1 + j, bs, FLD, wn * WN + j * 8, kk + 8, lane);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = wm * 64 + i * 16;
+        const gvd::FragA a0 = gvd::load_a(as, FLD, r, kk, lane);
+        const gvd::FragA a1 = gvd::load_a(as, FLD, r, kk + 8, lane);
+        float c[NT8][4];
+        gvd::mma3_n_set<NT8>(c, a0, b0);
+        gvd::mma3_n<NT8>(c, a1, b1);
+        gvd::add_n<NT8>(acc[i], c);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  // fragment (i, j): rows g and g + 8 (g = lane / 4), columns 2 (lane % 4)
+  // + {0, 1} of the m16n8 tile
+  const bool pairs = N % 2 == 0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = m0 + wm * 64 + i * 16 + (lane >> 2) + h * 8;
+      if (m >= M) continue;
+      float* crow = C + (size_t)m * N;
+#pragma unroll
+      for (int j = 0; j < NT8; ++j) {
+        const int n = n0 + wn * WN + j * 8 + (lane & 3) * 2;
+        if (n >= N) continue;
+        const float v0 = epilogue(acc[i][j][2 * h], bias, n, relu);
+        if (pairs) {
+          *reinterpret_cast<float2*>(crow + n) =
+              make_float2(v0, epilogue(acc[i][j][2 * h + 1], bias, n + 1,
+                                       relu));
+        } else {
+          crow[n] = v0;
+          if (n + 1 < N)
+            crow[n + 1] = epilogue(acc[i][j][2 * h + 1], bias, n + 1, relu);
+        }
+      }
+    }
+  }
+}
+
+// ------------------------------------------ f32 attention, heads 193-256 --
+// On the SIMT units, for the heads past the 3xTF32 forward's widest packed
+// width (see the note at the top).  One block per (query tile of BQ = 64,
+// head, batch row), 256 threads seen as a 16 x 16 grid (tq, tk).  Thread
+// (tq, tk) owns queries 4 tq + i of the tile: for the scores, keys tk + 16
+// j of each 64-key tile (a 4 x 4 block); for P V, head dims 4 tk + 64 j +
+// e (NV = 4 groups of 4).  Rows are stored with a stride of 4 (mod 8)
+// floats, so the 16-byte reads of 8 consecutive threads hit distinct
+// banks.  The softmax runs online over the key tiles (running max m,
+// normaliser l, accumulator rescaled by exp(m_old - m_new)), so shared
+// memory holds one score tile.
 constexpr int BQ = 64, QPT = BQ / 16, BKEY = 64, ATT_THREADS = 256;
-constexpr int MAX_HEAD = 256;                     // widest head: NV = 4
+constexpr int NV = 4, MAX_HEAD = 64 * NV;        // widest head
 constexpr int ST_LD = BKEY + 1;                   // score-tile row stride
 
 __host__ __device__ constexpr size_t attention_smem(int ld) {
@@ -284,12 +327,10 @@ __host__ __device__ constexpr size_t attention_smem(int ld) {
 }
 
 // qkv: (B, R, 3D) = [q | k | v]; head h spans columns [h*hs, min(h*hs+hs, D))
-// of each.  out: (B, R, D).  NV: 4-wide head-dim groups per thread in P V,
-// with dh <= 64 NV.
-template <typename T, int NV>
-__global__ void __launch_bounds__(ATT_THREADS, 2)   // two blocks per SM
-attention_kernel(const T* __restrict__ qkv, T* __restrict__ out, int R, int D,
-                 int hs, float inv_scale) {
+// of each.  out: (B, R, D).
+__global__ void __launch_bounds__(ATT_THREADS)
+attention_simt_kernel(const float* __restrict__ qkv, float* __restrict__ out,
+                      int R, int D, int hs, float inv_scale) {
   extern __shared__ __align__(16) float smem[];
   const int q0 = blockIdx.x * BQ, head = blockIdx.y, b = blockIdx.z;
   const int c0 = head * hs;
@@ -305,7 +346,7 @@ attention_kernel(const T* __restrict__ qkv, T* __restrict__ out, int R, int D,
   const int tid = threadIdx.x, tq = tid / 16, tk = tid % 16;
   const int lane = tid & 31, warp = tid >> 5;
   const size_t row_stride = 3 * (size_t)D;
-  const T* base = qkv + (size_t)b * R * row_stride + c0;
+  const float* base = qkv + (size_t)b * R * row_stride + c0;
 
   if (tid < BQ) {
     m_s[tid] = -INFINITY;
@@ -415,28 +456,27 @@ attention_kernel(const T* __restrict__ qkv, T* __restrict__ out, int R, int D,
     const int q = tq * QPT + i;
     if (q0 + q >= R) continue;
     const float inv_l = 1.0f / l_s[q];
-    T* orow = out + ((size_t)b * R + q0 + q) * D + c0;
+    float* orow = out + ((size_t)b * R + q0 + q) * D + c0;
 #pragma unroll
     for (int j = 0; j < NV; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int d = 4 * tk + 64 * j + e;
-        if (d < dh) orow[d] = gvd::from_f32<T>(acc[i][j][e] * inv_l);
+        if (d < dh) orow[d] = acc[i][j][e] * inv_l;
       }
   }
 }
 
-template <typename T, int NV>
-int launch_attention(const void* qkv, void* out, int B, int R, int D, int hs,
-                     float inv_scale, cudaStream_t s) {
+int launch_attention_simt(const void* qkv, void* out, int B, int R, int D,
+                          int hs, float inv_scale, cudaStream_t s) {
   const size_t smem = attention_smem(gvd::tile_ld(hs));
-  cudaError_t e = gvd::allow_smem(attention_kernel<T, NV>, smem);
+  cudaError_t e = gvd::allow_smem(attention_simt_kernel, smem);
   if (e != cudaSuccess) return (int)e;
   // torch.chunk makes ceil(D / hs) heads, which can be fewer than n_heads
   const int heads = (D + hs - 1) / hs;
   dim3 grid((R + BQ - 1) / BQ, heads, B);
-  attention_kernel<T, NV><<<grid, ATT_THREADS, smem, s>>>(
-      (const T*)qkv, (T*)out, R, D, hs, inv_scale);
+  attention_simt_kernel<<<grid, ATT_THREADS, smem, s>>>(
+      (const float*)qkv, (float*)out, R, D, hs, inv_scale);
   return (int)cudaGetLastError();
 }
 
@@ -487,17 +527,20 @@ extern "C" int gvd_gemm(int dtype, const void* A, const void* W,
         K, relu);
     return (int)cudaGetLastError();
   }
-  if (dtype != 0) return (int)cudaErrorInvalidValue;
-  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  gemm_f32_kernel<<<grid, GEMM_THREADS, 0, s>>>(
+  if (dtype != 0 || K % 4 != 0) return (int)cudaErrorInvalidValue;
+  cudaError_t e = gvd::allow_smem(gemm_tf32x3_kernel, TF32_GEMM_SMEM);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid((N + TBN - 1) / TBN, (M + TBM - 1) / TBM);
+  gemm_tf32x3_kernel<<<grid, GEMM_THREADS, TF32_GEMM_SMEM, s>>>(
       (const float*)A, (const float*)W, (const float*)bias, (float*)C, M, N,
       K, relu);
   return (int)cudaGetLastError();
 }
 
 // qkv (B, R, 3D) = [q | k | v], out (B, R, D).  bf16 runs the tensor-core
-// forward of csrc/attention_mma.cu (scratch: three packed (B, H, Rt, dp)
-// bf16 tensors, as for K7); f32 the SIMT kernel above (scratch unused).
+// forward of csrc/attention_mma.cu, f32 that of csrc/attention_tf32x3.cu
+// (scratch: three packed (B, H, Rt, dp) tensors of qkv's dtype, as for
+// K7); an f32 head of 193-256 the SIMT kernel above (scratch unused).
 extern "C" int gvd_attention(int dtype, const void* qkv, void* out,
                              void* scratch, int B, int R, int D, int n_heads,
                              float inv_scale, void* stream) {
@@ -510,12 +553,12 @@ extern "C" int gvd_attention(int dtype, const void* qkv, void* out,
                                    inv_scale, 0.0f, false, s);
   }
   if (dtype != 0 || hs > MAX_HEAD) return (int)cudaErrorInvalidValue;
-  switch ((hs + 63) / 64) {
-    case 1: return launch_attention<float, 1>(qkv, out, B, R, D, hs, inv_scale, s);
-    case 2: return launch_attention<float, 2>(qkv, out, B, R, D, hs, inv_scale, s);
-    case 3: return launch_attention<float, 3>(qkv, out, B, R, D, hs, inv_scale, s);
-    default: return launch_attention<float, 4>(qkv, out, B, R, D, hs, inv_scale, s);
-  }
+  if (gvd::packed_width(hs) == 0)
+    return launch_attention_simt(qkv, out, B, R, D, hs, inv_scale, s);
+  const float* q = (const float*)qkv;
+  return gvd::attention_fwd_f32(q, q + D, q + 2 * D, out, nullptr, nullptr,
+                                scratch, B, R, D, hs, 3 * D, 0u, 0, inv_scale,
+                                0.0f, false, s);
 }
 
 extern "C" int gvd_residual_layer_norm(int dtype, const void* x,

@@ -87,9 +87,9 @@ _SIGNATURES = {
     # dtype, a_f32, a, b, M, N, chunks, partial, out1, out2, stream
     "gvd_k5_colsum": [_I, _I, _P, _P, _I, _I, _I, _P, _P, _P, _P],
     # dtype, 4 banks and the pnt mask, 13 weights, 10 state buffers,
-    # 3 outputs (see csrc/decode_scan.cu), B, T, R, H, A, E, V, Vp, L,
-    # unk, stream
-    "gvd_greedy_decode": [_I] + [_P] * 31 + [_I] * 10 + [_P],
+    # 3 outputs, the stamps (see csrc/decode_scan.cu), B, T, R, H, A, E, V,
+    # Vp, L, unk, the plan (grid, 4 splits, smem), barriers_only, stream
+    "gvd_greedy_decode": [_I] + [_P] * 32 + [_I] * 17 + [_P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

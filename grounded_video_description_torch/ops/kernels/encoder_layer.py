@@ -2,16 +2,16 @@
 
 Replaces ``grounded_video_description_tpu/ops/pallas/encoder_layer.py
 ::fused_encoder_layer`` / ``encoder_apply_fused``.  The CUDA source is
-``csrc/encoder_layer.cu``: a GEMM (QKV, output and FFN projections; bf16
-on the tensor cores through a cp.async ring, f32 on the SIMT units), the
-attention and a residual + unbiased-std LayerNorm kernel.  In f32 the
-attention is a SIMT kernel whose (R, R) scores stay in shared memory and
-that reads each head as a column range of the QKV buffer.  In bf16 it is
-the tensor-core forward of ``csrc/attention_mma.cu`` (K7's bf16 launch),
-whose repack reads q, k and v from the (B, R, 3D) QKV buffer at column
-offsets 0, D, 2D with a row stride of 3D into zero-padded head slots, as
-the TPU kernel packed its six uneven heads (``qkv_heads_plain`` is that
-repack in plain PyTorch).
+``csrc/encoder_layer.cu``: a GEMM (QKV, output and FFN projections on the
+tensor cores through a cp.async ring: bf16 on mma.sync, f32 in 3xTF32),
+the attention and a residual + unbiased-std LayerNorm kernel.  The
+attention is K7's tensor-core forward (``csrc/attention_mma.cu`` in bf16,
+``csrc/attention_tf32x3.cu`` in f32), whose repack reads q, k and v from
+the (B, R, 3D) QKV buffer at column offsets 0, D, 2D with a row stride of
+3D into zero-padded head slots, as the TPU kernel packed its six uneven
+heads (``qkv_heads_plain`` is that repack in plain PyTorch).  An f32 head
+past the widest packed width (193-256) takes a SIMT kernel instead
+(``attention_route``).
 
 ``fused_encoder_layer_plain`` is the same layer in plain PyTorch, with the
 kernel's numerics (scores, softmax and LayerNorm statistics in f32;
@@ -32,6 +32,12 @@ from grounded_video_description_torch.nn.core import layer_norm_affine
 from grounded_video_description_torch.ops.kernels import _build
 
 LN_EPS = 1e-6
+# The launch count of each attention route, beside ``encoder_layer``'s own
+# (``tf32x3`` also counts ``attention_train.TF32_ROUTE``)
+ATTENTION_ROUTES = {"mma": "encoder_layer_attention_mma",
+                    "tf32x3": "encoder_layer_attention_tf32x3",
+                    "simt": "encoder_layer_attention_simt"}
+WIDEST_F32_HEAD = 256   # the SIMT route's widest head
 
 
 class EncoderLayerWeights(NamedTuple):
@@ -133,12 +139,30 @@ def pack_qkv(qkv: torch.Tensor, n_heads: int) -> torch.Tensor:
     return out
 
 
+def attention_route(dtype: torch.dtype, head: int) -> str:
+    """The attention kernel that K1 runs for heads ``head`` wide in
+    ``dtype`` (a key of ``ATTENTION_ROUTES``): the tensor-core forward up
+    to the widest packed width (``attention_train.MAX_HEAD``), ``mma`` in
+    bf16 and ``tf32x3`` in f32; past it, in f32 only and up to
+    ``WIDEST_F32_HEAD``, the SIMT kernel.  Raises on a head that no route
+    takes."""
+    from grounded_video_description_torch.ops.kernels.attention_train import (
+        MAX_HEAD)
+    if head <= MAX_HEAD:
+        return "mma" if dtype == torch.bfloat16 else "tf32x3"
+    widest = MAX_HEAD if dtype == torch.bfloat16 else WIDEST_F32_HEAD
+    _build.require(head <= widest, f"a head is at most {widest} wide")
+    return "simt"
+
+
 def _gemm(a: torch.Tensor, w: torch.Tensor, bias, relu: bool):
-    """(M, K) x (N, K)^T (+ bias, ReLU) -> (M, N), on the card.  In bf16
-    a K that is not a multiple of 8 is zero-padded to one (16-byte rows
-    for cp.async), which changes no product."""
-    if a.dtype == torch.bfloat16 and a.shape[1] % 8:
-        pad = (0, -a.shape[1] % 8)
+    """(M, K) x (N, K)^T (+ bias, ReLU) -> (M, N), on the card.  A K that
+    is no multiple of 16 bytes (8 elements in bf16, 4 in f32) is
+    zero-padded to one (16-byte rows for cp.async), which changes no
+    product."""
+    per16 = 16 // a.element_size()
+    if a.shape[1] % per16:
+        pad = (0, -a.shape[1] % per16)
         a, w = F.pad(a, pad), F.pad(w, pad)
     a, w = _build.aligned16(a), _build.aligned16(w)
     M, K = a.shape
@@ -155,22 +179,25 @@ def _gemm(a: torch.Tensor, w: torch.Tensor, bias, relu: bool):
 def _attention(qkv: torch.Tensor, n_heads: int) -> torch.Tensor:
     """The layer's attention on the card: qkv (B, R, 3D) as the QKV GEMM
     writes it -> (B, R, D), ``self_attention_plain`` of its q, k, v at the
-    layer's scale 1 / sqrt(D).  bf16 runs the tensor-core forward (one
-    count of ``encoder_layer_attention_mma``), f32 the SIMT kernel."""
+    layer's scale 1 / sqrt(D), on ``attention_route``'s kernel: one count
+    of its ``ATTENTION_ROUTES`` name (``tf32x3`` also one of
+    ``TF32_ROUTE``)."""
     from grounded_video_description_torch.ops.kernels.attention_train import (
-        _pack_scratch)
+        _pack_scratch, count_route)
     B, R, D3 = qkv.shape
     D = D3 // 3
-    bf16 = qkv.dtype == torch.bfloat16
+    route = attention_route(qkv.dtype, -(-D // n_heads))
     attn = torch.empty((B, R, D), dtype=qkv.dtype, device=qkv.device)
-    scratch = _pack_scratch(3, B, R, D, n_heads, qkv.device) if bf16 else None
+    scratch = (None if route == "simt" else
+               _pack_scratch(3, B, R, D, n_heads, qkv.device, qkv.dtype))
     code = _build.lib().gvd_attention(
         _build.dtype_code(qkv), qkv.data_ptr(), attn.data_ptr(),
         _build.ptr(scratch), B, R, D, n_heads, 1.0 / math.sqrt(D),
         _build.stream_of(qkv))
     _build.check(code, "attention")
-    if bf16:
-        _build.launches["encoder_layer_attention_mma"] += 1
+    _build.launches[ATTENTION_ROUTES[route]] += 1
+    if route == "tf32x3":
+        count_route(qkv)
     return attn
 
 
@@ -189,9 +216,9 @@ def fused_encoder_layer(x: torch.Tensor, w: EncoderLayerWeights, *,
                         n_heads: int) -> torch.Tensor:
     """Same contract as ``fused_encoder_layer_plain``.  A CPU tensor takes
     the plain version; a CUDA tensor launches the kernels (one count of
-    ``encoder_layer`` a call, and in bf16 one of
-    ``encoder_layer_attention_mma`` for its tensor-core attention).  No
-    backward: an input that requires grad raises under grad mode."""
+    ``encoder_layer`` a call, and those of its attention's route, see
+    ``_attention``).  No backward: an input that requires grad raises
+    under grad mode."""
     _build.refuse_grad("fused_encoder_layer", x, *w)
     if not x.is_cuda:
         return fused_encoder_layer_plain(x, w, n_heads=n_heads)
@@ -199,10 +226,7 @@ def fused_encoder_layer(x: torch.Tensor, w: EncoderLayerWeights, *,
     req(x.dim() == 3, f"x must be (B, R, D), got {tuple(x.shape)}")
     B, R, D = x.shape
     Fh = w.w1.shape[0]
-    from grounded_video_description_torch.ops.kernels.attention_train import (
-        MAX_HEAD)
-    widest = MAX_HEAD if x.dtype == torch.bfloat16 else 256
-    req(-(-D // n_heads) <= widest, f"a head is at most {widest} wide")
+    attention_route(x.dtype, -(-D // n_heads))
     shapes = {"wq": (D, D), "wk": (D, D), "wv": (D, D), "wo": (D, D),
               "w1": (Fh, D), "b1": (Fh,), "w2": (D, Fh), "b2": (D,),
               "g1": (D,), "be1": (D,), "g2": (D,), "be2": (D,)}

@@ -49,16 +49,17 @@ ATTENTION = ("fwd_kernel", "bwd_kv_kernel", "bwd_q_kernel", "bwd_dq_kernel",
 # K5's other kernels (csrc/encoder_layer_train.cu) and K1's GEMM (the
 # names of this tree and of the trees before it)
 K1_GEMM = ("gemm_kernel", "gemm_bf16_wmma_kernel", "gemm_f32_kernel",
-           "gemm_bf16_mma_kernel")
+           "gemm_bf16_mma_kernel", "gemm_tf32x3_kernel")
 K5_REST = K1_GEMM + ("gemm_tc_kernel", "ln_fwd_kernel", "ln_bwd_kernel",
                      "colsum_partial_kernel", "colsum_final_kernel",
                      "splitk_sum_kernel")
 # the serving path's kernel groups (csrc/birnn.cu, encoder_layer.cu,
-# attention_mma.cu, region_attention.cu)
+# attention_mma.cu, attention_tf32x3.cu, region_attention.cu)
 SERVE_GROUPS = {
     "K2": ("birnn_kernel", "birnn_cluster_kernel", "birnn_mma_kernel"),
     "K1 GEMM": K1_GEMM,
-    "K1 attention": ("attention_kernel", "fwd_kernel", "pack_kernel"),
+    "K1 attention": ("attention_kernel", "attention_simt_kernel",
+                     "fwd_kernel", "pack_kernel"),
     "K1 LayerNorm": ("residual_ln_kernel",),
     "K3": ("region_attention_kernel",)}
 

@@ -24,8 +24,9 @@ from grounded_video_description_torch.ops.kernels import _build
 from grounded_video_description_torch.ops.kernels.birnn import (
     birnn_recurrence, birnn_recurrence_plain, card_plan)
 from grounded_video_description_torch.ops.kernels.encoder_layer import (
-    _attention, _gemm, fused_encoder_layer, fused_encoder_layer_plain,
-    pack_qkv, qkv_heads_plain, self_attention_plain)
+    ATTENTION_ROUTES, _attention, _gemm, fused_encoder_layer,
+    fused_encoder_layer_plain, pack_qkv, qkv_heads_plain,
+    self_attention_plain)
 from grounded_video_description_torch.ops.kernels.region_attention import (
     fused_region_attention, fused_region_attention_plain)
 from grounded_video_description_torch.ops.kernels.attention_train import (
@@ -33,7 +34,8 @@ from grounded_video_description_torch.ops.kernels.attention_train import (
     mha_probs_dropout_hybrid, mha_probs_dropout_plain, pack_heads,
     pack_heads_plain, packed_width)
 from grounded_video_description_torch.ops.kernels.decode_scan import (
-    greedy_decode_fused, greedy_decode_fused_plain)
+    GEMM_ROUTES, PHASES, greedy_decode_fused, greedy_decode_fused_plain,
+    greedy_decode_timed)
 from grounded_video_description_torch.ops.kernels.mha import (
     flash_self_attention, flash_self_attention_plain)
 
@@ -153,9 +155,11 @@ def test_encoder_layer_kernel(dev, dtype):
             # LayerNorm outputs are unit-scale; 1e-3 covers f32 order
             assert _within(got, ref, dtype, f32_atol=1e-3)
             x = ref
-    assert _build.launches["encoder_layer"] == 2
-    assert _build.launches["encoder_layer_attention_mma"] == (
-        2 if dtype == torch.bfloat16 else 0)
+    route = "mma" if dtype == torch.bfloat16 else "tf32x3"
+    want = {"encoder_layer": 2, ATTENTION_ROUTES[route]: 2}
+    if dtype == torch.float32:
+        want[TF32_ROUTE] = 2
+    assert dict(_build.launches) == want
 
 
 @pytest.mark.cuda
@@ -164,9 +168,9 @@ def test_encoder_layer_kernel(dev, dtype):
 def test_encoder_layer_attention(dev, dtype, shape):
     """K1's attention alone on a (B, R, 3D) QKV buffer, six uneven heads
     (11 x 5 + 9 at D = 64; the flagship's 171 x 5 + 169 at 1024), R not a
-    multiple of the tiles: bf16 on the tensor-core forward, read in place
-    from the buffer, within ``_attention_within``; f32 on the SIMT
-    kernel within 1e-5."""
+    multiple of the tiles, on the tensor-core forward read in place from
+    the buffer: bf16 within ``_attention_within``, f32 (3xTF32) within
+    1e-5."""
     B, R, D = shape
     g = torch.Generator(device=dev).manual_seed(12)
     qkv = torch.randn(B, R, 3 * D, generator=g, device=dev).to(dtype)
@@ -175,8 +179,24 @@ def test_encoder_layer_attention(dev, dtype, shape):
     ref = self_attention_plain(q, k, v, 6, 1.0 / D ** 0.5)
     torch.cuda.synchronize()
     assert _attention_within(got, ref, dtype, f32_atol=1e-5)
-    assert _build.launches["encoder_layer_attention_mma"] == (
-        1 if dtype == torch.bfloat16 else 0)
+    route = "mma" if dtype == torch.bfloat16 else "tf32x3"
+    assert _build.launches[ATTENTION_ROUTES[route]] == 1
+    assert _build.launches[TF32_ROUTE] == (dtype == torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,heads", [(1200, 6), (1024, 4), (1157, 6)])
+def test_encoder_layer_attention_wide_heads(dev, D, heads):
+    """f32 heads past the widest packed width (200 x 6; 256 x 4; 193 x 5
+    + 192) take the SIMT route, within 1e-5, and count it alone."""
+    g = torch.Generator(device=dev).manual_seed(14)
+    qkv = torch.randn(2, 130, 3 * D, generator=g, device=dev)
+    got = _attention(qkv, heads)
+    q, k, v = qkv.split(D, dim=-1)
+    ref = self_attention_plain(q, k, v, heads, 1.0 / D ** 0.5)
+    torch.cuda.synchronize()
+    assert float((got - ref).abs().max()) <= 1e-5
+    assert dict(_build.launches) == {ATTENTION_ROUTES["simt"]: 1}
 
 
 @pytest.mark.cuda
@@ -551,7 +571,8 @@ def test_decode_scan_kernel(dev, dtype):
         got = greedy_decode_fused(model, enc, pnt)
         again = greedy_decode_fused(model, enc, pnt)
     torch.cuda.synchronize()
-    assert _build.launches["decode_scan"] == 2
+    assert dict(_build.launches) == {"decode_scan": 2,
+                                     GEMM_ROUTES[dtype]: 2}
     for a, b, r in zip(got, again, ref):
         assert torch.equal(a, b)
         assert a.dtype == r.dtype and a.shape == r.shape
@@ -565,6 +586,51 @@ def test_decode_scan_kernel(dev, dtype):
     else:
         assert _within(got[1][:, 0], ref[1][:, 0], dtype)
         assert _within(got[2][:, 0], ref[2][:, 0], dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_decode_scan_two_row_tiles(dev, dtype):
+    """K6 at B = 130 (two 128-row tiles of the GEMM phases) and rnn 128,
+    att_hid 64, input encoding 64 (several chunks per split): f32 tokens
+    identical and logprobs within 1e-4 of the plain loop; bf16 at the bf16
+    bar on step 0."""
+    cfg = tiny_test_config(obj_interact=True, num_prop_per_frm=75,
+                           vocab_size=300, detect_size=20, rnn_size=128,
+                           att_hid_size=64, input_encoding_size=64,
+                           use_pallas_rnn=False, use_pallas_encoder=False,
+                           dtype=str(dtype).replace("torch.", ""))
+    model = GVDModel(cfg).init(torch.Generator().manual_seed(16)).to(dev)
+    model.eval()
+    batch = batch_to_tensors(synthetic_batch(cfg, 130, seed=17), dev)
+    pnt = batch["pnt_mask"].bool()
+    with torch.no_grad():
+        enc = model.encode(batch)
+        ref = greedy_decode_fused_plain(model, enc, pnt)
+        got = greedy_decode_fused(model, enc, pnt)
+    torch.cuda.synchronize()
+    if dtype == torch.float32:
+        assert torch.equal(got[0], ref[0])
+        assert _within(got[1], ref[1], dtype)
+    else:
+        assert _within(got[1][:, 0], ref[1][:, 0], dtype)
+        assert _within(got[2][:, 0], ref[2][:, 0], dtype)
+
+
+@pytest.mark.cuda
+def test_decode_scan_timed_stamps(dev):
+    """The timing entry: one stamp at the start and one after each of the
+    10 barriers of every step, non-decreasing, with and without the
+    phases' work, and no launch counted."""
+    model, enc, pnt = _decode_setup(dev, torch.float32)
+    for barriers_only in (False, True):
+        stamps = greedy_decode_timed(model, enc, pnt,
+                                     barriers_only=barriers_only)
+        torch.cuda.synchronize()
+        assert stamps.shape == (1 + PHASES * model.cfg.seq_length,)
+        assert bool((stamps[1:] >= stamps[:-1]).all())
+        assert int(stamps[0]) > 0
+    assert not _build.launches
 
 
 @pytest.mark.cuda
