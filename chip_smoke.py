@@ -36,8 +36,9 @@ run with a non-zero exit.
 Output: human-readable lines, then the card's name and power limit, then
 one JSON line with a row per kernel and dtype (f32, bf16): its launches
 on the main path in that dtype, its error against the plain version, its
-time, its plain version's, its bound and the library call's (the K4
-rows also the time of the repack that its tensor-core kernels run
+time, its plain version's, its bound and the library call's (K3's rows
+also the device time of a call queued back to back, ``queued_ms``; the
+K4 rows also the time of the repack that its tensor-core kernels run
 first; f32 K4, K5's attention, K7 and K1's attention run in 3xTF32, and
 their launches also count that route, ``attention_tf32x3``; K1's rows
 also its QKV GEMM's TFLOP/s beside cuBLAS's; K6's rows also the
@@ -196,18 +197,60 @@ def model_of(cfg, state, dev):
     return m.to(dev).eval()
 
 
+def time_ms_queued(fn, calls: int, reps: int = 5) -> float:
+    """Device time of one call of ``fn`` in ms: CUDA events around
+    ``calls`` calls queued back to back (so that the host's time to issue a
+    call overlaps the card's work), median over ``reps``, after a warm-up
+    call."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return statistics.median(times)
+
+
+def argmax_agreement(got, ref, gap: float = 1e-4):
+    """(share of rows whose argmax of ``got`` equals ``ref``'s, among the
+    rows whose top two values of ``ref`` are more than ``gap`` apart; that
+    number of rows)."""
+    top2 = ref.float().topk(2, dim=1).values
+    rows = (top2[:, 0] - top2[:, 1]) > gap
+    same = got.float().argmax(dim=1) == ref.float().argmax(dim=1)
+    n = int(rows.sum())
+    return (float(same[rows].float().mean()) if n else 1.0), n
+
+
 def phase_region_attention(dev, results):
     """K3 at the decode step's shapes: p_pool (B,R,512), att_h (B,512),
-    pool (B,R,1024), one fully masked row."""
+    pool (B,R,1024), one fully masked row, the masks as the [:, 1:] views
+    the model passes.  Besides the bars: two launches give the same bits,
+    the f32 grounding argmaxes equal the plain version's on every row
+    whose top two logits are more than 1e-4 apart, the launch plan, the
+    achieved GB/s and share of the bound.  ``ms`` is a lone call's time
+    with its host side (``time_ms``, as every kernel's row is timed);
+    ``queued_ms`` is the device time of a call queued back to back
+    (``time_ms_queued``), where the host's time to issue it overlaps the
+    card's work."""
     import torch
     from grounded_video_description_torch.ops.kernels.region_attention \
-        import fused_region_attention, fused_region_attention_plain
+        import card_plan, fused_region_attention, fused_region_attention_plain
 
     g = torch.Generator(device=dev).manual_seed(3)
-    att_mask = torch.rand(B, R, generator=g, device=dev) < 0.2
-    pnt_mask = att_mask | (torch.rand(B, R, generator=g, device=dev) < 0.2)
-    att_mask[0] = True                       # a fully masked row
-    pnt_mask[0] = True
+    att_full = torch.rand(B, R + 1, generator=g, device=dev) < 0.2
+    pnt_full = att_full | (torch.rand(B, R + 1, generator=g, device=dev)
+                           < 0.2)
+    att_full[0] = True                       # a fully masked row
+    pnt_full[0] = True
+    att_mask, pnt_mask = att_full[:, 1:], pnt_full[:, 1:]
     base = dict(
         p_pool=torch.randn(B, R, H_ATT, generator=g, device=dev),
         att_h=torch.randn(B, H_ATT, generator=g, device=dev),
@@ -218,35 +261,54 @@ def phase_region_attention(dev, results):
         x = {k: v.to(dt) for k, v in base.items()}
         args = (x["p_pool"], x["att_h"], x["pool"], alpha_w, alpha_b,
                 att_mask, pnt_mask)
+        plan = card_plan(B, R, H_ATT, D_RNN, dt)
         res_k, grd_k = fused_region_attention(*args)
+        res_2, grd_2 = fused_region_attention(*args)
         res_p, grd_p = fused_region_attention_plain(*args)
         torch.cuda.synchronize()
         check(bool(torch.isfinite(res_k).all()), "K3 att_res not finite")
         check(bool((grd_k[0].float() <= -1e7).all()),
               "K3 masked row logits not MIN_VALUE")
+        check(torch.equal(res_k, res_2) and torch.equal(grd_k, grd_2),
+              "K3: two launches gave different bits")
         if dt == torch.float32:
             e_res, e_grd = max_err(res_k, res_p), max_err(grd_k, grd_p)
             # f32 sums of 512 tanh terms and of 1000 weighted rows, in a
             # different order than the plain version: ~1e-6 expected
             check(e_res <= 1e-4, f"K3 f32 att_res err {e_res}")
             check(e_grd <= 1e-3, f"K3 f32 grd err {e_grd}")
+            agree, rows = argmax_agreement(grd_k, grd_p)
+            check(agree == 1.0 and rows > 0,
+                  f"K3 f32 grounding argmax agreement {agree} over {rows} "
+                  "rows")
+            print(f"K3 f32 grounding argmax: equal on all {rows} rows with "
+                  "a top-two gap over 1e-4", flush=True)
         else:
             e_res = check_bf16(res_k, res_p, "K3 bf16 att_res")
             e_grd = check_bf16(grd_k, grd_p, "K3 bf16 grd")
         ms = time_ms(lambda: fused_region_attention(*args), 20)
+        queued_ms = time_ms_queued(lambda: fused_region_attention(*args), 20)
         plain_ms = time_ms(lambda: fused_region_attention_plain(*args), 20)
         name = str(dt).replace("torch.", "")
         # per ROI: tanh(p_pool + att_h) . alpha_w (4 ops a column), then the
         # weighted sum of its pool row
-        b = bound(B * R * (4 * H_ATT + 2 * D_RNN),
-                  nbytes(*args, res_k, grd_k), name)
-        print(f"K3 region_attention {name}: att_res err {e_res:.3e} "
-              f"grd err {e_grd:.3e}; kernel {ms:.4f} ms, plain "
+        n_bytes = nbytes(*args, res_k, grd_k)
+        b = bound(B * R * (4 * H_ATT + 2 * D_RNN), n_bytes, name)
+        print(f"K3 region_attention {name}: plan splits {plan.splits} x "
+              f"{plan.groups} streams of {plan.group_warps} warp(s), "
+              f"{plan.slot_rois} ROI(s) a slot, {plan.ring_slots} slots, "
+              f"{plan.copy} copies, {plan.smem} B smem, {plan.resident} "
+              f"blocks resident, {plan.waves} wave(s); att_res err "
+              f"{e_res:.3e} grd err {e_grd:.3e}; kernel {ms:.4f} ms "
+              f"({n_bytes / ms / 1e6:.1f} GB/s, {b['bound_ms'] / ms:.3f} of "
+              f"the bound), queued {queued_ms:.4f} ms ("
+              f"{n_bytes / queued_ms / 1e6:.1f} GB/s, "
+              f"{b['bound_ms'] / queued_ms:.3f} of the bound), plain "
               f"{plain_ms:.4f} ms, bound {b['bound_ms']:.4f} ms "
               f"({b['bound_by']})", flush=True)
         results[("region_attention", name)] = dict(
             max_abs_err=max(e_res, e_grd), ms=ms, plain_ms=plain_ms,
-            library_ms=None, **b)
+            library_ms=None, queued_ms=queued_ms, **b)
 
 
 def birnn_inputs(dev, g, T, Bn, H, mode):
@@ -1814,7 +1876,7 @@ def main() -> int:
                    "dtype": dt}
             for extra in ("repack_ms", "exchange_ms", "gemm_tflops",
                           "library_gemm_tflops", "bound_rates",
-                          "stream_floor_ms", "phase_ms"):
+                          "stream_floor_ms", "phase_ms", "queued_ms"):
                 if extra in r:
                     row[extra] = r[extra]
             kernels.append(row)

@@ -43,8 +43,13 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # argument types of every C entry point in csrc/
 _SIGNATURES = {
     # dtype, p_pool, att_h, pool, alpha_w, alpha_b, att_mask, pnt_mask,
-    # att_res, grd, B, R, H, D, stream
-    "gvd_region_attention": [_I] + [_P] * 9 + [_I] * 4 + [_P],
+    # att_res, grd, B, R, H, D, the masks' row strides, then the plan
+    # (splits, ROIs per split, warps per block, warps per group, ROIs per
+    # slot, copy route, column groups, smem), stream
+    "gvd_region_attention": [_I] + [_P] * 9 + [_I] * 14 + [_P],
+    # dtype, copy route, ROIs per slot, column groups, warps per block,
+    # splits, smem
+    "gvd_region_attention_max_clusters": [_I] * 7,
     # dtype, mode, gi, wh, bh, out, T, B, H, then the plan (route, C,
     # tile, Up, KW, KR, rows per thread or m16 tiles, smem), exchange_only,
     # stream

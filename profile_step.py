@@ -54,14 +54,15 @@ K5_REST = K1_GEMM + ("gemm_tc_kernel", "ln_fwd_kernel", "ln_bwd_kernel",
                      "colsum_partial_kernel", "colsum_final_kernel",
                      "splitk_sum_kernel")
 # the serving path's kernel groups (csrc/birnn.cu, encoder_layer.cu,
-# attention_mma.cu, attention_tf32x3.cu, region_attention.cu)
+# attention_mma.cu, attention_tf32x3.cu, region_attention.cu: K3's split
+# kernel, and the one-block-a-row kernel of the trees before it)
 SERVE_GROUPS = {
     "K2": ("birnn_kernel", "birnn_cluster_kernel", "birnn_mma_kernel"),
     "K1 GEMM": K1_GEMM,
     "K1 attention": ("attention_kernel", "attention_simt_kernel",
                      "fwd_kernel", "pack_kernel"),
     "K1 LayerNorm": ("residual_ln_kernel",),
-    "K3": ("region_attention_kernel",)}
+    "K3": ("region_attention_kernel", "region_attention_split_kernel")}
 
 
 def kernel_name(full: str) -> str:

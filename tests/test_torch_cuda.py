@@ -28,7 +28,8 @@ from grounded_video_description_torch.ops.kernels.encoder_layer import (
     fused_encoder_layer_plain, pack_qkv, qkv_heads_plain,
     self_attention_plain)
 from grounded_video_description_torch.ops.kernels.region_attention import (
-    fused_region_attention, fused_region_attention_plain)
+    card_plan as region_plan, fused_region_attention,
+    fused_region_attention_plain)
 from grounded_video_description_torch.ops.kernels.attention_train import (
     MAX_HEAD, MMA_TILE, TF32_ROUTE, mha_probs_dropout,
     mha_probs_dropout_hybrid, mha_probs_dropout_plain, pack_heads,
@@ -103,6 +104,76 @@ def test_region_attention_kernel(dev, dtype):
     assert _within(got[0], ref[0], dtype)
     assert _within(got[1], ref[1], dtype, f32_atol=1e-3)  # logits are O(1)
     assert bool((got[1][0].float() <= -1e7).all())
+
+
+def _argmax_agrees(got, ref, gap=1e-4):
+    """Per-row argmax of ``got`` equals ``ref``'s on the rows whose top two
+    values of ``ref`` are more than ``gap`` apart; returns (agree, rows)."""
+    top2 = ref.float().topk(2, dim=1).values
+    rows = (top2[:, 0] - top2[:, 1]) > gap
+    same = got.float().argmax(dim=1) == ref.float().argmax(dim=1)
+    return bool(same[rows].all()), int(rows.sum())
+
+
+# (B, R, H, D, what): the flagship; one row (the plan's most splits); a
+# fully masked split inside a live row; the masks as the [:, 1:] views the
+# model passes; the copy routes at rows that are not whole 16 bytes in bf16
+# (H = 36: bf16 takes 8-byte cp.async, f32 the bulk copy)
+REGION_CASES = [(100, 1000, 512, 1024, "flagship"), (1, 1000, 512, 1024, "b1"),
+                (5, 1000, 64, 96, "masked_split"),
+                (7, 333, 512, 1024, "mask_views"),
+                (7, 333, 36, 100, "cp_routes")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", REGION_CASES, ids=[c[-1] for c in
+                                                    REGION_CASES])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_region_attention_split_kernel(dev, dtype, case):
+    """The split, streamed kernel against its plain version: outputs, a
+    fully masked row's logits, two launches with the same bits, and in f32
+    the rows' grounding argmaxes where the top two logits are more than
+    1e-4 apart."""
+    B, R, H, D, what = case
+    rng = np.random.RandomState(4)
+    plan = region_plan(B, R, H, D, dtype)
+    att = rng.rand(B, R + 1) < 0.2
+    pnt = att | (rng.rand(B, R + 1) < 0.2)
+    full_row = B > 1          # row 0 fully masked (B = 1 keeps it live)
+    if full_row:
+        att[0] = pnt[0] = True
+    if what == "masked_split":
+        lo, hi = plan.ranges()[1]
+        assert hi > lo and plan.splits > 2
+        att[2, 1 + lo:1 + hi] = pnt[2, 1 + lo:1 + hi] = True
+    am, pm = (torch.from_numpy(m).to(dev)[:, 1:] for m in (att, pnt))
+    if what != "mask_views":
+        am, pm = am.contiguous(), pm.contiguous()
+    else:
+        assert am.stride(0) == R + 1
+
+    def t(a):
+        return torch.from_numpy(a.astype(np.float32)).to(dev)
+
+    args = (t(rng.randn(B, R, H)).to(dtype), t(rng.randn(B, H)).to(dtype),
+            t(rng.randn(B, R, D)).to(dtype), t(rng.randn(H) * 0.05),
+            t(np.array([0.05])), am, pm)
+    if what == "cp_routes":
+        assert plan.copy == ("cp8" if dtype == torch.bfloat16 else "bulk")
+    _build.reset_launches()
+    got = fused_region_attention(*args)
+    again = fused_region_attention(*args)
+    ref = fused_region_attention_plain(*args)
+    torch.cuda.synchronize()
+    assert _build.launches["region_attention"] == 2
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+    assert _within(got[0], ref[0], dtype)
+    assert _within(got[1], ref[1], dtype, f32_atol=1e-3)
+    if full_row:
+        assert bool((got[1][0].float() <= -1e7).all())
+    if dtype == torch.float32:
+        agree, rows = _argmax_agrees(got[1], ref[1])
+        assert agree and rows > 0
 
 
 @pytest.mark.cuda
