@@ -17,20 +17,24 @@ call's time, then runs ``GVDModel.sample_greedy`` at the flagship
 configuration (bench.py's: vocab 4905, 431 detector classes,
 obj_interact, BiGRU, mix region attention; batch 100, 1000 ROIs, 480
 frames, 20 tokens; random weights from a seeded generator) once through
-the kernels and once on the plain path, and compares the two.  Then the
-evaluator at the same configuration with the README's eval flags
-(``Evaluator.evaluate`` and ``eval_grounding_gt`` over two batches of
-100, the reference files made from the batches in a temporary directory)
-through K6, K7, K2 and K3 (K1 off by the grounding guard) and on the
-plain path, in f32 and bf16.  Last it runs ``Trainer.train_step`` at the
-README's training flags (batch 240 in 8 microbatches, w_att2 0.05, w_cls
-0.1, Adam at 5e-4, clip 0.1): in f32 with every dropout rate 0, one step
-through K5 and one through K4 against one on the plain attention; in
-bf16 at the flagship dropout rates, three timed steps on each path, in
-turns.  Last the training driver (``grounded_video_description_torch.
-main.run``): two epochs of one bf16 step through K5, each validated over
-one batch of 100, checkpointed into a temporary directory, then resumed
-from the latest checkpoint by a second run.  Any failed check ends the
+the kernels and once on the plain path, and compares the two; then
+``GVDModel.sample_beam`` on the same weights and batch at beam widths 3
+and 5, in f32 and bf16, through K1 and K2 (its attentions are plain) and
+on the plain path.  Then the evaluator at the same configuration with
+the README's eval flags (``Evaluator.evaluate`` and
+``eval_grounding_gt`` over two batches of 100, the reference files made
+from the batches in a temporary directory) through K6, K7, K2 and K3 (K1
+off by the grounding guard) and on the plain path, in f32 and bf16, and
+``evaluate`` at beam 3 over one batch.  Last it runs
+``Trainer.train_step`` at the README's training flags (batch 240 in 8
+microbatches, w_att2 0.05, w_cls 0.1, Adam at 5e-4, clip 0.1): in f32
+with every dropout rate 0, one step through K5 and one through K4
+against one on the plain attention; in bf16 at the flagship dropout
+rates, three timed steps on each path, in turns.  Last the training
+driver (``grounded_video_description_torch.main.run``): two epochs of one
+bf16 step through K5, each validated over one batch of 100, checkpointed
+into a temporary directory, then resumed from the latest checkpoint by a
+second run.  Any failed check ends the
 run with a non-zero exit.
 
 Output: human-readable lines, then the card's name and power limit, then
@@ -1205,6 +1209,90 @@ def phase_end_to_end(dev, base, state):
     return launches
 
 
+def host_s(fn, iters: int) -> float:
+    """Median host-clock seconds of ``fn`` ending in a synchronize, over
+    ``iters`` runs after one warm-up run."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times)
+
+
+BEAM_WIDTHS = (3, 5)
+
+
+def phase_beam(dev, base, state):
+    """``sample_beam`` at the flagship configuration (the e2e phase's
+    weights and batch) at each of BEAM_WIDTHS, f32 and bf16, through the
+    inference kernels of its encode (K1, K2; its attentions are plain, as
+    the JAX package's beam) and on the plain path.  f32: tokens and, on
+    the live positions (the same word in both runs), the per-frame
+    grounding argmaxes >= 0.99 equal; bf16: printed and finite.  Prints
+    beam captions/s per width and dtype (host clock)."""
+    import torch
+    from grounded_video_description_torch.data.synthetic import (
+        synthetic_batch)
+    from grounded_video_description_torch.models import batch_to_tensors
+    from grounded_video_description_torch.ops.kernels import _build
+
+    batch = batch_to_tensors(synthetic_batch(base, B, seed=0), dev)
+    L, F = base.seq_length, base.num_sampled_frm
+    rates = {}
+    for dtype in ("float32", "bfloat16"):
+        outs = {}
+        for kernels in (True, False):
+            # the width is sample_beam's argument: one model serves both
+            m = model_of(base.replace(
+                dtype=dtype, use_pallas=kernels, use_pallas_rnn=kernels,
+                use_pallas_encoder=kernels), state, dev)
+            for width in BEAM_WIDTHS:
+                _build.reset_launches()
+                out = m.sample_beam(batch, beam_size=width)
+                torch.cuda.synchronize()
+                counts = dict(_build.launches)
+                # one encode: K2's two BiGRU layers, K1's two layers
+                want = ({"birnn_recurrence": 2, **k1_counts(dtype, 2)}
+                        if kernels else {})
+                check(counts == want, f"beam {width} {dtype} kernels="
+                      f"{kernels} launches {counts} != {want}")
+                shapes = [tuple(t.shape) for t in out]
+                check(shapes == [(B, L), (B, L), (B, L), (B, L, F)],
+                      f"beam {width} {dtype} shapes {shapes}")
+                check(bool(torch.isfinite(out[1]).all()),
+                      f"beam {width} {dtype} kernels={kernels} logprobs "
+                      "not finite")
+                check(int(out[2].min()) >= 0 and int(out[2].max()) < R,
+                      f"beam {width} {dtype} att2_ind out of range")
+                outs[(width, kernels)] = out
+                sec = host_s(lambda: m.sample_beam(batch, beam_size=width),
+                             3)
+                rates[(dtype, width, kernels)] = B / sec
+            del m
+            torch.cuda.empty_cache()
+        for width in BEAM_WIDTHS:
+            seq, _, _, frm = outs[(width, True)]
+            rseq, _, _, rfrm = outs[(width, False)]
+            agree = float((seq == rseq).float().mean())
+            live = (seq == rseq) & (rseq > 0)
+            frm_agree = float((frm == rfrm)[live].float().mean())
+            print(f"beam {width} {dtype}: token agreement {agree:.4f}, "
+                  f"att2_frm_ind agreement on {int(live.sum())} live "
+                  f"positions {frm_agree:.4f}; beam captions/s kernels "
+                  f"{rates[(dtype, width, True)]:.2f}, plain "
+                  f"{rates[(dtype, width, False)]:.2f}", flush=True)
+            if dtype == "float32":
+                check(agree >= 0.99, f"beam {width} f32 token agreement "
+                      f"{agree}")
+                check(frm_agree >= 0.99, f"beam {width} f32 att2_frm_ind "
+                      f"agreement {frm_agree}")
+
+
 def phase_decode_kernel(dev, results, base, state):
     """K6 at the flagship shapes: the banks of one encoded batch of B
     (T = 480 frames, R = 1000 ROIs, a random fifth of them under the pnt
@@ -1417,60 +1505,6 @@ def phase_flash_mha(dev, results):
     torch.cuda.empty_cache()
 
 
-def eval_vocab(cfg):
-    """A synthetic dic_anet.json of the flagship's sizes: words w1 ..
-    w4903 and UNK (ids 1 .. 4904), the first 431 words the detection
-    classes, every word its own lemma."""
-    from grounded_video_description_torch.data.vocab import VocabTables
-    words = [f"w{i}" for i in range(1, cfg.vocab_size - 1)] + ["UNK"]
-    return VocabTables({
-        "ix_to_word": {str(i + 1): w for i, w in enumerate(words)},
-        "wtod": {w: i for i, w in enumerate(words[:cfg.detect_size])},
-        "wtol": {w: w for w in words}})
-
-
-def eval_references(root, cfg, vocab, batches):
-    """The files the evaluator reads, made from the batches: the grounding
-    reference (timestamps and, per GT box, its class, frame, box and word
-    position), the split file and one densecap reference (the GT
-    captions).  Returns the config fields that name them."""
-    ann, dense = {}, {}
-    for batch in batches:
-        for b, seg_id in enumerate(batch["seg_id"]):
-            vid, seg = seg_id.split("_segment_")
-            seg = str(int(seg))
-            iseq = batch["input_seq"][b, 0, 1:]
-            objs = [(j, int(iseq[j, 0]) - cfg.vocab_size)
-                    for j in range(iseq.shape[0])
-                    if iseq[j, 0] > cfg.vocab_size]
-            boxes = {int(box[5]): box for box in batch["gt_boxes"][b][::-1]
-                     if box[5] > 0}
-            ts = [float(b), float(b) + 10.0]
-            ann.setdefault(vid, {"segments": {}})["segments"][seg] = {
-                "timestamps": ts,
-                "process_clss": [vocab.itod[c] for _, c in objs],
-                "frame_ind": [int(boxes[c][4]) for _, c in objs],
-                "process_bnd_box": [boxes[c][:4].tolist() for _, c in objs],
-                "process_idx": [j for j, _ in objs]}
-            words = [vocab.itow[str(int(w))] for w in batch["gt_seq"][b, 0]
-                     if w > 0]
-            d = dense.setdefault(vid, {"duration": 200.0, "timestamps": [],
-                                       "sentences": []})
-            d["timestamps"].append(ts)
-            d["sentences"].append(" ".join(words))
-    paths = {}
-    for key, obj in (("grd_reference", {"annotations": ann}),
-                     ("split_file", {"validation": sorted(ann)}),
-                     ("densecap_reference", dense)):
-        paths[key] = os.path.join(root, f"{key}.json")
-        with open(paths[key], "w") as f:
-            json.dump(obj, f)
-    return {"grd_reference": paths["grd_reference"],
-            "split_file": paths["split_file"],
-            "densecap_references": [paths["densecap_reference"]],
-            "data_path": root}
-
-
 def phase_eval(dev, base, state):
     """The evaluation entry point at the flagship configuration with the
     README's eval flags (language_eval, eval_obj_grounding,
@@ -1488,6 +1522,8 @@ def phase_eval(dev, base, state):
     from grounded_video_description_torch.ops.kernels import _build
     from grounded_video_description_torch.ops.kernels.decode_scan import (
         GEMM_ROUTES)
+    from grounded_video_description_torch.tools.eval_files import (
+        eval_references, eval_vocab)
 
     vocab = eval_vocab(base)
     batches = []
@@ -1505,9 +1541,9 @@ def phase_eval(dev, base, state):
                                   "region_attention": base.seq_length,
                                   "birnn_recurrence": 2}}
 
-    def counted(counts):
+    def counted(counts, items=batches):
         """The batches, with the launch counts of each batch's work."""
-        for batch in batches:
+        for batch in items:
             _build.reset_launches()
             yield batch
             counts.append(dict(_build.launches))
@@ -1589,6 +1625,34 @@ def phase_eval(dev, base, state):
             if dtype == "float32":
                 for k, v in agree.items():
                     check(v >= 0.99, f"eval f32 {k} agreement {v}")
+
+        # beam 3 through the evaluator, f32, over the first batch: the
+        # densecap JSON and the words grounded by the best beam's
+        # per-frame argmaxes (K7 and K2 in its encode)
+        m = model_of(cfg0.replace(
+            beam_size=3, use_pallas=True, use_pallas_rnn=True,
+            use_pallas_decode=True, use_pallas_mha=True), state, dev)
+        counts = []
+        stats = Evaluator(m.cfg, m, vocab).evaluate(
+            counted(counts, batches[:1]),
+            out_dir=os.path.join(root, "beam3"))
+        want = {"flash_self_attention": 2, TF32_ROUTE: 2,
+                "birnn_recurrence": 2}
+        check(counts == [want], f"beam-3 evaluate launches {counts} != "
+              f"{[want]}")
+        check(all(isinstance(v, str) or math.isfinite(v)
+                  for v in stats.values()), f"beam-3 stats {stats}")
+        check_eval_files(os.path.join(root, "beam3"), m.cfg,
+                         batches[0]["seg_id"],
+                         {s.split("_segment_")[0]
+                          for s in batches[0]["seg_id"]},
+                         kinds=("attn-gen",))
+        print(f"eval beam 3 float32 kernels=True: captions/s "
+              f"{stats['captions_per_sec']:.2f}; CIDEr "
+              f"{stats['CIDEr']:.4f}, grd_f1_all {stats['grd_f1_all']:.4f}",
+              flush=True)
+        del m
+        torch.cuda.empty_cache()
     return launches
 
 
@@ -1617,6 +1681,8 @@ def phase_driver(dev, state):
     from grounded_video_description_torch.ops.kernels import _build
     from grounded_video_description_torch.ops.kernels.decode_scan import (
         GEMM_ROUTES)
+    from grounded_video_description_torch.tools.eval_files import (
+        eval_references, eval_vocab)
     from grounded_video_description_torch.utils.logging import MetricLogger
 
     base = train_config().replace(
@@ -1728,8 +1794,10 @@ def phase_driver(dev, state):
     return launches
 
 
-def check_eval_files(out_dir, cfg, seg_ids, vids):
-    """The four JSONs parse and hold every segment."""
+def check_eval_files(out_dir, cfg, seg_ids, vids,
+                     kinds=("attn-gen", "attn-gt", "grd-gt")):
+    """The densecap JSON and the grounding JSONs of ``kinds`` parse and
+    hold every segment."""
     tag = f"{cfg.val_split}-{cfg.id}.json"
     with open(os.path.join(out_dir, "densecap_results",
                            f"densecap-{tag}")) as f:
@@ -1737,7 +1805,7 @@ def check_eval_files(out_dir, cfg, seg_ids, vids):
     check(set(dense) == vids
           and sum(len(v) for v in dense.values()) == len(seg_ids),
           "densecap JSON does not hold every segment")
-    for kind in ("attn-gen", "attn-gt", "grd-gt"):
+    for kind in kinds:
         with open(os.path.join(out_dir, "results",
                                f"{kind}-sent-results-{tag}")) as f:
             res = json.load(f)["results"]
@@ -1811,6 +1879,7 @@ def main() -> int:
     # K6 and K7 from the eval, K4 and K5 from the train step (f32) and the
     # timed train steps and the training driver (bf16)
     launches = timed(phase_end_to_end, dev, base, state)
+    timed(phase_beam, dev, base, state)
     for dt, counts in timed(phase_eval, dev, base, state).items():
         for name, n in counts.items():
             launches[dt].setdefault(name, n)

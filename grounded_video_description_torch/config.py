@@ -23,10 +23,11 @@ honours every flag on every device.
 
 The evaluator's fields (``language_eval``, ``eval_obj_grounding``,
 ``eval_obj_grounding_gt``, the reference files, ``val_split``, ``id``)
-are the JAX package's too; ``beam_size > 1`` and ``vis_attn`` are not
-ported and make the evaluator raise.  So are the training driver's
-(``main.py``: the dataset files, the epoch loop, checkpointing, logging);
-``mesh_shape`` and ``coordinator_address`` are read only to refuse them.
+are the JAX package's too (``beam_size > 1`` decodes by beam search;
+``vis_attn`` is not ported and makes the evaluator raise).  So are the
+training driver's (``main.py``: the dataset files, the epoch loop,
+checkpointing, logging); ``mesh_shape`` and ``coordinator_address`` are
+read only to refuse them.
 ``from_cli`` parses flags named after these fields, so a JAX flag the
 port does not read is an argparse error.
 """
@@ -104,7 +105,7 @@ class GVDConfig:
     finetune_lr_scale: float = 0.1      # ctx2pool_grd / vis_embed group
     seed: int = 123
 
-    beam_size: int = 1                  # > 1 is not ported (beam search)
+    beam_size: int = 1                  # > 1: beam search
 
     # ---- run, checkpointing and evaluation (opts.py:111-155) ----
     image_path: str = ""

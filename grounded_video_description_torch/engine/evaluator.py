@@ -2,23 +2,25 @@
 
 The port's copy of ``grounded_video_description_tpu/engine/evaluator.py``
 (reference: main.py:314-517 ``eval`` and main.py:89-194
-``eval_grounding``) and of ``main.py::grounding_eval_cfg``: greedy caption
-generation over the validation batches, the densecap submission JSON and
-its language metrics, localization on generated sentences (lemma-mapped
-words -> detection classes) and on GT sentences (attention and grounding
-argmax boxes, region-cls accuracy).  The JSON writers, the lemma mapping,
-the per-frame argmax reshape and the cls-accuracy aggregation are the JAX
-package's line for line, so the files come out byte-identical on the
-same model outputs (tests/test_torch_eval.py).
+``eval_grounding``) and of ``main.py::grounding_eval_cfg``: greedy or
+beam caption generation over the validation batches, the densecap
+submission JSON and its language metrics, localization on generated
+sentences (lemma-mapped words -> detection classes) and on GT sentences
+(attention and grounding argmax boxes, region-cls accuracy).  The JSON
+writers, the lemma mapping, the per-frame argmax reshape and the
+cls-accuracy aggregation are the JAX package's line for line, so the
+files come out byte-identical on the same model outputs
+(tests/test_torch_eval.py).
 
 Batches are the numpy dicts of the dataset loader; ``generate`` moves
 each to the model's device and calls ``GVDModel.sample_greedy`` or
 ``GVDModel.forward(mode="GRD")`` directly (PyTorch runs eagerly: there is
-nothing to jit).  The model holds its weights, so unlike the JAX
-evaluator no ``variables`` are passed.  Not ported: beam search
-(``beam_size > 1``, ROADMAP Queue 1 item 11), the attention-overlay
-visualization (``vis_attn``, item 15) and a device mesh (item 13); each
-raises ``NotImplementedError``.
+nothing to jit); ``beam_size > 1`` takes ``GVDModel.sample_beam``, whose
+per-frame argmaxes of the best beam ground the generated words.  The model
+holds its weights, so unlike the JAX evaluator no ``variables`` are
+passed.  Not ported: the attention-overlay visualization (``vis_attn``,
+ROADMAP Queue 1 item 15) and a device mesh (item 13); each raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -77,10 +79,13 @@ class Evaluator:
     # ------------------------------------------------------------------ #
 
     def generate(self, batch_arrays) -> Dict[str, np.ndarray]:
-        if self.cfg.beam_size > 1:
-            raise NotImplementedError(
-                "beam search is not ported (ROADMAP Queue 1 item 11)")
         batch = batch_to_tensors(batch_arrays, self._device())
+        if self.cfg.beam_size > 1:
+            seq, lps, att2_ind, att2_frm = self.model.sample_beam(
+                batch, beam_size=self.cfg.beam_size)
+            return {"seq": _numpy(seq), "logprobs": _numpy(lps),
+                    "att2_ind": _numpy(att2_ind),
+                    "att2_frm_ind": _numpy(att2_frm)}
         seq, lps, att2_w, sim = self.model.sample_greedy(batch)
         return {"seq": _numpy(seq), "logprobs": _numpy(lps),
                 "att2_weights": _numpy(att2_w), "sim_mat": _numpy(sim)}
@@ -120,10 +125,16 @@ class Evaluator:
 
             if cfg.eval_obj_grounding:
                 # per-frame argmax box per generated word
-                # (main.py:361-384)
-                att2_ind = out["att2_weights"][:n_valid].reshape(
-                    seq.shape[0], seq.shape[1], cfg.num_sampled_frm,
-                    cfg.num_prop_per_frm).argmax(-1)
+                # (main.py:361-384).  The reference hard-asserts
+                # beam_size == 1 here (main.py:362); the beam carries the
+                # best beam's per-frame argmaxes, so every decode mode
+                # grounds its words.
+                if "att2_frm_ind" in out:
+                    att2_ind = out["att2_frm_ind"][:n_valid]
+                else:
+                    att2_ind = out["att2_weights"][:n_valid].reshape(
+                        seq.shape[0], seq.shape[1], cfg.num_sampled_frm,
+                        cfg.num_prop_per_frm).argmax(-1)
                 ppls = np.array(arrays["ppls"]).reshape(
                     -1, cfg.num_sampled_frm, cfg.num_prop_per_frm, 7)
                 for i in range(seq.shape[0]):

@@ -19,11 +19,13 @@ no visible card the driver raises; it never moves to the CPU by itself.
 The tests pass ``--device cpu``, where every kernel flag takes its plain
 version.
 
+When ``data_path/detectron_weights`` exists and ``transfer_mode`` is not
+"none", the model starts from the Visual-Genome weight transfer
+(``data/transfer.py``), as the JAX driver's does.
+
 Not ported, and refused with ``NotImplementedError``: a device mesh and
 multi-host runs (``--mesh_shape``, ``--coordinator_address``; ROADMAP
-Queue 1 item 13) and the Visual-Genome weight transfer (applied by the
-JAX driver when ``data_path/detectron_weights`` exists and
-``transfer_mode`` is not "none"; item 16).
+Queue 1 item 13).
 """
 
 from __future__ import annotations
@@ -54,9 +56,14 @@ def resolve_device(name: str) -> torch.device:
 
 def build_model_and_vocab(cfg: GVDConfig, device: torch.device):
     """The datasets of ``train_split`` and ``val_split``, the config with
-    the vocabulary's sizes, and the model initialised from ``cfg.seed`` on
-    ``device`` (main.py:44-83)."""
+    the vocabulary's sizes, and the model initialised from ``cfg.seed``,
+    with the Visual-Genome weight transfer where the data directory holds
+    the detector's weights, on ``device`` (main.py:44-83)."""
     from grounded_video_description_torch.data.dataset import AnetDataset
+    from grounded_video_description_torch.data.transfer import (
+        apply_weight_transfer, load_detectron_weights)
+    from grounded_video_description_torch.data.vocab import (
+        GloVe, build_class_glove, build_vg_cls_glove, load_vg_classes)
     from grounded_video_description_torch.models import GVDModel
 
     dataset = AnetDataset(cfg, split=cfg.train_split)
@@ -65,14 +72,23 @@ def build_model_and_vocab(cfg: GVDConfig, device: torch.device):
     unk = int(vocab.wtoi.get("UNK", vocab.vocab_size - 1))
     cfg = cfg.replace(vocab_size=vocab.vocab_size,
                       detect_size=vocab.detect_size, unk_idx=unk)
+    model = GVDModel(cfg).init(torch.Generator().manual_seed(cfg.seed))
+
+    # Visual-Genome knowledge transfer (model.py:172-217), on the host
     detectron_dir = os.path.join(cfg.data_path, "detectron_weights")
     if os.path.isdir(detectron_dir) and cfg.transfer_mode != "none":
-        raise NotImplementedError(
-            f"{detectron_dir} exists and transfer_mode is "
-            f"{cfg.transfer_mode!r}: the Visual-Genome weight transfer is "
-            "not ported (ROADMAP Queue 1 item 16); pass --transfer_mode "
-            "none to train without it")
-    model = GVDModel(cfg).init(torch.Generator().manual_seed(cfg.seed))
+        glove = GloVe(cfg.glove_file or None, dim=cfg.glove_dim)
+        vg_classes = load_vg_classes(
+            os.path.join(cfg.data_path, "vg_object_vocab.txt"))
+        glove_vg = build_vg_cls_glove(vg_classes, glove)
+        glove_cls = build_class_glove(vocab.itod, glove)
+        det = load_detectron_weights(detectron_dir)
+        if det:
+            apply_weight_transfer(
+                model, transfer_mode=cfg.transfer_mode, detectron=det,
+                glove_vg_cls=glove_vg, glove_clss=glove_cls, verbose=True)
+            print("applied detectron weight transfer "
+                  f"({cfg.transfer_mode})")
     return cfg, model.to(device), dataset, dataset_val, vocab
 
 

@@ -4,9 +4,9 @@ and the teacher-forced forward of training and grounding.
 Counterpart of ``grounded_video_description_tpu/models/gvd.py``: the
 encode path (model.py:302-409 / 504-568), the TopDown core
 (AttModel.py:134-164), the MLE forward with its four losses and the GRD
-forward (model.py:283-489), and greedy UNK-suppressed sampling
-(model.py:492-624).  Beam search and the transformer captioner are not
-ported yet.
+forward (model.py:283-489), greedy UNK-suppressed sampling
+(model.py:492-624) and batched beam search (``models/beam.py``, reference
+misc/CaptionModelBU.py).  The transformer captioner is not ported yet.
 
 Parameters are float32 and named after the reference state dict, so
 ``engine/checkpoint.py::import_torch_checkpoint`` of the JAX package
@@ -40,13 +40,15 @@ from torch import nn
 from grounded_video_description_torch import losses as L
 from grounded_video_description_torch.config import GVDConfig
 from grounded_video_description_torch.models import transformer as xf
+from grounded_video_description_torch.models.beam import beam_search
 from grounded_video_description_torch.nn import (
     BiRNNParams, LSTMCellParams, batch_norm, batch_norm_train, birnn,
     dropout, embedding, init_embedding_, init_linear_, layer_norm, linear,
     lstm_cell,
 )
 from grounded_video_description_torch.ops import (
-    MIN_VALUE, grounder, region_attention, temporal_attention,
+    MIN_VALUE, grounder, region_attention, region_attention_beam,
+    temporal_attention, temporal_attention_beam,
 )
 from grounded_video_description_torch.ops.geometry import (
     bbox_overlaps, bbox_target, sim_mat_target,
@@ -343,6 +345,51 @@ class GVDModel(nn.Module):
         return output, CoreState(h_att_, c_att, h_lang_, c_lang), \
             att2_weight, att_h
 
+    def core_step_beam(self, xt, fc_feats, conv_feats, p_conv_feats,
+                       pool_feats, p_pool_feats, pnt_mask,
+                       state: CoreState, W: int):
+        """TopDown core step for beam search with SHARED attention banks:
+        the state is (B*W, ...) but the conv and pool banks stay (B, ...),
+        where the reference tiles them W-fold (model.py:710-718).  As the
+        JAX package's does, it passes ``pnt_mask`` as the attention mask
+        too (at inference both are the same mask).  Returns (h_lang,
+        state, att2 logits (B*W, R))."""
+        cfg, core = self.cfg, self.core
+        B = fc_feats.shape[0]
+        fc_bw = fc_feats[:, None].expand(
+            B, W, fc_feats.shape[-1]).reshape(B * W, -1)
+        att_in = torch.cat([fc_bw, xt], dim=1)
+        h_att, (h_att_, c_att) = lstm_cell(
+            core.att_lstm, att_in, (state.h_att, state.c_att))
+        h3 = h_att.view(B, W, -1)
+        mask = pnt_mask[:, 1:]
+
+        if cfg.att_input_mode != "region":
+            att = temporal_attention_beam(core.attention, h3, conv_feats,
+                                          p_conv_feats)
+        att2, att2_w, _ = region_attention_beam(
+            core.attention2, h3, pool_feats, p_pool_feats, mask, mask,
+            mode=cfg.region_attn_mode)
+
+        if cfg.att_input_mode == "both":
+            lang_in = att + att2
+        elif cfg.att_input_mode == "featmap":
+            lang_in = att
+        elif cfg.att_input_mode == "region":
+            lang_in = att2
+        else:                                   # dual_region
+            att2_dual, _, _ = region_attention_beam(
+                core.attention2_dual, h3, pool_feats, p_pool_feats, mask,
+                mask, mode=cfg.region_attn_mode)
+            dual_p = torch.sigmoid(_lin(core.dual_pointer[0], h3))
+            lang_in = dual_p * att2 + (1.0 - dual_p) * att2_dual
+
+        lang_lstm_in = torch.cat([lang_in.reshape(B * W, -1), h_att], dim=1)
+        h_lang, (h_lang_, c_lang) = lstm_cell(
+            core.lang_lstm, lang_lstm_in, (state.h_lang, state.c_lang))
+        return h_lang, CoreState(h_att_, c_att, h_lang_, c_lang), \
+            att2_w.reshape(B * W, -1)
+
     def init_state(self, batch_size: int, device) -> CoreState:
         z = torch.zeros((batch_size, self.cfg.rnn_size), dtype=self.dtype,
                         device=device)
@@ -561,6 +608,15 @@ class GVDModel(nn.Module):
                   else greedy_decode_fused_plain)
         seq, seq_lp, att2 = decode(self, enc, pnt_mask)
         return seq, seq_lp, att2, enc["sim_mat_static"]
+
+    @torch.no_grad()
+    def sample_beam(self, batch: Dict[str, torch.Tensor], *,
+                    beam_size: int) -> Tuple[torch.Tensor, ...]:
+        """Batched beam search (``models/beam.py::beam_search``) over the
+        banks of one encode.  Returns (seq (B, L) int32, seq_logprobs (B,
+        L) f32, att2_ind (B, L) int32, att2_frm_ind (B, L,
+        num_sampled_frm) int32)."""
+        return beam_search(self, self.encode(batch), beam_size=beam_size)
 
 
 def batch_to_tensors(batch: Dict, device) -> Dict[str, torch.Tensor]:

@@ -93,6 +93,58 @@ def region_attention(p: nn.Module, h: torch.Tensor,
     return att_res, grd_logits, att_h
 
 
+def temporal_attention_beam(p: nn.Module, h: torch.Tensor,
+                            att_feats: torch.Tensor,
+                            p_att_feats: torch.Tensor) -> torch.Tensor:
+    """Beam variant sharing one attention bank across W beams.
+
+    h (B, W, rnn); att_feats (B, T, rnn); p_att_feats (B, T, att_hid).
+    Returns (B, W, rnn): ``temporal_attention`` on W-replicated banks,
+    without materialising the W copies."""
+    att_h = _lin(p.h2att, h)                                  # (B, W, H)
+    dot = (p_att_feats[:, None] + att_h[:, :, None]).tanh_()  # (B,W,T,H)
+    scores = _lin(p.alpha_net, dot)[..., 0]                   # (B, W, T)
+    weight = torch.softmax(scores, dim=-1)
+    return torch.einsum("bwt,btd->bwd", weight, att_feats)
+
+
+def region_attention_beam(p: nn.Module, h: torch.Tensor,
+                          pool_feats: torch.Tensor,
+                          p_pool_feats: torch.Tensor,
+                          att_mask: torch.Tensor, pnt_mask: torch.Tensor, *,
+                          mode: str
+                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Beam variant of ``region_attention`` with banks shared by the W
+    beams, in plain torch for every mode (the JAX package's beam runs its
+    XLA attention, not the kernel).
+
+    h (B, W, rnn); pool_feats / p_pool_feats (B, R, *); masks (B, R).
+    Returns (att_res (B, W, rnn), grd_logits (B, W, R), att_h)."""
+    att_h = _lin(p.h2att, h)                                  # (B, W, H)
+    if mode in ("add", "mix"):
+        dot = (p_pool_feats[:, None] + att_h[:, :, None]).tanh_()
+        scores = _lin(p.alpha_net, dot)[..., 0]               # (B, W, R)
+    elif mode == "mix_mul":
+        dot = (p_pool_feats[:, None] * att_h[:, :, None]).tanh_()
+        scores = _lin(p.alpha_net, dot)[..., 0]
+    elif mode == "cat":
+        B, W, H = att_h.shape
+        R = p_pool_feats.shape[1]
+        dot = torch.cat([p_pool_feats[:, None].expand(B, W, R, H),
+                         att_h[:, :, None].expand(B, W, R, H)], dim=-1)
+        scores = _lin(p.alpha_net, dot.tanh_())[..., 0]
+    elif mode == "dp":
+        scores = torch.einsum("brh,bwh->bwr", p_pool_feats, att_h)
+    else:
+        raise ValueError(f"unknown region_attn_mode {mode!r}")
+
+    scores = scores.masked_fill(att_mask[:, None], MIN_VALUE)
+    grd_logits = scores.masked_fill(pnt_mask[:, None], MIN_VALUE)
+    weight = torch.softmax(scores, dim=-1)
+    att_res = torch.einsum("bwr,brd->bwd", weight, pool_feats)
+    return att_res, grd_logits, att_h
+
+
 def grounder(xt: torch.Tensor, att_feats: torch.Tensor, mask: torch.Tensor,
              bias: Optional[torch.Tensor] = None, *,
              alpha_net: Optional[nn.Linear] = None,

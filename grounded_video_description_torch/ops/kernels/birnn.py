@@ -228,7 +228,9 @@ def _plan_args(p: BirnnPlan):
 
 
 @functools.lru_cache(maxsize=None)
-def _max_clusters(code: int, mode: int, H: int, args: tuple) -> int:
+def _max_clusters(device: int, code: int, mode: int, H: int,
+                  args: tuple) -> int:
+    """The occupancy query on the current device, ``device``."""
     n = _build.lib().gvd_birnn_max_clusters(code, mode, H, *args)
     if n < 0:
         raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed: "
@@ -240,12 +242,14 @@ def card_plan(B: int, H: int, mode: str, dtype: torch.dtype) -> BirnnPlan:
     """``birnn_plan`` with ``max_clusters`` read on the card
     (cudaOccupancyMaxActiveClusters for the plan's own kernel and shared
     memory): from the finest tiling, replanned with the count the card
-    gives until every cluster of the plan is resident at once."""
+    gives until every cluster of the plan is resident at once.  The
+    answers are kept per card."""
     code, m = _build.DTYPE_CODES[dtype], MODE_CODES[mode]
     n = 2 * B
     for _ in range(4):
         plan = birnn_plan(B, H, mode, dtype, max_clusters=n)
-        got = _max_clusters(code, m, H, _plan_args(plan))
+        got = _max_clusters(torch.cuda.current_device(), code, m, H,
+                            _plan_args(plan))
         if plan.clusters <= got:
             return dataclasses.replace(plan, max_clusters=got)
         n = got

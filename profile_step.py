@@ -11,7 +11,11 @@ inference configuration (chip_smoke.py's ``flagship``: B = 100, 1000
 ROIs, 480 frames, 20 tokens, K1-K3 on) in each ``--dtype``, after one
 warm-up call, and prints the call's host seconds, the device-busy
 seconds, and the device time of K2, K1's GEMMs, K1's attention, K1's
-LayerNorms and K3, and the largest kernels.
+LayerNorms and K3, and the largest kernels.  ``--path beam`` does the
+same for ``sample_beam`` at each of chip_smoke.py's ``BEAM_WIDTHS`` (K1
+and K2 on), and in a second, unprofiled call times the shared-bank beam
+attentions (``region_attention_beam``, ``temporal_attention_beam``) with
+CUDA events around each call, and reads the call's peak device memory.
 
 For each path (chip_smoke.py's ``TRAIN_PATHS``: K5, K4, plain) and each
 ``--dtype`` it builds the flagship training configuration in that dtype
@@ -99,24 +103,37 @@ def device_times(prof):
     return busy_us(spans) / 1e6, len(spans), by_name
 
 
-def profile_serve(dtype: str, base, state, dev):
+def profiled_call(call):
+    """One warm-up ``call()``, then one under ``torch.profiler`` (CUDA
+    activity): (the call's host seconds, busy seconds, kernel count,
+    device us by kernel name)."""
     import torch
     from torch.profiler import ProfilerActivity, profile as torch_profile
+    call()                                                   # warm-up
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        call_s = time.perf_counter() - t0
+    return (call_s, *device_times(prof))
+
+
+def inference_model(dtype: str, base, state, dev):
+    """chip_smoke's flagship model in ``dtype`` and its batch of B."""
     from grounded_video_description_torch.data.synthetic import (
         synthetic_batch)
     from grounded_video_description_torch.models import batch_to_tensors
     from chip_smoke import B, model_of
+    return (model_of(base.replace(dtype=dtype), state, dev),
+            batch_to_tensors(synthetic_batch(base, B, seed=0), dev))
 
-    model = model_of(base.replace(dtype=dtype), state, dev)
-    batch = batch_to_tensors(synthetic_batch(base, B, seed=0), dev)
-    model.sample_greedy(batch)                               # warm-up
-    torch.cuda.synchronize()
-    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        model.sample_greedy(batch)
-        torch.cuda.synchronize()
-        call_s = time.perf_counter() - t0
-    busy, n, by_name = device_times(prof)
+
+def profile_serve(dtype: str, base, state, dev):
+    import torch
+    model, batch = inference_model(dtype, base, state, dev)
+    call_s, busy, n, by_name = profiled_call(
+        lambda: model.sample_greedy(batch))
     del model
     torch.cuda.empty_cache()
     return {"path": "serve", "dtype": dtype, "step_s": call_s,
@@ -124,6 +141,57 @@ def profile_serve(dtype: str, base, state, dev):
             "kernels": n,
             "groups": {g: sum(by_name[k] for k in names) / 1e6
                        for g, names in SERVE_GROUPS.items()},
+            "top": [(k, t / 1e6) for k, t in by_name.most_common(12)]}
+
+
+def profile_beam(dtype: str, width: int, base, state, dev):
+    import torch
+    from grounded_video_description_torch.models import gvd
+
+    model, batch = inference_model(dtype, base, state, dev)
+
+    def call():
+        return model.sample_beam(batch, beam_size=width)
+
+    call_s, busy, n, by_name = profiled_call(call)
+
+    # the beam attentions' device time: CUDA events around each call
+    spans = {"region_attention_beam": [], "temporal_attention_beam": []}
+    originals = {name: getattr(gvd, name) for name in spans}
+
+    def timed(name):
+        def wrapper(*args, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = originals[name](*args, **kw)
+            end.record()
+            spans[name].append((start, end))
+            return out
+        return wrapper
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    for name in spans:
+        setattr(gvd, name, timed(name))
+    try:
+        call()
+    finally:
+        for name, fn in originals.items():
+            setattr(gvd, name, fn)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev)
+    del model
+    torch.cuda.empty_cache()
+    return {"path": "beam", "dtype": dtype, "beam_size": width,
+            "step_s": call_s, "device_busy_s": busy,
+            "busy_share": busy / call_s, "kernels": n,
+            "groups": {
+                **{g: sum(by_name[k] for k in names) / 1e6
+                   for g, names in SERVE_GROUPS.items() if g != "K3"},
+                **{name: sum(a.elapsed_time(b) for a, b in ev) / 1e3
+                   for name, ev in spans.items()}},
+            "attention_calls": {name: len(ev) for name, ev in spans.items()},
+            "peak_memory_gb": peak / 1e9,
             "top": [(k, t / 1e6) for k, t in by_name.most_common(12)]}
 
 
@@ -165,7 +233,7 @@ def profile(path: str, dtype: str, state, dev):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--path", action="append",
-                    choices=["K5", "K4", "plain", "serve"])
+                    choices=["K5", "K4", "plain", "serve", "beam"])
     ap.add_argument("--dtype", action="append",
                     choices=["bfloat16", "float32"],
                     help="the dtypes of every path (default bfloat16)")
@@ -197,11 +265,32 @@ def main() -> int:
     state = GVDModel(base).init(torch.Generator().manual_seed(0)).state_dict()
     if args.out:
         os.makedirs(args.out, exist_ok=True)
+    serve = base.replace(seq_per_img=1, drop_prob_lm=0.5, use_pallas=True,
+                         use_pallas_rnn=True, use_pallas_encoder=True)
     for path in args.path or ["K5", "K4"]:
+        if path == "beam":
+            from chip_smoke import BEAM_WIDTHS
+            for dt in args.dtype or ["bfloat16"]:
+                for width in BEAM_WIDTHS:
+                    r = profile_beam(dt, width, serve, state, dev)
+                    r.update(tag=args.tag, device=smi)
+                    print(f"[{args.tag}] {dt} beam {width}, batch of 100: "
+                          f"{r['step_s']:.4f} s, device busy "
+                          f"{r['device_busy_s']:.4f} s "
+                          f"({100 * r['busy_share']:.1f}%), {r['kernels']} "
+                          f"kernels, peak {r['peak_memory_gb']:.2f} GB; "
+                          + ", ".join(f"{g} {t * 1e3:.3f} ms"
+                                      for g, t in r["groups"].items())
+                          + "; top: " + ", ".join(
+                              f"{k} {t * 1e3:.3f}" for k, t in r["top"][:8]),
+                          flush=True)
+                    if args.out:
+                        with open(os.path.join(
+                                args.out, f"profile-{args.tag}-beam{width}-"
+                                f"{dt}.json"), "w") as f:
+                            json.dump(r, f, indent=1)
+            continue
         if path == "serve":
-            serve = base.replace(seq_per_img=1, drop_prob_lm=0.5,
-                                 use_pallas=True, use_pallas_rnn=True,
-                                 use_pallas_encoder=True)
             for dt in args.dtype or ["bfloat16"]:
                 r = profile_serve(dt, serve, state, dev)
                 r.update(tag=args.tag, device=smi)

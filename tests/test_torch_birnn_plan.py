@@ -164,3 +164,37 @@ def test_plan_dataflow_matches_plain_twin(mode, B, H, max_clusters):
     got = _emulate(p, gi, wh, bh, mode)
     ref = birnn_recurrence_plain(gi, wh, bh, mode=mode, hidden=H)
     np.testing.assert_allclose(got.numpy(), ref.double().numpy(), atol=1e-5)
+
+
+def test_card_plan_asks_each_device(monkeypatch):
+    """The occupancy answer is kept per card: a second device index gets
+    its own query, not the first card's answer."""
+    device = {"index": 0}
+    answers = {0: 7, 1: 4}
+    asked = []
+
+    class FakeLib:
+        @staticmethod
+        def gvd_birnn_max_clusters(*args):
+            asked.append(device["index"])
+            return answers[device["index"]]
+
+    monkeypatch.setattr(kb._build, "lib", lambda: FakeLib)
+    monkeypatch.setattr(torch.cuda, "current_device",
+                        lambda: device["index"])
+    kb._max_clusters.cache_clear()
+    try:
+        plans = {}
+        for index in (0, 1, 0):
+            device["index"] = index
+            plans[index] = kb.card_plan(100, 512, "bigru", torch.float32)
+        assert plans[0].max_clusters == 7 and plans[1].max_clusters == 4
+        assert plans[0].clusters <= 7 and plans[1].clusters <= 4
+        assert 1 in asked
+        # the third plan, on device 0 again, is served from the cache
+        n0 = asked.count(0)
+        device["index"] = 0
+        kb.card_plan(100, 512, "bigru", torch.float32)
+        assert asked.count(0) == n0
+    finally:
+        kb._max_clusters.cache_clear()

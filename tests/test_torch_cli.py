@@ -433,16 +433,12 @@ def test_crash_recovery_and_start_from_inference_only(synth, driver_runs,
     assert not os.path.isdir(tmp_path / "none" / "model")
 
 
-@pytest.mark.parametrize("case", ["weight-transfer", "mesh", "multi-host",
-                                  "no-card"])
+@pytest.mark.parametrize("case", ["mesh", "multi-host", "no-card"])
 def test_unported_paths_raise(synth, tmp_path, case):
     cfg, paths = synth
     extra = ["--checkpoint_path", str(tmp_path / "save")]
     device = ["--device", "cpu"]
-    if case == "weight-transfer":
-        os.makedirs(tmp_path / "data" / "detectron_weights")
-        extra += ["--data_path", str(tmp_path / "data")]
-    elif case == "mesh":
+    if case == "mesh":
         extra += ["--mesh_shape", "2", "1"]
     elif case == "multi-host":
         extra += ["--coordinator_address", "localhost:1234"]

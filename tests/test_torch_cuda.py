@@ -21,6 +21,7 @@ from grounded_video_description_torch.models import (
     GVDModel, batch_to_tensors)
 from grounded_video_description_torch.models.transformer import Encoder
 from grounded_video_description_torch.ops.kernels import _build
+from grounded_video_description_torch.ops.kernels import birnn as kb
 from grounded_video_description_torch.ops.kernels.birnn import (
     birnn_recurrence, birnn_recurrence_plain, card_plan)
 from grounded_video_description_torch.ops.kernels.encoder_layer import (
@@ -746,3 +747,66 @@ def test_inference_wrappers_reject_device_mixes_and_grad(dev):
     with pytest.raises(RuntimeError, match="no backward"):
         greedy_decode_fused(model, enc, pnt)
     assert not _build.launches
+
+
+def _peaked_beam_model(cfg, dev):
+    """A tiny model of the flagship's shape whose vocab head, word
+    embedding and EOS logit are scaled up, so that beams fork and some
+    stop on EOS (as tests/test_torch_beam.py's weights do)."""
+    model = GVDModel(cfg).init(torch.Generator().manual_seed(6))
+    with torch.no_grad():
+        model.logit.weight.mul_(8.0)
+        model.logit.bias[0] += 0.5
+        model.embed[0].weight.mul_(3.0)
+    return model.to(dev).eval()
+
+
+@pytest.mark.cuda
+def test_sample_beam_through_k1_and_k2(dev):
+    """sample_beam at B = 4, W = 3 through K1 and K2 against the plain
+    path, f32: tokens and both grounding indices equal, logprobs within
+    1e-4; one encode's launches (K2: two BiGRU layers, K1: two layers on
+    the 3xTF32 route)."""
+    cfg = tiny_test_config(obj_interact=True)
+    batch = batch_to_tensors(synthetic_batch(cfg, 4, seed=7), dev)
+    outs = {}
+    for kernels in (True, False):
+        model = _peaked_beam_model(cfg.replace(
+            use_pallas_rnn=kernels, use_pallas_encoder=kernels), dev)
+        _build.reset_launches()
+        outs[kernels] = model.sample_beam(batch, beam_size=3)
+        torch.cuda.synchronize()
+        want = ({"birnn_recurrence": 2, "encoder_layer": 2,
+                 ATTENTION_ROUTES["tf32x3"]: 2, TF32_ROUTE: 2}
+                if kernels else {})
+        assert dict(_build.launches) == want
+    (seq, lp, att2, att2f), (rseq, rlp, ratt2, ratt2f) = (outs[True],
+                                                          outs[False])
+    assert (rseq > 0).any() and (rseq == 0).any()
+    assert torch.equal(seq, rseq)
+    assert torch.equal(att2, ratt2) and torch.equal(att2f, ratt2f)
+    assert _within(lp, rlp, torch.float32)
+
+
+@pytest.mark.cuda
+def test_birnn_plan_is_asked_per_device(dev):
+    """K2's occupancy answer read on device 0 is not served to device 1:
+    the plan there makes its own query, and its launch is right."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards")
+    kb._max_clusters.cache_clear()
+    with torch.cuda.device(0):
+        card_plan(100, 512, "bigru", torch.float32)
+    misses = kb._max_clusters.cache_info().misses
+    with torch.cuda.device(1):
+        card_plan(100, 512, "bigru", torch.float32)
+        assert kb._max_clusters.cache_info().misses > misses
+        d1 = torch.device("cuda", 1)
+        g = torch.Generator(device=d1).manual_seed(1)
+        gi = torch.randn(30, 2, 7, 120, generator=g, device=d1) * 0.5
+        wh = (torch.rand(2, 40, 120, generator=g, device=d1) * 2 - 1) / 40**.5
+        bh = (torch.rand(2, 120, generator=g, device=d1) * 2 - 1) / 40**.5
+        got = birnn_recurrence(gi, wh, bh, mode="bigru", hidden=40)
+        ref = birnn_recurrence_plain(gi, wh, bh, mode="bigru", hidden=40)
+        torch.cuda.synchronize(d1)
+    assert _within(got, ref, torch.float32)

@@ -116,10 +116,6 @@ def test_evaluator_refuses_what_is_not_ported(jax_eval):
     with pytest.raises(NotImplementedError, match="item 13"):
         Evaluator(cfg, model, vocab, mesh=object())
     batch = jax_eval["batches"][0]
-    arrays = {k: v for k, v in batch.items()
-              if k not in ("seg_id", "n_valid")}
-    with pytest.raises(NotImplementedError, match="item 11"):
-        Evaluator(cfg.replace(beam_size=3), model, vocab).generate(arrays)
     with pytest.raises(NotImplementedError, match="item 15"):
         Evaluator(cfg.replace(vis_attn=True, image_path="frames"), model,
                   vocab).evaluate([batch], out_dir=str(jax_eval["root"]

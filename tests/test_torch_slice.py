@@ -297,6 +297,11 @@ def test_port_imports_no_jax():
         "import grounded_video_description_torch.engine.checkpoint\n"
         "import grounded_video_description_torch.utils.logging\n"
         "import grounded_video_description_torch.main\n"
+        "import grounded_video_description_torch.models.beam\n"
+        "import grounded_video_description_torch.data.transfer\n"
+        "import grounded_video_description_torch.tools.eval_files\n"
+        "import grounded_video_description_torch.tools.overfit\n"
+        "import grounded_video_description_torch.tools.kernel_delta\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in"
         " ('jax', 'grounded_video_description_tpu'))\n"
