@@ -34,8 +34,12 @@ rates, three timed steps on each path, in turns.  Last the training
 driver (``grounded_video_description_torch.main.run``): two epochs of one
 bf16 step through K5, each validated over one batch of 100, checkpointed
 into a temporary directory, then resumed from the latest checkpoint by a
-second run.  Any failed check ends the
-run with a non-zero exit.
+second run.  Then the Masked-Transformer captioner (``att_model``
+"transformer", ``phase_transformer``) at the same width: greedy through K1
+and K2 against plain, a train step through K5 against the plain
+attention, segments/s, the evaluator; and greedy over int8 attention
+banks (``quantize_banks``) on the TopDown weights.  Any failed check ends
+the run with a non-zero exit.
 
 Output: human-readable lines, then the card's name and power limit, then
 one JSON line with a row per kernel and dtype (f32, bf16): its launches
@@ -1042,15 +1046,17 @@ def train_config():
                      grad_clip=0.1, use_pallas=False).validate()
 
 
-def phase_train(dev, state):
-    """Trainer.train_step at the flagship training configuration through
-    K5 (``use_pallas_encoder_train``), K4 (``attn_train_impl="pallas"``)
-    and the plain attention: in f32 with every dropout 0 one step each,
-    K5 and K4 against plain; in bf16 at the flagship rates a warm-up and
-    three timed steps each, taken in turns (K5, K4, plain, then the
-    reverse), with each step's launch counts checked.  Returns the launch
-    counts of the K4 and K5 runs per dtype: the f32 step's, and the bf16
-    timed steps'."""
+def phase_train(dev, state, family="topdown", paths=None):
+    """Trainer.train_step at the flagship training configuration of
+    caption family ``family`` (``att_model``) through ``paths`` (default
+    ``TRAIN_PATHS``: K5, ``use_pallas_encoder_train``; K4,
+    ``attn_train_impl="pallas"``; the plain attention): in f32 with every
+    dropout 0 one step each, each kernel path against plain; in bf16 at
+    the flagship rates a warm-up and three timed steps each, taken in
+    turns (in order, then the reverse), with each step's launch counts
+    checked.  Returns the launch counts of the kernel paths per dtype (the
+    f32 step's, and the bf16 timed steps') and the bf16 segments/s per
+    path."""
     import torch
     from grounded_video_description_torch.data.synthetic import synthetic_batch
     from grounded_video_description_torch.engine.trainer import (
@@ -1058,7 +1064,8 @@ def phase_train(dev, state):
     from grounded_video_description_torch.models import GVDModel
     from grounded_video_description_torch.ops.kernels import _build
 
-    base = train_config()
+    paths = paths or TRAIN_PATHS
+    base = train_config().replace(att_model=family)
     BT, ACCUM = base.batch_size, base.grad_accum
     t0 = time.perf_counter()
     batch = synthetic_batch(base, BT, seed=0)
@@ -1086,7 +1093,7 @@ def phase_train(dev, state):
 
     # (a) f32, every dropout rate 0: K5 and K4 against the plain attention
     stats, f32_counts = {}, {}
-    for name, flags in TRAIN_PATHS.items():
+    for name, flags in paths.items():
         cfg = base.replace(drop_prob_lm=0.0, loc_drop=0.0, enc_drop=0.0,
                            **flags)
         tr = trainer_for(cfg)
@@ -1099,7 +1106,7 @@ def phase_train(dev, state):
         f32_counts.update(_build.launches)
         del tr
         torch.cuda.empty_cache()
-    for name in ("K5", "K4"):
+    for name in (n for n in paths if n != "plain"):
         for k in terms:
             a, b = stats[name][k], stats["plain"][k]
             check(abs(a - b) <= 1e-4 * abs(b),
@@ -1107,20 +1114,21 @@ def phase_train(dev, state):
         a, b = stats[name]["grad_norm"], stats["plain"]["grad_norm"]
         check(abs(a - b) <= 1e-3 * abs(b),
               f"f32 step grad norm: {name} {a} vs {b}")
-        print(f"train f32 drop 0, {name} vs plain attention: " + ", ".join(
-            f"{k} {stats[name][k]:.6f} / {stats['plain'][k]:.6f}"
-            for k in terms + ("grad_norm",)), flush=True)
+        print(f"train {family} f32 drop 0, {name} vs plain attention: "
+              + ", ".join(f"{k} {stats[name][k]:.6f} / "
+                          f"{stats['plain'][k]:.6f}"
+                          for k in terms + ("grad_norm",)), flush=True)
 
     # (b) bf16 at the flagship dropout rates, the timed steps in turns
     runs = {}
-    for name, flags in TRAIN_PATHS.items():
+    for name, flags in paths.items():
         cfg = base.replace(dtype="bfloat16", **flags)
         tr = trainer_for(cfg)
         dev_batch = batch_to_device(cfg, batch, dev)
         tr.train_step(dev_batch, cfg.learning_rate)          # warm-up
         torch.cuda.synchronize()
         runs[name] = (cfg, tr, dev_batch, [], {})
-    order = list(TRAIN_PATHS)
+    order = list(paths)
     for step in range(3):
         for name in (order if step % 2 == 0 else order[::-1]):
             cfg, tr, dev_batch, times, counts = runs[name]
@@ -1137,17 +1145,19 @@ def phase_train(dev, state):
             losses = {k: float(v) for k, v in m.items()}
             check(all(math.isfinite(v) for v in losses.values()),
                   f"bf16 {name} step {step} losses {losses}")
-            print(f"train bf16 {name} step {step}: " + ", ".join(
+            print(f"train {family} bf16 {name} step {step}: " + ", ".join(
                 f"{k} {v:.5f}" for k, v in losses.items())
                 + f"; {times[-1]:.3f} s", flush=True)
     rates = {name: BT / statistics.median(r[3]) for name, r in runs.items()}
-    print("train bf16 segments/s (median of 3 steps, in turns): " + ", ".join(
-        f"{name} {rate:.2f}" for name, rate in rates.items()), flush=True)
-    launches = {"float32": f32_counts,
-                "bfloat16": {**runs["K4"][4], **runs["K5"][4]}}
+    print(f"train {family} bf16 segments/s (median of 3 steps, in turns): "
+          + ", ".join(f"{name} {rate:.2f}" for name, rate in rates.items()),
+          flush=True)
+    launches = {"float32": f32_counts, "bfloat16": {}}
+    for name in paths:
+        launches["bfloat16"].update(runs[name][4])
     del runs
     torch.cuda.empty_cache()
-    return launches
+    return launches, rates
 
 
 def phase_end_to_end(dev, base, state):
@@ -1794,6 +1804,148 @@ def phase_driver(dev, state):
     return launches
 
 
+def sharpen_decoder(state):
+    """The transformer weights ``state`` with every decoder attention
+    projection and FFN output times 6: at random weights the input token's
+    own embedding wins every argmax (all EOS); scaled sublayers make the
+    encodings and the positions decide, so that the captions hold words
+    (tests/test_torch_transformer.py does the same)."""
+    state = dict(state)
+    for k in state:
+        if k.startswith("cap_model.decoder.layers.") and (
+                k.endswith(("wq.weight", "wk.weight", "wv.weight",
+                            "wo.weight", "linear2.weight"))):
+            state[k] = state[k] * 6.0
+    return state
+
+
+def phase_transformer(dev, base, state):
+    """The Masked-Transformer captioner (``att_model`` "transformer") at
+    flagship width (rnn 1024; its decoder 2 layers of 6 heads, d_hidden
+    512, cross-attending the conv (B, 480, 1024) and pool (B, 1000, 1024)
+    encodings), on seeded random weights with the decoder sharpened
+    (``sharpen_decoder``): ``sample_greedy`` at B = 100 in f32 and bf16
+    through K1 and K2 and on the plain path (f32 tokens >= 0.99 equal,
+    captions/s from CUDA events); ``phase_train`` through K5 and the plain
+    attention (an f32 step at dropout 0 each, losses 1e-4 relative, grad
+    norm 1e-3; three bf16 steps each, in turns, for segments/s);
+    ``Evaluator.evaluate`` over one batch of 100 (densecap and attn-gen
+    JSONs whole).  Then ``quantize_banks`` greedy on the TopDown
+    flagship's weights (``state``; the transformer refuses the flag) in
+    f32 and bf16, through K1, K2 and K3, beside the same decode over the
+    unquantized banks: captions/s and token agreement."""
+    import tempfile
+    import torch
+    from grounded_video_description_torch.data.synthetic import synthetic_batch
+    from grounded_video_description_torch.engine.evaluator import (
+        Evaluator, grounding_eval_cfg)
+    from grounded_video_description_torch.models import (
+        GVDModel, batch_to_tensors)
+    from grounded_video_description_torch.ops.kernels import _build
+    from grounded_video_description_torch.tools.eval_files import (
+        eval_references, eval_vocab)
+
+    tf = base.replace(att_model="transformer")
+    t0 = time.perf_counter()
+    tf_state = sharpen_decoder(GVDModel(tf).init(
+        torch.Generator().manual_seed(0)).state_dict())
+    print(f"transformer weights {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    L = base.seq_length
+    arrays = synthetic_batch(base, B, seed=0)
+    batch = batch_to_tensors(arrays, dev)
+
+    def greedy(cfg, weights, want, tag):
+        """sample_greedy of a model of ``cfg``: its outputs (finite, the
+        launches ``want``) and captions/s."""
+        m = model_of(cfg, weights, dev)
+        _build.reset_launches()
+        out = m.sample_greedy(batch)
+        torch.cuda.synchronize()
+        got = dict(_build.launches)
+        check(got == want, f"{tag} launches {got} != {want}")
+        check(tuple(out[0].shape) == (B, L), f"{tag} seq shape")
+        check(all(bool(torch.isfinite(t.float()).all()) for t in out),
+              f"{tag} outputs not finite")
+        rate = B / (time_ms(lambda: m.sample_greedy(batch), 3) / 1e3)
+        del m
+        torch.cuda.empty_cache()
+        return out, rate
+
+    # (a) greedy, f32 and bf16, K1 and K2 in the encode, and plain
+    for dtype in ("float32", "bfloat16"):
+        outs, rates = {}, {}
+        for kernels in (True, False):
+            outs[kernels], rates[kernels] = greedy(
+                tf.replace(dtype=dtype, use_pallas=kernels,
+                           use_pallas_rnn=kernels,
+                           use_pallas_encoder=kernels), tf_state,
+                ({"birnn_recurrence": 2, **k1_counts(dtype, 2)} if kernels
+                 else {}), f"transformer greedy {dtype} kernels={kernels}")
+        seq, lp, att2, _ = outs[True]
+        check(tuple(att2.shape) == (B, L, R) and not att2.any()
+              and not lp.any(), "transformer greedy: logprobs and att2 "
+              "must be zeros")
+        agree = float((seq == outs[False][0]).float().mean())
+        words = int(torch.unique(seq[seq > 0]).numel())
+        print(f"transformer greedy {dtype}: token agreement {agree:.4f} "
+              f"({words} distinct words, {float((seq > 0).float().mean()):.3f}"
+              f" of tokens not EOS); captions/s kernels {rates[True]:.2f}, "
+              f"plain {rates[False]:.2f}", flush=True)
+        if dtype == "float32":
+            check(agree >= 0.99, f"transformer f32 token agreement {agree}")
+
+    # (b) the train step through K5 and the plain attention: f32 at
+    # dropout 0 against each other, bf16 segments/s
+    phase_train(dev, tf_state, "transformer",
+                {name: TRAIN_PATHS[name] for name in ("K5", "plain")})
+
+    # (c) the evaluator over one batch of B, f32, its JSONs whole
+    arrays["seg_id"] = [f"v_TF{b:04d}_segment_{b % 3:02d}" for b in range(B)]
+    arrays["n_valid"] = B
+    vocab = eval_vocab(base)
+    with tempfile.TemporaryDirectory() as root:
+        cfg = grounding_eval_cfg(tf.replace(
+            language_eval=True, eval_obj_grounding=True, id="transformer",
+            **eval_references(root, base, vocab, [arrays])))
+        m = model_of(cfg, tf_state, dev)
+        _build.reset_launches()
+        stats = Evaluator(cfg, m, vocab).evaluate(
+            [arrays], out_dir=os.path.join(root, "out"))
+        got = dict(_build.launches)
+        want = {"birnn_recurrence": 2}
+        if cfg.use_pallas_encoder:
+            want.update(k1_counts("float32", 2))
+        check(got == want, f"transformer evaluate launches {got} != {want}")
+        check(all(isinstance(v, str) or math.isfinite(v)
+                  for v in stats.values()), f"evaluate stats {stats}")
+        check_eval_files(os.path.join(root, "out"), cfg, arrays["seg_id"],
+                         {s.split("_segment_")[0] for s in arrays["seg_id"]},
+                         kinds=("attn-gen",))
+        print(f"transformer evaluate float32: captions/s "
+              f"{stats['captions_per_sec']:.2f}; CIDEr "
+              f"{stats['CIDEr']:.4f}, grd_f1_all "
+              f"{stats['grd_f1_all']:.4f}", flush=True)
+        del m
+        torch.cuda.empty_cache()
+
+    # (d) int8 banks: the TopDown flagship's step loop (K1, K2, K3) over
+    # quantized and over unquantized banks
+    for dtype in ("float32", "bfloat16"):
+        want = {"birnn_recurrence": 2, "region_attention": L,
+                **k1_counts(dtype, 2)}
+        outs, rates = {}, {}
+        for q in (True, False):
+            outs[q], rates[q] = greedy(
+                base.replace(dtype=dtype, quantize_banks=q), state, want,
+                f"greedy {dtype} quantize_banks={q}")
+        agree = float((outs[True][0] == outs[False][0]).float().mean())
+        print(f"quantize_banks greedy {dtype} (group 128): token agreement "
+              f"with unquantized banks {agree:.4f}; captions/s int8 banks "
+              f"{rates[True]:.2f}, unquantized {rates[False]:.2f}",
+              flush=True)
+
+
 def check_eval_files(out_dir, cfg, seg_ids, vids,
                      kinds=("attn-gen", "attn-gt", "grd-gt")):
     """The densecap JSON and the grounding JSONs of ``kinds`` parse and
@@ -1883,9 +2035,10 @@ def main() -> int:
     for dt, counts in timed(phase_eval, dev, base, state).items():
         for name, n in counts.items():
             launches[dt].setdefault(name, n)
-    for dt, counts in timed(phase_train, dev, state).items():
+    for dt, counts in timed(phase_train, dev, state)[0].items():
         launches[dt].update(counts)
     driver = timed(phase_driver, dev, state)
+    timed(phase_transformer, dev, base, state)
     for name in ("encoder_layer_train_fwd", "encoder_layer_train_bwd"):
         launches["bfloat16"][name] = driver[name]
 

@@ -11,7 +11,8 @@ its Pallas kernels.  At inference: ``use_pallas`` (K3, the per-token
 region attention), ``use_pallas_rnn`` (K2, the BiRNN recurrence),
 ``use_pallas_encoder`` (K1, the obj_interact layer), ``use_pallas_mha``
 (K7, the obj_interact self-attention when K1 is off) and
-``use_pallas_decode`` (K6, the whole greedy decode).  In training:
+``use_pallas_decode`` (K6, the whole greedy decode; ``quantize_banks``
+takes the step loop with int8 banks instead).  In training:
 ``attn_train_impl`` (K4, the obj_interact attention: "xla" plain
 attention, "pallas" the kernel's forward and backward, "hybrid" the plain
 forward and the kernel's backward).  ``pallas_encoder_grounding_guard``
@@ -68,7 +69,7 @@ class GVDConfig:
     loc_encoding_size: int = 300
     seg_info_size: int = 50
 
-    att_model: str = "topdown"          # only topdown is ported
+    att_model: str = "topdown"          # topdown | transformer
     att_input_mode: str = "both"        # both | featmap | region | dual_region
     t_attn_mode: str = "bigru"          # bilstm | bigru
     transfer_mode: str = "cls"          # none | cls | glove | both
@@ -141,6 +142,10 @@ class GVDConfig:
     use_pallas_decode: bool = False     # K6
     use_pallas_encoder_train: bool = False   # K5; takes precedence over K4
     attn_train_impl: str = "xla"        # K4: xla | pallas | hybrid
+    # int8 attention banks at greedy decode time (ops/quantize.py):
+    # columns per abs-max scale group, 0 = one scale per row
+    quantize_banks: bool = False
+    quantize_group_size: int = 128
     # evaluations that score grounding run with K1 off
     # (engine/evaluator.py::grounding_eval_cfg)
     pallas_encoder_grounding_guard: bool = True
@@ -200,9 +205,19 @@ class GVDConfig:
     def validate(self) -> "GVDConfig":
         if self.enable_BUTD and self.att_input_mode != "region":
             raise ValueError("region attention only under the BUTD mode")
-        if self.att_model != "topdown":
-            raise NotImplementedError(
-                f"att_model {self.att_model!r}: only topdown is ported")
+        if self.att_model not in ("topdown", "transformer"):
+            raise ValueError(f"unknown att_model {self.att_model!r}")
+        # two pairs the JAX package accepts and then mishandles: its
+        # transformer greedy decode reads a quantized bank's shape, and its
+        # beam search decodes with the untrained TopDown core
+        if self.att_model == "transformer" and self.quantize_banks:
+            raise ValueError("att_model transformer does not take "
+                             "quantize_banks: its decoder cross-attends "
+                             "the unquantized encodings")
+        if self.att_model == "transformer" and self.beam_size > 1:
+            raise ValueError("att_model transformer decodes greedily only "
+                             "(beam_size 1): beam search runs the TopDown "
+                             "core")
         if self.att_input_mode not in ("both", "featmap", "region",
                                        "dual_region"):
             raise ValueError(f"unknown att_input_mode {self.att_input_mode!r}")

@@ -69,10 +69,15 @@
 //     load and summed in the accumulators: an item sums one split's share
 //     of K (at most 384 deep at flagship), short enough for the tensor
 //     cores' truncating additions (K1's GEMM, 1024 deep, flushes them).
-//   - bf16 weights: mma.sync.m16n8k16; the f32 state enters as two bf16
-//     terms hi = bf16(x), lo = bf16(x - hi), two products (as K2's
-//     tensor-core route), so the product stays that of the f32 state and
-//     the bf16 weights to ~2^-16.
+//   - bf16 weights: mma.sync.m16n8k16, the state operands as the JAX K6
+//     takes them (ops/pallas/decode_scan.py): the embedding, fc, h_att
+//     (into h2att and the lang-LSTM's input), att + att2 and h_lang (into
+//     the logits) rounded to bf16 once at the fragment load, one product
+//     (its `.astype(xd)` before each dot); the recurrent h of both LSTMs,
+//     which the JAX K6 dots from its f32 scratch against the bf16 W_hh (an
+//     f32 product), as two bf16 terms hi = bf16(x), lo = bf16(x - hi), two
+//     products, to ~2^-18 of the f32 state (`recurrent`: the last segment
+//     of a phase of several).
 // Gate, softmax and log-softmax math in f32.  State (h, c of both cells),
 // the next input and every per-step intermediate are f32 buffers the
 // wrapper allocates; values written by other blocks are read with
@@ -271,6 +276,14 @@ __device__ __forceinline__ const Seg<T>& chunk_seg(const Gemm<T>& g, int c,
   return g.seg[s];
 }
 
+// Whether chunk c lies in the last segment of a phase of several: the
+// recurrent h of both LSTM phases, which bf16 keeps whole.
+template <typename T>
+__device__ __forceinline__ bool recurrent(const Gemm<T>& g, int c) {
+  int k0;
+  return g.nseg > 1 && &chunk_seg(g, c, k0) == &g.seg[g.nseg - 1];
+}
+
 // Chunk c's NC weight rows into a stage, 16 bytes a copy; rows at or past
 // N and columns at or past the segment's K arrive as zeros.
 template <typename T>
@@ -328,6 +341,12 @@ __device__ void prefetch_phase(const Gemm<T>& g, int B, char* ring) {
     prefetch_w(g, item_of(g, blockIdx.x), ring);
 }
 
+// Two f32 values rounded to a bf16 pair.
+__device__ __forceinline__ uint32_t round_bf16(float2 x) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x.x, x.y);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
 // Two f32 values as bf16 pairs hi = bf16(x), lo = bf16(x - hi).
 __device__ __forceinline__ void split_bf16(float2 x, uint32_t& hi,
                                            uint32_t& lo) {
@@ -361,10 +380,13 @@ __device__ __forceinline__ void mma_chunk(const float* Ws, const float* Xs,
   }
 }
 
+// bf16: `split` keeps the chunk's f32 state whole as hi + lo, two
+// products; else it is rounded to bf16, one product.
 __device__ __forceinline__ void mma_chunk(const __nv_bfloat16* Ws,
                                           const float* Xs,
                                           float (&acc)[2][8][4], int wm,
-                                          int wn, int lane, int rows) {
+                                          int wn, int lane, int rows,
+                                          bool split) {
   constexpr int LDW = Ring<__nv_bfloat16>::LDW;
   constexpr int LDX = Ring<__nv_bfloat16>::LDX;
   const int g = lane >> 2, t = lane & 3;
@@ -382,12 +404,20 @@ __device__ __forceinline__ void mma_chunk(const __nv_bfloat16* Ws,
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const float* x = Xs + (rb + 8 * h + g) * LDX + kk + 2 * t;
-        uint32_t hi[2], lo[2];
-        split_bf16(*reinterpret_cast<const float2*>(x), hi[0], lo[0]);
-        split_bf16(*reinterpret_cast<const float2*>(x + 8), hi[1], lo[1]);
+        const float2 x0 = *reinterpret_cast<const float2*>(x);
+        const float2 x1 = *reinterpret_cast<const float2*>(x + 8);
+        uint32_t hi[2];
+        if (split) {
+          uint32_t lo[2];
+          split_bf16(x0, hi[0], lo[0]);
+          split_bf16(x1, hi[1], lo[1]);
 #pragma unroll
-        for (int m = 0; m < 2; ++m)
-          gvd::mma16816(acc[m][2 * p + h], a[m], lo[0], lo[1]);
+          for (int m = 0; m < 2; ++m)
+            gvd::mma16816(acc[m][2 * p + h], a[m], lo[0], lo[1]);
+        } else {
+          hi[0] = round_bf16(x0);
+          hi[1] = round_bf16(x1);
+        }
 #pragma unroll
         for (int m = 0; m < 2; ++m)
           gvd::mma16816(acc[m][2 * p + h], a[m], hi[0], hi[1]);
@@ -433,9 +463,13 @@ __device__ void gemm_phase(const Gemm<T>& g, float* part, int B, char* ring,
       }
       cp_async_commit();
       const char* st = ring + (c % STAGES) * Ring<T>::STAGE;
-      mma_chunk(reinterpret_cast<const T*>(st),
-                reinterpret_cast<const float*>(st + Ring<T>::W_BYTES), acc,
-                wm, wn, lane, rows);
+      const T* Ws = reinterpret_cast<const T*>(st);
+      const float* Xs = reinterpret_cast<const float*>(st + Ring<T>::W_BYTES);
+      if constexpr (sizeof(T) == 4)
+        mma_chunk(Ws, Xs, acc, wm, wn, lane, rows);
+      else
+        mma_chunk(Ws, Xs, acc, wm, wn, lane, rows,
+                  recurrent(g, im.c0 + c));
     }
     cp_async_wait<0>();
     __syncthreads();                 // the ring is free for the next item
@@ -732,6 +766,7 @@ __global__ void __launch_bounds__(THREADS, 2) decode_kernel(const Args<T> a) {
     float* ha = a.h_att + ((t + 1) & 1) * BH;
     const float* hl_prev = a.h_lang + (t & 1) * BH;
     float* hl = a.h_lang + ((t + 1) & 1) * BH;
+    // each LSTM's recurrent h is its phase's last segment (`recurrent`)
     const Gemm<T> g_att = {{{a.xt, a.E, a.w_att_x, a.E, a.E},
                             {ha_prev, H, a.w_att_h, H, H}},
                            2, 4 * H, a.s_att};

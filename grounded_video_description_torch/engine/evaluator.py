@@ -16,7 +16,10 @@ Batches are the numpy dicts of the dataset loader; ``generate`` moves
 each to the model's device and calls ``GVDModel.sample_greedy`` or
 ``GVDModel.forward(mode="GRD")`` directly (PyTorch runs eagerly: there is
 nothing to jit); ``beam_size > 1`` takes ``GVDModel.sample_beam``, whose
-per-frame argmaxes of the best beam ground the generated words.  The model
+per-frame argmaxes of the best beam ground the generated words.  The
+transformer family's greedy decode returns zero region logits, so its
+generated words ground on proposal 0 of each frame, as in the JAX
+evaluator.  The model
 holds its weights, so unlike the JAX evaluator no ``variables`` are
 passed.  Not ported: the attention-overlay visualization (``vis_attn``,
 ROADMAP Queue 1 item 15) and a device mesh (item 13); each raises

@@ -10,8 +10,11 @@ latest checkpoint in ``--checkpoint_path``, or ``--start_from`` a run's
 directory, best or latest by ``--load_best_score``), then the epoch loop:
 ``Trainer.fit_epoch``, and every ``val_every_epoch`` epochs
 ``Evaluator.evaluate`` and, under ``eval_obj_grounding_gt``,
-``eval_grounding_gt``, with a checkpoint after each validation and
-``model-best`` where CIDEr rose.  The evaluation JSONs are written under
+``eval_grounding_gt`` (the TopDown family only: it grounds through the
+TopDown core's attention), with a checkpoint after each validation and
+``model-best`` where CIDEr rose.  ``--att_model transformer`` trains and
+decodes the Masked-Transformer captioner; ``--quantize_banks`` decodes
+over int8 attention banks.  The evaluation JSONs are written under
 the working directory, as the JAX driver writes them.
 
 ``--device`` (default ``cuda``) is read before the config's flags.  With

@@ -6,7 +6,11 @@ encode path (model.py:302-409 / 504-568), the TopDown core
 (AttModel.py:134-164), the MLE forward with its four losses and the GRD
 forward (model.py:283-489), greedy UNK-suppressed sampling
 (model.py:492-624) and batched beam search (``models/beam.py``, reference
-misc/CaptionModelBU.py).  The transformer captioner is not ported yet.
+misc/CaptionModelBU.py).  With ``att_model`` "transformer" the caption
+model is the Masked-Transformer decoder of ``models/transformer.py``
+(model.py:411-419, 570-578): its LM loss alone in training, its argmax
+greedy decode at inference, over the same encode.  ``quantize_banks``
+decodes greedily over int8 attention banks (``ops/quantize.py``).
 
 Parameters are float32 and named after the reference state dict, so
 ``engine/checkpoint.py::import_torch_checkpoint`` of the JAX package
@@ -55,6 +59,9 @@ from grounded_video_description_torch.ops.geometry import (
 )
 from grounded_video_description_torch.ops.kernels.decode_scan import (
     greedy_decode_fused, greedy_decode_fused_plain,
+)
+from grounded_video_description_torch.ops.quantize import (
+    dequantize, quantize_rows,
 )
 
 
@@ -149,6 +156,10 @@ class GVDModel(nn.Module):
         if cfg.obj_interact:
             # 2 layers, 6 heads, d_hidden = rnn/2 (model.py:126-135)
             self.obj_interact = xf.ObjInteract(rnn, rnn // 2, 2)
+        if cfg.att_model == "transformer":
+            # 2 layers, 6 heads, d_hidden = rnn/2 (gvd.py:152-154)
+            self.cap_model = xf.CaptionModel(rnn, rnn // 2, cfg.vocab_size,
+                                             2)
 
     # ------------------------------------------------------------------ #
     # init: the JAX package's distributions, from an explicit generator
@@ -390,6 +401,15 @@ class GVDModel(nn.Module):
         return h_lang, CoreState(h_att_, c_att, h_lang_, c_lang), \
             att2_w.reshape(B * W, -1)
 
+    def _transformer_encodings(self, conv_feats, pool_feats):
+        """What decoder layers 0 and 1 cross-attend (model.py:411-417)."""
+        mode = self.cfg.att_input_mode
+        if mode == "both":
+            return [conv_feats, pool_feats]
+        if mode == "featmap":
+            return [conv_feats, conv_feats]
+        return [pool_feats, pool_feats]
+
     def init_state(self, batch_size: int, device) -> CoreState:
         z = torch.zeros((batch_size, self.cfg.rnn_size), dtype=self.dtype,
                         device=device)
@@ -437,13 +457,20 @@ class GVDModel(nn.Module):
         denominators of the count renormalization.
 
         Returns sim_target (B, K, R), roi_labels (sb, L, R), step_pnt
-        (sb, L, R+1), and f32 txt/roi/cls counts (sb = B * seq_per_img)."""
+        (sb, L, R+1), and f32 txt/roi/cls counts (sb = B * seq_per_img).
+        The transformer family has no box supervision: its counts alone,
+        the txt count the non-pad targets that ``decoder_xe_loss``
+        averages over, roi and cls counts 1."""
         cfg = self.cfg
         S, Lq = cfg.seq_per_img, cfg.seq_length
         gt_seq = batch["gt_seq"].long()
         B = gt_seq.shape[0]
         sb = B * S
         tgt = gt_seq[:, :S, :].reshape(sb, Lq)
+        if cfg.att_model == "transformer":
+            one = torch.ones((), device=gt_seq.device)
+            return {"txt_count": (tgt > 0).sum().float(), "roi_count": one,
+                    "cls_count": one}
         # the txt mask counts the END position: [1, tgt[:-1] > 0]
         txt_count = ((tgt[:, :Lq - 1] > 0).sum() + sb).float()
         gt_boxes = batch["gt_boxes"].float()
@@ -498,15 +525,54 @@ class GVDModel(nn.Module):
         batch's that gradient accumulation passes.
         mode "GRD": grounding on GT sentences at eval, without gradients:
         returns sim_target, pred_cls (B, R) and the per-frame argmaxes
-        att2_ind / grd_ind (sb, L, num_sampled_frm)."""
+        att2_ind / grd_ind (sb, L, num_sampled_frm).
+
+        With att_model "transformer", MLE is the decoder's LM loss alone
+        (the other three 0, roi and cls counts 1); GRD, which grounds
+        through the TopDown core's attention, raises."""
         if mode not in ("MLE", "GRD"):
             raise ValueError(f"unknown mode {mode!r}")
+        if self.cfg.att_model == "transformer":
+            if mode == "GRD":
+                raise ValueError("mode GRD grounds through the TopDown "
+                                 "core's region attention; att_model "
+                                 "transformer has none")
+            return self._transformer_lm(batch, train=train,
+                                        generator=generator)
         if mode == "GRD":
             with torch.no_grad():
                 return self._teacher_forced(batch, grd=True, train=False,
                                             generator=None, sup=sup)
         return self._teacher_forced(batch, grd=False, train=train,
                                     generator=generator, sup=sup)
+
+    def _transformer_lm(self, batch, *, train: bool, generator):
+        """The Masked-Transformer family's MLE forward (gvd.py:638-655 of
+        the JAX package): the decoder's cross-entropy over the first
+        seq_per_img captions at dropout ``enc_drop``; txt_count is its
+        exact denominator, so count renormalization holds."""
+        cfg = self.cfg
+        S, Lq = cfg.seq_per_img, cfg.seq_length
+        gt_seq = batch["gt_seq"].long()
+        sb = gt_seq.shape[0] * S
+        seq = torch.cat([torch.zeros((sb, 1), dtype=torch.long,
+                                     device=gt_seq.device),
+                         gt_seq[:, :S, :].reshape(sb, Lq)], dim=1)
+        enc = self.encode(batch, train=train, generator=generator)
+
+        def expand(x):
+            return x.repeat_interleave(S, dim=0) if S > 1 else x
+
+        lm_loss = xf.decoder_xe_loss(
+            self.cap_model.decoder, self._transformer_encodings(
+                expand(enc["conv_feats"]), expand(enc["pool_feats"])),
+            seq, n_heads=6, drop=cfg.enc_drop, train=train,
+            generator=generator)
+        zero = torch.zeros((), device=seq.device)
+        one = torch.ones((), device=seq.device)
+        return ({"lm_loss": lm_loss, "att2_loss": zero, "ground_loss": zero,
+                 "cls_loss": zero, "txt_count": (seq[:, 1:] > 0).sum().float(),
+                 "roi_count": one, "cls_count": one}, enc["bn_state"])
 
     def _teacher_forced(self, batch, *, grd: bool, train: bool, generator,
                         sup):
@@ -598,12 +664,36 @@ class GVDModel(nn.Module):
         (``greedy_decode_fused``; any batch size, where the TPU kernel's
         tile needed B % 4 == 0); otherwise the step loop
         ``greedy_decode_fused_plain``.  Both give the same outputs,
-        dtypes and shapes."""
+        dtypes and shapes.
+
+        With ``quantize_banks`` the four attention banks are quantized to
+        int8 (gvd.py:788-795 of the JAX package) and dequantized once into
+        the compute dtype, and the step loop decodes over them (K3 inside
+        it where ``use_pallas`` asks), not K6 (gvd.py:812).
+
+        With att_model "transformer" the decoder's argmax greedy decode
+        over the encodings (gvd.py:799-807): seq, zero f32 logprobs, zero
+        f32 att2 (B, L, max_proposal) and sim_mat_static."""
         cfg = self.cfg
         enc = self.encode(batch)
         pnt_mask = enc["pnt_mask"]
+        if cfg.att_model == "transformer":
+            seq = xf.decoder_greedy(
+                self.cap_model.decoder, self._transformer_encodings(
+                    enc["conv_feats"], enc["pool_feats"]),
+                cfg.seq_length, n_heads=6)
+            B, L, dev = seq.shape[0], cfg.seq_length, seq.device
+            return (seq, torch.zeros((B, L), device=dev),
+                    torch.zeros((B, L, cfg.max_proposal), device=dev),
+                    enc["sim_mat_static"])
+        if cfg.quantize_banks:
+            for k in ("pool_feats", "p_pool_feats", "conv_feats",
+                      "p_conv_feats"):
+                enc[k] = dequantize(quantize_rows(
+                    enc[k], cfg.quantize_group_size), self.dtype)
         decode = (greedy_decode_fused
-                  if (cfg.use_pallas_decode and cfg.att_input_mode == "both"
+                  if (cfg.use_pallas_decode and not cfg.quantize_banks
+                      and cfg.att_input_mode == "both"
                       and cfg.region_attn_mode in ("add", "mix"))
                   else greedy_decode_fused_plain)
         seq, seq_lp, att2 = decode(self, enc, pnt_mask)
@@ -615,7 +705,11 @@ class GVDModel(nn.Module):
         """Batched beam search (``models/beam.py::beam_search``) over the
         banks of one encode.  Returns (seq (B, L) int32, seq_logprobs (B,
         L) f32, att2_ind (B, L) int32, att2_frm_ind (B, L,
-        num_sampled_frm) int32)."""
+        num_sampled_frm) int32).  The TopDown family only."""
+        if self.cfg.att_model != "topdown":
+            raise ValueError("beam search decodes with the TopDown core; "
+                             f"att_model {self.cfg.att_model!r} decodes "
+                             "greedily")
         return beam_search(self, self.encode(batch), beam_size=beam_size)
 
 

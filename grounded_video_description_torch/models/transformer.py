@@ -1,5 +1,6 @@
-"""Post-LN transformer encoder for the obj_interact region bank (the
-encoder half of ``grounded_video_description_tpu/models/transformer.py``).
+"""Post-LN transformer: the obj_interact region encoder and the
+Masked-Transformer caption decoder (the port of
+``grounded_video_description_tpu/models/transformer.py``).
 
 Behavioural contract from misc/transformer.py:
   * post-LN residual blocks whose LayerNorm divides by (unbiased std +
@@ -7,10 +8,16 @@ Behavioural contract from misc/transformer.py:
   * multi-head attention with *chunked* head splitting (1024 dims over 6
     heads -> 171 x 5 + 169, transformer.py:118-123) and one shared
     sqrt(d_model) score scale (transformer.py:94);
-  * the encoder returns the per-layer encoding list.
+  * causal masking by subtracting an upper-triangular INF = 1e10 before
+    the division by the scale (transformer.py:100-104);
+  * the encoder returns the per-layer encoding list; decoder layer i
+    cross-attends encoding i (transformer.py:177-190, 206-212);
+  * the decoder's token embedding is its output projection's weight
+    scaled by sqrt(d_model) (tied, transformer.py:207).
 
 Module names follow the reference state dict
-(``obj_interact.encoder.layers.{i}.selfattn.layer.wq`` and so on).
+(``obj_interact.encoder.layers.{i}.selfattn.layer.wq``,
+``cap_model.decoder.layers.{i}.attention.layer.wk``, and so on).
 """
 
 from __future__ import annotations
@@ -18,6 +25,7 @@ from __future__ import annotations
 import math
 from typing import List, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -38,6 +46,9 @@ from grounded_video_description_torch.ops.kernels.mha import (
 # the K4 and K7 dispatch of the JAX package (models/transformer.py:157-159,
 # 179-180): self-attention over more than this many keys
 KERNEL_MIN_KEYS = 256
+# the causal mask's and the greedy decode's masking constant
+# (transformer.py:100-104), not -inf, as in the JAX package
+INF = 1e10
 
 
 class LayerNormParams(nn.Module):
@@ -259,3 +270,215 @@ def encoder_apply(enc: Encoder, x: torch.Tensor, *, n_heads: int,
             x = fused_encoder_layer_plain(x, lp.weights(), n_heads=n_heads)
         encodings.append(x)
     return encodings
+
+
+# --------------------------------------------------------------------- #
+# the Masked-Transformer caption decoder (att_model "transformer")
+# --------------------------------------------------------------------- #
+
+def positional_encodings(T: int, D: int, dtype=torch.float32,
+                         device=None) -> torch.Tensor:
+    """(T, D): even channel c sin(pos / 10000^(c / D)), odd channel c
+    cos(pos / 10000^((c - 1) / D)), computed in float64, then cast."""
+    pos = np.arange(T, dtype=np.float64)[:, None]
+    chan = np.arange(D, dtype=np.float64)[None, :]
+    angle = pos / np.power(10000.0, np.where(chan % 2 == 0, chan,
+                                             chan - 1) / D)
+    enc = np.where(chan % 2 == 0, np.sin(angle), np.cos(angle))
+    return torch.from_numpy(enc).to(dtype=dtype, device=device)
+
+
+class DecoderLayer(nn.Module):
+    def __init__(self, d_model: int, d_hidden: int):
+        super().__init__()
+        self.selfattn = ResidualBlock(MultiHeadParams(d_model), d_model)
+        self.attention = ResidualBlock(MultiHeadParams(d_model), d_model)
+        self.feedforward = ResidualBlock(
+            FeedForwardParams(d_model, d_hidden), d_model)
+
+
+class Decoder(nn.Module):
+    """Layers of causal self-attention, cross-attention and a ReLU FFN,
+    and ``out`` (d_model -> vocab, with bias), whose weight is also the
+    token embedding."""
+
+    def __init__(self, d_model: int, d_hidden: int, vocab: int,
+                 n_layers: int):
+        super().__init__()
+        self.layers = nn.ModuleList(
+            DecoderLayer(d_model, d_hidden) for _ in range(n_layers))
+        self.out = nn.Linear(d_model, vocab)
+
+
+class CaptionModel(nn.Module):
+    """The captioner of att_model "transformer" (model.py:411-419): 2
+    decoder layers, 6 heads, FFN width d_model / 2."""
+
+    def __init__(self, d_model: int, d_hidden: int, vocab: int,
+                 n_layers: int):
+        super().__init__()
+        self.decoder = Decoder(d_model, d_hidden, vocab, n_layers)
+
+
+def _heads(t: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """(B, T, D) -> (B, heads, T, ceil(D / heads)), the feature tail zero-
+    padded: a padded column adds zero to every score and its output
+    column is sliced away, so this is the reference's uneven chunks."""
+    B, T, D = t.shape
+    width = -(-D // n_heads)
+    t = F.pad(t, (0, width * n_heads - D))
+    return t.reshape(B, T, n_heads, width).transpose(1, 2)
+
+
+def _merge(o: torch.Tensor, D: int) -> torch.Tensor:
+    B, h, T, width = o.shape
+    return o.transpose(1, 2).reshape(B, T, h * width)[..., :D]
+
+
+def _attend(p: MultiHeadParams, q: torch.Tensor, k: torch.Tensor,
+            v: torch.Tensor, *, causal: bool, drop: float, train: bool,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Heads q (B, h, Tq, w), k and v (B, h, Tk, w) -> the output
+    projection of their attention (B, Tq, D).  Scores in the operands'
+    dtype (as the JAX einsum), softmax in f32 at the shared scale
+    sqrt(D); dropout on the probs."""
+    D = p.wo.weight.shape[0]
+    s = (q @ k.transpose(-1, -2)).float()
+    if causal:
+        Tk = k.shape[2]
+        s = s - torch.full((Tk, Tk), INF, device=s.device).triu(1)
+    w = dropout(torch.softmax(s / math.sqrt(D), dim=-1), drop, train=train,
+                generator=generator)
+    o = _merge(w.to(v.dtype) @ v, D)
+    return F.linear(o, p.wo.weight.to(o.dtype))
+
+
+def _project(w: nn.Linear, x: torch.Tensor, dt: torch.dtype,
+             n_heads: int) -> torch.Tensor:
+    """The heads of x W^T, made in x's dtype and taken in ``dt``."""
+    return _heads(F.linear(x, w.weight.to(x.dtype)).to(dt), n_heads)
+
+
+def _mha(p: MultiHeadParams, query: torch.Tensor, kv: torch.Tensor, *,
+         n_heads: int, causal: bool, drop: float, train: bool,
+         generator: Optional[torch.Generator]) -> torch.Tensor:
+    dt = query.dtype
+    return _attend(p, _project(p.wq, query, dt, n_heads),
+                   _project(p.wk, kv, dt, n_heads),
+                   _project(p.wv, kv, dt, n_heads), causal=causal,
+                   drop=drop, train=train, generator=generator)
+
+
+def _residual(block: ResidualBlock, x: torch.Tensor, sub: torch.Tensor, *,
+              drop: float, train: bool,
+              generator: Optional[torch.Generator]) -> torch.Tensor:
+    """LayerNorm(x + dropout(sub)), the statistics in f32."""
+    sub = dropout(sub, drop, train=train, generator=generator)
+    ln = block.layernorm
+    return layer_norm_affine(ln.gamma, ln.beta, x.float() + sub.float(),
+                             LN_EPS, use_std=True).to(x.dtype)
+
+
+def _ff(p: FeedForwardParams, x: torch.Tensor) -> torch.Tensor:
+    dt = x.dtype
+    h = F.relu(F.linear(x, p.linear1.weight.to(dt), p.linear1.bias.to(dt)))
+    return F.linear(h, p.linear2.weight.to(dt), p.linear2.bias.to(dt))
+
+
+def _embed(dec: Decoder, tokens: torch.Tensor) -> torch.Tensor:
+    """The tied embedding: rows of ``out``'s weight times sqrt(d_model)
+    (f32, as the parameters)."""
+    return dec.out.weight[tokens] * math.sqrt(dec.out.weight.shape[1])
+
+
+def decoder_apply(dec: Decoder, tokens: torch.Tensor,
+                  encodings: List[torch.Tensor], *, n_heads: int,
+                  drop: float, train: bool = False,
+                  generator: Optional[torch.Generator] = None
+                  ) -> torch.Tensor:
+    """Teacher-forced pass over ``tokens`` (B, T) -> (B, T, d_model) in f32
+    (the embedding's dtype; each encoding's projections are made in its
+    own dtype).  Dropout at the JAX package's sites: the embedding plus
+    positions, and per layer the two attentions' probs and the three
+    residuals (transformer.py:281-293)."""
+    D = encodings[0].shape[-1]
+    x = _embed(dec, tokens)
+    x = x + positional_encodings(x.shape[1], D, x.dtype, x.device)[None]
+    x = dropout(x, drop, train=train, generator=generator)
+    kw = dict(drop=drop, train=train, generator=generator)
+    for layer, enc in zip(dec.layers, encodings):
+        a = _mha(layer.selfattn.layer, x, x, n_heads=n_heads, causal=True,
+                 **kw)
+        x = _residual(layer.selfattn, x, a, **kw)
+        c = _mha(layer.attention.layer, x, enc, n_heads=n_heads,
+                 causal=False, **kw)
+        x = _residual(layer.attention, x, c, **kw)
+        x = _residual(layer.feedforward, x, _ff(layer.feedforward.layer, x),
+                      **kw)
+    return x
+
+
+def decoder_xe_loss(dec: Decoder, encodings: List[torch.Tensor],
+                    seq: torch.Tensor, *, n_heads: int, drop: float,
+                    train: bool,
+                    generator: Optional[torch.Generator] = None
+                    ) -> torch.Tensor:
+    """Cross-entropy over the non-pad targets (transformer.py:271-280);
+    ``seq`` (B, T + 1) starts with BOS = 0."""
+    out = decoder_apply(dec, seq[:, :-1], encodings, n_heads=n_heads,
+                        drop=drop, train=train, generator=generator)
+    targets = seq[:, 1:]
+    logits = F.linear(out, dec.out.weight.to(out.dtype),
+                      dec.out.bias.to(out.dtype))
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -logp.gather(-1, targets[..., None])[..., 0]
+    mask = (targets != 0).float()
+    return (nll * mask).sum() / mask.sum().clamp_min(1.0)
+
+
+def decoder_greedy(dec: Decoder, encodings: List[torch.Tensor], T: int, *,
+                   n_heads: int) -> torch.Tensor:
+    """Incremental greedy decode (transformer.py:214-241) -> (B, T) int32:
+    from BOS = 0, the argmax of each step's logits (no UNK suppression),
+    in the encodings' dtype.
+
+    The JAX package's scan re-projects every layer's whole encoding and
+    its (B, T, D) buffer of filled slots at every step; the values are
+    those of a row's projection alone, so here each layer's cross-attention
+    keys and values are made once per decode and each slot's self-
+    attention key and value once, when the slot is filled.  The step
+    attends the slots up to its own; the JAX package masks the later ones
+    with -INF, which adds an exact zero to its softmax."""
+    enc0 = encodings[0]
+    B, D, dt, dev = enc0.shape[0], enc0.shape[-1], enc0.dtype, enc0.device
+    width = -(-D // n_heads)
+    pe = positional_encodings(T, D, dt, dev)
+    cross = [(_project(l.attention.layer.wk, enc, dt, n_heads).contiguous(),
+              _project(l.attention.layer.wv, enc, dt, n_heads).contiguous())
+             for l, enc in zip(dec.layers, encodings)]
+    cache = [[torch.zeros(B, n_heads, T, width, dtype=dt, device=dev)
+              for _ in range(2)] for _ in dec.layers]
+    tok = torch.zeros(B, dtype=torch.long, device=dev)
+    toks = []
+    kw = dict(drop=0.0, train=False, generator=None)
+    for t in range(T):
+        x = (_embed(dec, tok) + pe[t].float()).to(dt)[:, None]   # (B, 1, D)
+        for layer, (ck, cv), (sk, sv) in zip(dec.layers, cross, cache):
+            p = layer.selfattn.layer
+            sk[:, :, t:t + 1] = _project(p.wk, x, dt, n_heads)
+            sv[:, :, t:t + 1] = _project(p.wv, x, dt, n_heads)
+            a = _attend(p, _project(p.wq, x, dt, n_heads),
+                        sk[:, :, :t + 1], sv[:, :, :t + 1], causal=False,
+                        **kw)
+            x = _residual(layer.selfattn, x, a, **kw)
+            p = layer.attention.layer
+            c = _attend(p, _project(p.wq, x, dt, n_heads), ck, cv,
+                        causal=False, **kw)
+            x = _residual(layer.attention, x, c, **kw)
+            x = _residual(layer.feedforward, x,
+                          _ff(layer.feedforward.layer, x), **kw)
+        logits = F.linear(x[:, 0], dec.out.weight.to(dt),
+                          dec.out.bias.to(dt))
+        tok = logits.argmax(dim=-1)
+        toks.append(tok)
+    return torch.stack(toks, dim=1).to(torch.int32)

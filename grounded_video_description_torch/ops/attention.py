@@ -29,6 +29,7 @@ from grounded_video_description_torch.ops import MIN_VALUE
 from grounded_video_description_torch.ops.kernels.region_attention import (
     fused_region_attention, fused_region_attention_plain,
 )
+from grounded_video_description_torch.ops.quantize import dequantize
 
 
 def _lin(m: nn.Linear, x: torch.Tensor) -> torch.Tensor:
@@ -39,8 +40,11 @@ def temporal_attention(p: nn.Module, h: torch.Tensor,
                        att_feats: torch.Tensor,
                        p_att_feats: torch.Tensor) -> torch.Tensor:
     """h (B, rnn); att_feats (B, T, rnn); p_att_feats (B, T, att_hid)
-    -> (B, rnn)."""
+    -> (B, rnn).  Either bank may be a ``QuantBank``, dequantized into
+    the query's dtype."""
     att_h = _lin(p.h2att, h)                                  # (B, H)
+    p_att_feats = dequantize(p_att_feats, att_h.dtype)
+    att_feats = dequantize(att_feats, att_h.dtype)
     dot = torch.tanh(p_att_feats + att_h[:, None, :])         # (B, T, H)
     scores = _lin(p.alpha_net, dot)[..., 0]                   # (B, T)
     weight = torch.softmax(scores, dim=1)
@@ -62,9 +66,13 @@ def region_attention(p: nn.Module, h: torch.Tensor,
 
     Modes add/mix are K3: ``fused_region_attention`` with ``use_kernel``,
     else its plain twin ``fused_region_attention_plain`` (f32 arithmetic,
-    outputs in the input dtype).
+    outputs in the input dtype).  Either bank may be a ``QuantBank``,
+    dequantized into the query's dtype before K3 reads it, as the JAX
+    package hands its K3 the dequantized bank.
     """
     att_h = _lin(p.h2att, h)                                  # (B, H)
+    p_pool_feats = dequantize(p_pool_feats, att_h.dtype)
+    pool_feats = dequantize(pool_feats, att_h.dtype)
 
     if mode in ("add", "mix"):
         fn = (fused_region_attention if use_kernel

@@ -9,9 +9,10 @@ phases.  The TPU kernel kept each batch tile's banks in VMEM across the
 steps; on the card they stream from device memory every step, and what
 the kernel removes is the step loop's host launches (see the source).
 Its four products (both LSTMs' gates, h2att, the vocab logits) run on the
-tensor cores (f32 in 3xTF32, bf16 weights times the f32 state split into
-two bf16 terms), split over K so that their items fill the grid:
-``decode_scan_plan`` chooses the splits, the grid and the shared memory.
+tensor cores (f32 in 3xTF32; bf16 weights times the state as the JAX K6
+takes it, ``STATE_WHOLE``), split over K so that their items fill the
+grid: ``decode_scan_plan`` chooses the splits, the grid and the shared
+memory.
 
 ``greedy_decode_fused_plain`` is the port's step loop, the one
 ``GVDModel.sample_greedy`` runs without K6 (K3 inside it where the model's
@@ -47,6 +48,13 @@ NG, DCH = 4, 256
 PHASES = 10
 # an H100 SM's shared memory, and what the runtime keeps per block
 SM_SMEM, BLOCK_RESERVED = 233472, 1024
+# bf16, per GEMM phase and operand segment: whether the f32 state enters
+# whole, as two bf16 terms hi + lo (the recurrent h of both LSTMs, which the
+# JAX K6 dots from its f32 scratch against the bf16 W_hh), or rounded to
+# bf16 once (the rest, which it casts to bf16 before the dot); csrc
+# ``recurrent``: the last segment of a phase of several
+STATE_WHOLE = {"att_lstm": (False, True), "h2att": (False,),
+               "lang_lstm": (False, False, True), "logit": (False,)}
 # route counts beside ``decode_scan``'s own, by dtype: the GEMM phases
 GEMM_ROUTES = {torch.float32: "decode_scan_tf32x3",
                torch.bfloat16: "decode_scan_mma"}

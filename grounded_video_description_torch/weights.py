@@ -23,14 +23,10 @@ def _t(a) -> torch.Tensor:
 
 def from_jax_variables(variables: Dict) -> Dict[str, torch.Tensor]:
     p, state = variables["params"], variables["state"]
-    if "cap_model" in p:
-        raise NotImplementedError("the transformer captioner is not ported")
     sd: Dict[str, torch.Tensor] = {}
 
     def lin(prefix: str, d: Dict):
-        sd[prefix + ".weight"] = _t(np.asarray(d["w"]).T)
-        if "b" in d:
-            sd[prefix + ".bias"] = _t(d["b"])
+        sd.update(_linear_state_dict(d, prefix))
 
     def lstm(prefix: str, d: Dict):
         sd[prefix + ".weight_ih"] = _t(np.asarray(d["wi"]).T)
@@ -79,6 +75,8 @@ def from_jax_variables(variables: Dict) -> Dict[str, torch.Tensor]:
     if "obj_interact" in p:
         sd.update(encoder_state_dict(p["obj_interact"],
                                      "obj_interact.encoder."))
+    if "cap_model" in p:
+        sd.update(decoder_state_dict(p["cap_model"], "cap_model.decoder."))
     return sd
 
 
@@ -120,4 +118,34 @@ def encoder_state_dict(p: Dict, prefix: str = "") -> Dict[str, torch.Tensor]:
                 np.asarray(lp["ff"][name]["w"]).T)
             sd[f"{base}.feedforward.layer.linear{j}.bias"] = _t(
                 lp["ff"][name]["b"])
+    return sd
+
+
+def _linear_state_dict(d: Dict, prefix: str) -> Dict[str, torch.Tensor]:
+    sd = {prefix + ".weight": _t(np.asarray(d["w"]).T)}
+    if "b" in d:
+        sd[prefix + ".bias"] = _t(d["b"])
+    return sd
+
+
+def decoder_state_dict(p: Dict, prefix: str = "") -> Dict[str, torch.Tensor]:
+    """A JAX ``transformer.decoder_init`` tree as ``transformer.Decoder``
+    keys: selfattn / crossattn / ff with ln1 / ln2 / ln3 become the
+    reference's selfattn / attention / feedforward blocks with their
+    layernorms (checkpoint.py's importer reads them back)."""
+    sd = _linear_state_dict(p["out"], prefix + "out")
+    for i, lp in enumerate(p["layers"]):
+        base = f"{prefix}layers.{i}"
+        for ours, ln, theirs in (("selfattn", "ln1", "selfattn"),
+                                 ("crossattn", "ln2", "attention")):
+            for name in ("wq", "wk", "wv", "wo"):
+                sd.update(_linear_state_dict(
+                    lp[ours][name], f"{base}.{theirs}.layer.{name}"))
+            sd[f"{base}.{theirs}.layernorm.gamma"] = _t(lp[ln]["gamma"])
+            sd[f"{base}.{theirs}.layernorm.beta"] = _t(lp[ln]["beta"])
+        for j, name in ((1, "l1"), (2, "l2")):
+            sd.update(_linear_state_dict(
+                lp["ff"][name], f"{base}.feedforward.layer.linear{j}"))
+        sd[f"{base}.feedforward.layernorm.gamma"] = _t(lp["ln3"]["gamma"])
+        sd[f"{base}.feedforward.layernorm.beta"] = _t(lp["ln3"]["beta"])
     return sd

@@ -2,7 +2,8 @@
 """Profile one train step, or one greedy batch, of the PyTorch port on one
 NVIDIA GPU, in bf16 or f32.
 
-    python3 profile_step.py [--path K5 --path K4 --path serve ...]
+    python3 profile_step.py [--path K5 --path K4 --path serve
+                             --path beam --path transformer ...]
                             [--dtype bfloat16 --dtype float32]
                             [--root DIR] [--tag NAME] [--out DIR]
 
@@ -16,6 +17,12 @@ same for ``sample_beam`` at each of chip_smoke.py's ``BEAM_WIDTHS`` (K1
 and K2 on), and in a second, unprofiled call times the shared-bank beam
 attentions (``region_attention_beam``, ``temporal_attention_beam``) with
 CUDA events around each call, and reads the call's peak device memory.
+``--path transformer`` profiles the Masked-Transformer captioner
+(``att_model`` "transformer", chip_smoke.py's ``sharpen_decoder``
+weights) in each ``--dtype``: one ``sample_greedy`` of B = 100 (K1 and K2
+on; the decoder is plain PyTorch) with the device time of K2, K1's
+groups and the rest, and one train step through K5 at the training
+configuration.
 
 For each path (chip_smoke.py's ``TRAIN_PATHS``: K5, K4, plain) and each
 ``--dtype`` it builds the flagship training configuration in that dtype
@@ -195,7 +202,7 @@ def profile_beam(dtype: str, width: int, base, state, dev):
             "top": [(k, t / 1e6) for k, t in by_name.most_common(12)]}
 
 
-def profile(path: str, dtype: str, state, dev):
+def profile(path: str, dtype: str, state, dev, family: str = "topdown"):
     import torch
     from torch.profiler import ProfilerActivity, profile as torch_profile
     from grounded_video_description_torch.data.synthetic import (
@@ -205,7 +212,8 @@ def profile(path: str, dtype: str, state, dev):
     from grounded_video_description_torch.models import GVDModel
     from chip_smoke import TRAIN_PATHS, train_config
 
-    cfg = train_config().replace(dtype=dtype, **TRAIN_PATHS[path])
+    cfg = train_config().replace(att_model=family, dtype=dtype,
+                                 **TRAIN_PATHS[path])
     model = GVDModel(cfg)
     model.load_state_dict(state)
     tr = Trainer(cfg, model.to(dev))
@@ -223,17 +231,43 @@ def profile(path: str, dtype: str, state, dev):
     rest = sum(by_name[n] for n in K5_REST) / 1e6
     del tr, model
     torch.cuda.empty_cache()
-    return {"path": path, "dtype": dtype, "step_s": step_s,
-            "device_busy_s": busy,
+    return {"path": path, "family": family, "dtype": dtype,
+            "step_s": step_s, "device_busy_s": busy,
             "busy_share": busy / step_s, "kernels": n_kernels,
             "attention_s": attn, "k5_other_s": rest,
             "top": [(n, t / 1e6) for n, t in by_name.most_common(12)]}
 
 
+def profile_transformer(dtype: str, base, dev):
+    """One greedy call and one K5 train step of the transformer family."""
+    import torch
+    from grounded_video_description_torch.models import GVDModel
+    from chip_smoke import sharpen_decoder
+
+    tf = base.replace(att_model="transformer")
+    state = sharpen_decoder(GVDModel(tf).init(
+        torch.Generator().manual_seed(0)).state_dict())
+    model, batch = inference_model(dtype, tf, state, dev)
+    call_s, busy, n, by_name = profiled_call(
+        lambda: model.sample_greedy(batch))
+    del model
+    torch.cuda.empty_cache()
+    groups = {g: sum(by_name[k] for k in names) / 1e6
+              for g, names in SERVE_GROUPS.items() if g != "K3"}
+    groups["rest (decoder, encode glue)"] = (
+        sum(by_name.values()) / 1e6 - sum(groups.values()))
+    return ({"path": "transformer-greedy", "dtype": dtype, "step_s": call_s,
+             "device_busy_s": busy, "busy_share": busy / call_s,
+             "kernels": n, "groups": groups,
+             "top": [(k, t / 1e6) for k, t in by_name.most_common(12)]},
+            profile("K5", dtype, state, dev, family="transformer"))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--path", action="append",
-                    choices=["K5", "K4", "plain", "serve", "beam"])
+                    choices=["K5", "K4", "plain", "serve", "beam",
+                             "transformer"])
     ap.add_argument("--dtype", action="append",
                     choices=["bfloat16", "float32"],
                     help="the dtypes of every path (default bfloat16)")
@@ -268,6 +302,37 @@ def main() -> int:
     serve = base.replace(seq_per_img=1, drop_prob_lm=0.5, use_pallas=True,
                          use_pallas_rnn=True, use_pallas_encoder=True)
     for path in args.path or ["K5", "K4"]:
+        if path == "transformer":
+            for dt in args.dtype or ["bfloat16"]:
+                greedy, step = profile_transformer(dt, serve, dev)
+                for r in (greedy, step):
+                    r.update(tag=args.tag, device=smi)
+                print(f"[{args.tag}] {dt} transformer greedy batch of 100: "
+                      f"{greedy['step_s']:.4f} s, device busy "
+                      f"{greedy['device_busy_s']:.4f} s "
+                      f"({100 * greedy['busy_share']:.1f}%), "
+                      f"{greedy['kernels']} kernels; " + ", ".join(
+                          f"{g} {t * 1e3:.3f} ms"
+                          for g, t in greedy["groups"].items())
+                      + "; top: " + ", ".join(
+                          f"{k} {t * 1e3:.3f}" for k, t in greedy["top"][:8]),
+                      flush=True)
+                print(f"[{args.tag}] {dt} transformer step K5: "
+                      f"{step['step_s']:.3f} s, device busy "
+                      f"{step['device_busy_s']:.3f} s "
+                      f"({100 * step['busy_share']:.1f}%), "
+                      f"{step['kernels']} kernels; attention "
+                      f"{step['attention_s']:.3f} s, K5's other kernels "
+                      f"{step['k5_other_s']:.3f} s; top: " + ", ".join(
+                          f"{n} {t:.3f}" for n, t in step["top"][:8]),
+                      flush=True)
+                if args.out:
+                    with open(os.path.join(
+                            args.out, f"profile-{args.tag}-transformer-"
+                            f"{dt}.json"), "w") as f:
+                        json.dump({"greedy": greedy, "step": step}, f,
+                                  indent=1)
+            continue
         if path == "beam":
             from chip_smoke import BEAM_WIDTHS
             for dt in args.dtype or ["bfloat16"]:

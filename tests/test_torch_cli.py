@@ -433,6 +433,25 @@ def test_crash_recovery_and_start_from_inference_only(synth, driver_runs,
     assert not os.path.isdir(tmp_path / "none" / "model")
 
 
+def test_driver_runs_the_transformer_family(synth, tmp_path):
+    """--att_model transformer through the port's driver: one epoch of
+    training, a validation that writes the densecap and attn-gen JSONs
+    (the GT-sentence grounding eval is the TopDown family's and is
+    skipped), and a checkpoint whose model holds the decoder."""
+    cfg, paths = synth
+    argv = ["--device", "cpu"] + _argv(cfg, paths, _RUN_FLAGS + [
+        "--checkpoint_path", str(tmp_path / "save"), "--att_model",
+        "transformer"])
+    assert _in_dir(tmp_path, lambda: tmain.main(argv)) == 0
+    for name in EVAL_FILES:
+        assert os.path.isfile(tmp_path / name) == ("-gt-" not in name), name
+    infos = json.loads((tmp_path / "save" / "infos.json").read_text())
+    assert infos["epoch"] == 1 and infos["step"] == 4
+    blob = torch.load(tmp_path / "save" / "model" / STATE_FILE,
+                      weights_only=True)
+    assert any(k.startswith("cap_model.decoder.") for k in blob["model"])
+
+
 @pytest.mark.parametrize("case", ["mesh", "multi-host", "no-card"])
 def test_unported_paths_raise(synth, tmp_path, case):
     cfg, paths = synth

@@ -1,7 +1,9 @@
 """PyTorch port, on a CUDA card only: each hand-written kernel against its
 plain PyTorch version, at small unaligned shapes, f32 and bf16 (K4 also
 its gradients, and at the flagship's uneven heads; K6 on a tiny model of
-the flagship's shape).
+the flagship's shape, and its bf16 first step against its twin's
+rounding); the transformer family's greedy decode through K1 and K2, and
+greedy decoding over int8 banks.
 
 The machine with the card has no JAX, so this file imports none, and is
 run there without the repository's conftest (which imports JAX):
@@ -660,6 +662,75 @@ def test_decode_scan_kernel(dev, dtype):
         assert _within(got[2][:, 0], ref[2][:, 0], dtype)
 
 
+def _k6_step0_logprobs(model, enc, pnt):
+    """K6's first step in f32 with the kernel's roundings, as the JAX K6
+    takes them: bf16 banks and product weights, the state operands that
+    it casts before a dot (the embedding, fc, h_att into h2att and the
+    lang-LSTM's input, att + att2, h_lang into the logits) rounded to bf16
+    once, gate, attention and softmax arithmetic in f32.  The recurrent h,
+    which it keeps whole, is zero at the first step.  (B, V)."""
+    from grounded_video_description_torch.ops import MIN_VALUE
+
+    def w(t):
+        return t.detach().to(torch.bfloat16).float()
+
+    def r(t):
+        return t.to(torch.bfloat16).float()
+
+    def cell(gates):
+        i, _, g, o = gates.chunk(4, dim=-1)      # c and h start at zero
+        c = torch.sigmoid(i) * torch.tanh(g)
+        return torch.sigmoid(o) * torch.tanh(c)
+
+    core, H = model.core, model.cfg.rnn_size
+    B = pnt.shape[0]
+    att, lang = core.att_lstm, core.lang_lstm
+    xt = torch.relu(w(model.embed[0].weight)[0]).expand(B, -1)
+    h_att = cell(enc["fc_feats"].float() @ w(att.weight_ih[:, :H]).T
+                 + xt @ w(att.weight_ih[:, H:]).T
+                 + (att.bias_ih + att.bias_hh).float())
+    attended = 0.0
+    for p, bank, mask in ((core.attention, "conv_feats", None),
+                          (core.attention2, "pool_feats", pnt[:, 1:])):
+        ah = r(h_att) @ w(p.h2att.weight).T + p.h2att.bias.float()
+        s = (torch.tanh(enc["p_" + bank].float() + ah[:, None])
+             @ p.alpha_net.weight.float()[0] + p.alpha_net.bias.float())
+        if mask is not None:
+            s = s.masked_fill(mask, MIN_VALUE)
+        attended = attended + torch.einsum(
+            "bn,bnd->bd", torch.softmax(s, dim=1), enc[bank].float())
+    h_lang = cell(torch.cat([r(attended), r(h_att)], 1) @ w(lang.weight_ih).T
+                  + (lang.bias_ih + lang.bias_hh).float())
+    V = model.cfg.vocab_size
+    logits = r(h_lang) @ w(model.logit.weight).T + model.logit.bias.float()
+    return torch.log_softmax(logits[:, :V], dim=-1)
+
+
+@pytest.mark.cuda
+def test_decode_scan_bf16_rounds_the_state_as_its_twin(dev):
+    """bf16 K6's first step is its twin's function, the state operands
+    rounded to bf16 as the JAX K6 rounds them (csrc/decode_scan.cu): its
+    tokens are the reference's argmaxes where their top two are 1e-3
+    apart, and its logprobs within 2e-4 of the reference's (f32 sums in
+    another order); a route that kept every state operand whole (hi +
+    lo) would miss by the bf16 rounding of h_att and h_lang (~1e-3)."""
+    model, enc, pnt = _decode_setup(dev, torch.bfloat16)
+    with torch.no_grad():
+        seq, lp, _ = greedy_decode_fused(model, enc, pnt)
+        ref = _k6_step0_logprobs(model, enc, pnt)
+    torch.cuda.synchronize()
+    tok = seq[:, 0].long()
+    # the UNK-suppressed pick is the argmax over the other words
+    picks = ref.clone()
+    picks[:, model.unk_idx] = float("-inf")
+    top2 = picks.topk(2, dim=1).values
+    clear = (top2[:, 0] - top2[:, 1]) > 1e-3
+    assert torch.equal(tok[clear], picks.argmax(dim=1)[clear])
+    got_lp = lp[:, 0]
+    want_lp = ref.gather(1, tok[:, None])[:, 0]
+    assert float((got_lp - want_lp).abs().max()) <= 2e-4
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_decode_scan_two_row_tiles(dev, dtype):
@@ -786,6 +857,75 @@ def test_sample_beam_through_k1_and_k2(dev):
     assert torch.equal(seq, rseq)
     assert torch.equal(att2, ratt2) and torch.equal(att2f, ratt2f)
     assert _within(lp, rlp, torch.float32)
+
+
+def _transformer_model(cfg, dev):
+    """A tiny transformer-family model with its decoder's attention
+    projections and FFN outputs times 6 (chip_smoke.py's
+    ``sharpen_decoder``), so that its captions hold words."""
+    from chip_smoke import sharpen_decoder
+    model = GVDModel(cfg).init(torch.Generator().manual_seed(9))
+    model.load_state_dict(sharpen_decoder(model.state_dict()))
+    return model.to(dev).eval()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_transformer_greedy_through_k1_and_k2(dev, dtype):
+    """att_model transformer: sample_greedy at B = 4, R = 300 with K1 and
+    K2 in its encode against the plain path (the decoder is plain
+    PyTorch): 2 + 2 launches, no decode or region kernel; f32 tokens
+    identical; zero logprobs and att2 of the JAX shapes."""
+    cfg = tiny_test_config(att_model="transformer", obj_interact=True,
+                           num_prop_per_frm=75,
+                           dtype=str(dtype).replace("torch.", ""))
+    batch = batch_to_tensors(synthetic_batch(cfg, 4, seed=5), dev)
+    outs = {}
+    for kernels in (True, False):
+        model = _transformer_model(cfg.replace(
+            use_pallas=kernels, use_pallas_rnn=kernels,
+            use_pallas_encoder=kernels, use_pallas_decode=kernels), dev)
+        _build.reset_launches()
+        outs[kernels] = model.sample_greedy(batch)
+        torch.cuda.synchronize()
+        got = dict(_build.launches)
+        if kernels:
+            assert got["birnn_recurrence"] == 2 and got["encoder_layer"] == 2
+            assert not {"decode_scan", "region_attention"} & set(got)
+        else:
+            assert not got
+    (seq, lp, att2, sim), (rseq, _, _, rsim) = outs[True], outs[False]
+    assert seq.dtype == torch.int32 and seq.shape == (4, cfg.seq_length)
+    assert att2.shape == (4, cfg.seq_length, cfg.max_proposal)
+    assert not lp.any() and not att2.any()
+    assert bool(torch.isfinite(sim).all())
+    if dtype == torch.float32:
+        assert torch.equal(seq, rseq) and (rseq > 0).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_quantize_banks_greedy_takes_the_step_loop(dev, dtype):
+    """quantize_banks with every kernel flag on: the step loop over int8
+    banks dequantized once (K3 each step, no K6 launch), finite outputs;
+    f32 tokens equal to the same decode on the CPU."""
+    cfg = tiny_test_config(obj_interact=True, num_prop_per_frm=75,
+                           quantize_banks=True, use_pallas=True,
+                           use_pallas_decode=True,
+                           dtype=str(dtype).replace("torch.", ""))
+    model = GVDModel(cfg).init(torch.Generator().manual_seed(4)).eval()
+    arrays = synthetic_batch(cfg, 5, seed=6)
+    _build.reset_launches()
+    out = model.to(dev).sample_greedy(batch_to_tensors(arrays, dev))
+    torch.cuda.synchronize()
+    got = dict(_build.launches)
+    assert "decode_scan" not in got
+    assert got["region_attention"] == cfg.seq_length
+    for t in out:
+        assert bool(torch.isfinite(t.float()).all())
+    if dtype == torch.float32:
+        ref = model.cpu().sample_greedy(batch_to_tensors(arrays, "cpu"))
+        assert torch.equal(out[0].cpu(), ref[0])
 
 
 @pytest.mark.cuda

@@ -72,7 +72,7 @@ def jax_eval(tmp_path_factory):
     stats = ev.evaluate(variables, batches, out_dir=out)
     stats.update(ev.eval_grounding_gt(variables, batches, out_dir=out))
     return dict(cfg=cfg, variables=variables, batches=batches, out=out,
-                stats=stats, root=root)
+                stats=stats, root=root, vocab=vocab)
 
 
 @pytest.mark.parametrize("kernels", [False, True])
@@ -107,6 +107,39 @@ def test_evaluator_json_and_stats_match_jax(jax_eval, kernels):
     got_stats = {k: v for k, v in stats.items() if k != "captions_per_sec"}
     assert got_stats == want_stats
     assert {"CIDEr", "box_accu_att", "cls_accu", "grd_f1_all"} <= set(stats)
+
+
+def test_transformer_evaluator_json_and_stats_match_jax(jax_eval):
+    """att_model "transformer" (its greedy decode; its zero att2 grounds
+    every generated word on proposal 0 of each frame, as in the JAX
+    evaluator) on the same dataset and batches: the densecap and attn-gen
+    JSONs byte for byte, every stat but captions_per_sec equal."""
+    from test_torch_transformer import _sharpen
+
+    ref = jax_eval
+    jcfg = ref["cfg"].replace(att_model="transformer")
+    jm = JaxModel(jcfg)
+    variables = jax.tree.map(np.asarray,
+                             _sharpen(jm.init(jax.random.PRNGKey(6))))
+    out_j = str(ref["root"] / "jax-transformer")
+    want_stats = JaxEvaluator(jcfg, jm, ref["vocab"]).evaluate(
+        variables, ref["batches"], out_dir=out_j)
+    cfg = _tcfg(jcfg).validate()
+    model = GVDModel(cfg)
+    model.load_state_dict(from_jax_variables(variables))
+    out = str(ref["root"] / "port-transformer")
+    stats = Evaluator(cfg, model.eval(), VocabTables.from_file(
+        jcfg.input_dic)).evaluate(ref["batches"], out_dir=out)
+    for name in FILES[:2]:
+        with open(os.path.join(out_j, name), "rb") as f:
+            want = f.read()
+        with open(os.path.join(out, name), "rb") as f:
+            assert f.read() == want, name
+    results = json.loads(want)["results"]
+    assert sum(len(v) for v in results.values()) == 8
+    drop = ("captions_per_sec",)
+    assert ({k: v for k, v in stats.items() if k not in drop}
+            == {k: v for k, v in want_stats.items() if k not in drop})
 
 
 def test_evaluator_refuses_what_is_not_ported(jax_eval):

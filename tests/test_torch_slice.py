@@ -76,6 +76,12 @@ _CONFIG_CASES = {
         use_pallas_mha=True, id="flagship", val_split="testing",
         densecap_references=["ref.json"], grd_reference="grd.json",
         split_file="split.json", data_path="d", val_images_use=200)),
+    # the Masked-Transformer family at flagship width, and int8 banks
+    "flagship-transformer": (False, dict(
+        vocab_size=4905, detect_size=431, obj_interact=True,
+        att_model="transformer")),
+    "tiny-quantize-banks": (True, dict(
+        obj_interact=True, quantize_banks=True, quantize_group_size=16)),
     # the training driver's fields, with K5 in training
     "flagship-driver": (False, dict(
         vocab_size=4905, detect_size=431, obj_interact=True, batch_size=240,
@@ -276,6 +282,7 @@ def test_port_imports_no_jax():
         "import grounded_video_description_torch.ops.kernels."
         "attention_train\n"
         "import grounded_video_description_torch.ops.geometry\n"
+        "import grounded_video_description_torch.ops.quantize\n"
         "import grounded_video_description_torch.losses\n"
         "import grounded_video_description_torch.engine.trainer\n"
         "import grounded_video_description_torch.engine.evaluator\n"
