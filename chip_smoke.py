@@ -30,7 +30,7 @@ off by the grounding guard) and on the plain path, in f32 and bf16, and
 microbatches, w_att2 0.05, w_cls 0.1, Adam at 5e-4, clip 0.1): in f32
 with every dropout rate 0, one step through K5 and one through K4
 against one on the plain attention; in bf16 at the flagship dropout
-rates, three timed steps on each path, in turns.  Last the training
+rates, two timed steps on each path, in turns.  Last the training
 driver (``grounded_video_description_torch.main.run``): two epochs of one
 bf16 step through K5, each validated over one batch of 100, checkpointed
 into a temporary directory, then resumed from the latest checkpoint by a
@@ -38,8 +38,13 @@ second run.  Then the Masked-Transformer captioner (``att_model``
 "transformer", ``phase_transformer``) at the same width: greedy through K1
 and K2 against plain, a train step through K5 against the plain
 attention, segments/s, the evaluator; and greedy over int8 attention
-banks (``quantize_banks``) on the TopDown weights.  Any failed check ends
-the run with a non-zero exit.
+banks (``quantize_banks``) on the TopDown weights.  Last the data
+parallelism of ``grounded_video_description_torch.parallel``
+(``phase_data_parallel``): K4 and K5 at a row offset, the train step and
+the sharded evaluator on two gloo ranks sharing the card (one process
+each) against one device, and one epoch of the driver's path on one NCCL
+rank.  Any failed check, in this process or in a rank's, ends the run
+with a non-zero exit.
 
 Output: human-readable lines, then the card's name and power limit, then
 one JSON line with a row per kernel and dtype (f32, bf16): its launches
@@ -56,6 +61,7 @@ line ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 import os
@@ -734,7 +740,7 @@ def k5_layer(dev, Bm: int = 30):
     return enc.to(dev), x0, cot, torch.tensor([0x9E3779B9], device=dev)
 
 
-def k5_ties(x, lw, seed, drop):
+def k5_ties(x, lw, seed, drop, row0=0):
     """ReLU ties: an FFN pre-activation within rounding of 0 can take the
     other branch in the kernel's summation order than in the twin's,
     which changes that token's dx row and that unit's dW1 row and db1
@@ -748,8 +754,9 @@ def k5_ties(x, lw, seed, drop):
         encoder_layer_train as k5)
     dt = x.dtype
     with torch.no_grad():
-        hid_k = k5._kernel_forward(x, lw, seed, 6, drop)[1].hid
-        x1 = k5.attention_sublayer_plain(x, lw, seed, n_heads=6, drop=drop)
+        hid_k = k5._kernel_forward(x, lw, seed, 6, drop, row0)[1].hid
+        x1 = k5.attention_sublayer_plain(x, lw, seed, n_heads=6, drop=drop,
+                                         row0=row0)
         z = F.linear(x1.to(dt).float(), lw.w1.to(dt).float()) + lw.b1
         tie = ((hid_k.float() > 0) != (z.flatten(0, 1) > 0)).view(
             *x.shape[:2], -1)
@@ -1028,6 +1035,9 @@ def phase_encoder_layer_train(dev, results):
             torch.cuda.empty_cache()
 
 
+# phase_train's timed bf16 steps a path (3 until the data-parallel phase
+# came; 2 keeps the whole script near half its time limit)
+TRAIN_TIMED_STEPS = 2
 TRAIN_PATHS = {                 # name: the config fields that choose it
     "K5": dict(use_pallas_encoder_train=True),
     "K4": dict(attn_train_impl="pallas"),
@@ -1046,19 +1056,30 @@ def train_config():
                      grad_clip=0.1, use_pallas=False).validate()
 
 
+@functools.lru_cache(maxsize=None)
+def train_batch():
+    """The flagship train batch, ``synthetic_batch(train_config(), 240,
+    seed=0)``, made once a run (~27 s of host time) for the train,
+    driver and data-parallel phases: none of the fields their configs
+    change (caption family, dtype, kernel and eval flags) is read by
+    ``synthetic_batch``, and none of them writes to it."""
+    from grounded_video_description_torch.data.synthetic import synthetic_batch
+    cfg = train_config()
+    return synthetic_batch(cfg, cfg.batch_size, seed=0)
+
+
 def phase_train(dev, state, family="topdown", paths=None):
     """Trainer.train_step at the flagship training configuration of
     caption family ``family`` (``att_model``) through ``paths`` (default
     ``TRAIN_PATHS``: K5, ``use_pallas_encoder_train``; K4,
     ``attn_train_impl="pallas"``; the plain attention): in f32 with every
     dropout 0 one step each, each kernel path against plain; in bf16 at
-    the flagship rates a warm-up and three timed steps each, taken in
+    the flagship rates a warm-up and two timed steps each, taken in
     turns (in order, then the reverse), with each step's launch counts
     checked.  Returns the launch counts of the kernel paths per dtype (the
     f32 step's, and the bf16 timed steps') and the bf16 segments/s per
     path."""
     import torch
-    from grounded_video_description_torch.data.synthetic import synthetic_batch
     from grounded_video_description_torch.engine.trainer import (
         Trainer, batch_to_device)
     from grounded_video_description_torch.models import GVDModel
@@ -1068,7 +1089,7 @@ def phase_train(dev, state, family="topdown", paths=None):
     base = train_config().replace(att_model=family)
     BT, ACCUM = base.batch_size, base.grad_accum
     t0 = time.perf_counter()
-    batch = synthetic_batch(base, BT, seed=0)
+    batch = train_batch()
     print(f"train set-up (batch) {time.perf_counter() - t0:.1f} s",
           flush=True)
     terms = ("loss", "lm_loss", "att2_loss", "ground_loss", "cls_loss")
@@ -1129,7 +1150,7 @@ def phase_train(dev, state, family="topdown", paths=None):
         torch.cuda.synchronize()
         runs[name] = (cfg, tr, dev_batch, [], {})
     order = list(paths)
-    for step in range(3):
+    for step in range(TRAIN_TIMED_STEPS):
         for name in (order if step % 2 == 0 else order[::-1]):
             cfg, tr, dev_batch, times, counts = runs[name]
             _build.reset_launches()
@@ -1149,7 +1170,8 @@ def phase_train(dev, state, family="topdown", paths=None):
                 f"{k} {v:.5f}" for k, v in losses.items())
                 + f"; {times[-1]:.3f} s", flush=True)
     rates = {name: BT / statistics.median(r[3]) for name, r in runs.items()}
-    print(f"train {family} bf16 segments/s (median of 3 steps, in turns): "
+    print(f"train {family} bf16 segments/s (median of {TRAIN_TIMED_STEPS} "
+          "steps, in turns): "
           + ", ".join(f"{name} {rate:.2f}" for name, rate in rates.items()),
           flush=True)
     launches = {"float32": f32_counts, "bfloat16": {}}
@@ -1702,7 +1724,7 @@ def phase_driver(dev, state):
         language_eval=True, eval_obj_grounding=True,
         eval_obj_grounding_gt=True, id="driver", val_every_epoch=1,
         max_epochs=2)
-    train_batch = synthetic_batch(base, base.batch_size, seed=0)
+    batch = train_batch()
     val = synthetic_batch(base, B, seed=1)
     val["seg_id"] = [f"v_DRV{b:04d}_segment_{b % 3:02d}" for b in range(B)]
     val["n_valid"] = B
@@ -1731,7 +1753,7 @@ def phase_driver(dev, state):
         def run(cfg, trainer, infos):
             evaluator = Evaluator(eval_cfg, driver.sharing_model(
                 trainer.model, eval_cfg), vocab)
-            return driver.run(cfg, trainer, evaluator, [train_batch], [val],
+            return driver.run(cfg, trainer, evaluator, [batch], [val],
                               ckpt, MetricLogger(), infos, out_dir=out_dir)
 
         trainer = trainer_for(cfg, state)
@@ -1945,6 +1967,520 @@ def phase_transformer(dev, base, state):
               f"{rates[True]:.2f}, unquantized {rates[False]:.2f}",
               flush=True)
 
+# --------------------------------------------------------------------- #
+# data parallelism (grounded_video_description_torch/parallel)
+# --------------------------------------------------------------------- #
+
+DP_WORLD = 2
+DP_TIMEOUT_S = 480      # of each spawned group
+# (train path, dtype, steps): f32 at dropout 0 through K5 and K4 (one step
+# each, held against one device), bf16 at the flagship rates through K5
+# (step 0 held, steps 1-2 timed)
+DP_RUNS = (("K5", "float32", 1), ("K4", "float32", 1),
+           ("K5", "bfloat16", 3))
+
+
+def train_step_counts(path: str, dt: str, accum: int) -> dict:
+    """The kernel launches of one train step through ``path`` (2 layers
+    a microbatch), on one device or on each rank."""
+    if path == "K5":
+        return {"encoder_layer_train_fwd": 2 * accum,
+                "encoder_layer_train_bwd": 2 * accum,
+                **k5_gemm_counts(dt, 2 * accum)}
+    counts = {"attention_train_fwd": 2 * accum,
+              "attention_train_bwd": 2 * accum}
+    if dt == "float32":
+        counts[TF32_ROUTE] = 4 * accum
+    return counts
+
+
+def save_batch(directory, batch):
+    """A batch's arrays as .npy files (and its seg_id list) under
+    ``directory``, for the ranks to load."""
+    import numpy as np
+    os.makedirs(directory, exist_ok=True)
+    for k, v in batch.items():
+        if k == "seg_id":
+            with open(os.path.join(directory, "seg_id.json"), "w") as f:
+                json.dump(list(v), f)
+        elif k != "n_valid":
+            np.save(os.path.join(directory, f"{k}.npy"), v)
+
+
+def load_batch(directory):
+    import numpy as np
+    batch = {}
+    for name in sorted(os.listdir(directory)):
+        path = os.path.join(directory, name)
+        if name == "seg_id.json":
+            with open(path) as f:
+                batch["seg_id"] = json.load(f)
+                batch["n_valid"] = len(batch["seg_id"])
+        else:
+            batch[name[:-4]] = np.load(path)
+    return batch
+
+
+def dp_train_runs(dev, state, batch, mesh):
+    """``DP_RUNS`` from the weights ``state`` on ``batch`` (the whole
+    batch on one device, the rank's rows under ``mesh``): per run each
+    step's metrics, seconds and launches (held to
+    ``train_step_counts``), the peak device memory, and under a mesh the
+    time of the gradient all-reduce alone (``all_reduce_sum_`` of one f32
+    tensor per parameter, as ``all_reduce_grads_sum`` runs it)."""
+    import torch
+    from grounded_video_description_torch.engine.trainer import (
+        Trainer, batch_to_device)
+    from grounded_video_description_torch.models import GVDModel
+    from grounded_video_description_torch.ops.kernels import _build
+    from grounded_video_description_torch.parallel.mesh import (
+        all_reduce_sum_, barrier)
+
+    base = train_config()
+    out = {}
+    for path, dt, steps in DP_RUNS:
+        cfg = base.replace(dtype=dt, **TRAIN_PATHS[path])
+        if dt == "float32":
+            cfg = cfg.replace(drop_prob_lm=0.0, loc_drop=0.0, enc_drop=0.0)
+        model = GVDModel(cfg)
+        model.load_state_dict(state)
+        tr = Trainer(cfg, model.to(dev), mesh=mesh)
+        dev_batch = batch_to_device(cfg, batch, dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        rec = {"metrics": [], "s": []}
+        want = train_step_counts(path, dt, cfg.grad_accum)
+        for i in range(steps):
+            _build.reset_launches()
+            t0 = time.perf_counter()
+            m = tr.train_step(dev_batch, cfg.learning_rate)
+            torch.cuda.synchronize()
+            rec["s"].append(time.perf_counter() - t0)
+            got = dict(_build.launches)
+            check(got == want, f"{path} {dt} step {i} launches {got} != "
+                  f"{want}")
+            rec["metrics"].append({k: float(v) for k, v in m.items()})
+        rec["peak_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        if mesh is not None and dt == "bfloat16":
+            grads = [torch.ones_like(p) for p in tr.params]
+            rec["allreduce_mb"] = nbytes(*grads) / 2 ** 20
+            times = []
+            for _ in range(3):
+                barrier(mesh)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                all_reduce_sum_(mesh, grads)
+                torch.cuda.synchronize()
+                times.append(1e3 * (time.perf_counter() - t0))
+            rec["allreduce_ms"] = statistics.median(times)
+            del grads
+        out[f"{path} {dt}"] = rec
+        del tr, model, dev_batch
+        torch.cuda.empty_cache()
+    return out
+
+
+def dp_eval_cfg(base, refs):
+    """The eval phase's configuration (the README's eval flags, the
+    grounding guard, so K1 is off) with the reference files ``refs``."""
+    from grounded_video_description_torch.engine.evaluator import (
+        grounding_eval_cfg)
+    return grounding_eval_cfg(base.replace(
+        language_eval=True, eval_obj_grounding=True,
+        eval_obj_grounding_gt=True, use_pallas_encoder=True,
+        pallas_encoder_grounding_guard=True, id="dp", **refs))
+
+
+def dp_eval_runs(dev, cfg0, state, vocab, val, mesh, out_root):
+    """``Evaluator.evaluate`` (greedy) and ``eval_grounding_gt`` over the
+    batch ``val`` in f32 through the kernels (K6, K7, K2, K3) and on the
+    plain path, on one device or sharded over ``mesh``: each call's
+    outputs as host arrays (``generate``, ``ground``; rank 0 gets the
+    whole batch's), its seconds after a warm-up decode, its launches (held
+    to a decode and a grounding forward of the rank's rows), and the
+    stats."""
+    import torch
+    from grounded_video_description_torch.engine.evaluator import Evaluator
+    from grounded_video_description_torch.ops.kernels import _build
+    from grounded_video_description_torch.ops.kernels.decode_scan import (
+        GEMM_ROUTES)
+
+    arrays = {k: v for k, v in val.items() if k not in ("seg_id", "n_valid")}
+    out = {}
+    for kernels in (True, False):
+        flags = dict(use_pallas=kernels, use_pallas_rnn=kernels,
+                     use_pallas_decode=kernels, use_pallas_mha=kernels)
+        m = model_of(cfg0.replace(**flags), state, dev)
+        ev = Evaluator(m.cfg, m, vocab, mesh)
+        rec = {"gen": [], "grd": []}
+        generate, ground = ev.generate, ev.ground
+
+        def recorded_generate(a):
+            rec["gen"].append(generate(a))
+            return rec["gen"][-1]
+
+        def recorded_ground(a):
+            rec["grd"].append(ground(a))
+            return rec["grd"][-1]
+
+        generate(arrays)                          # warm-up, not counted
+        torch.cuda.synchronize()
+        ev.generate, ev.ground = recorded_generate, recorded_ground
+        out_dir = os.path.join(out_root, f"kernels-{kernels}")
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        stats = ev.evaluate([val], out_dir=out_dir)
+        t1 = time.perf_counter()
+        stats.update(ev.eval_grounding_gt([val], out_dir=out_dir))
+        rec["evaluate_s"] = t1 - t0
+        rec["grounding_s"] = time.perf_counter() - t1
+        got = dict(_build.launches)
+        want = {}
+        if kernels:
+            want = {"decode_scan": 1, GEMM_ROUTES[torch.float32]: 1,
+                    "flash_self_attention": 4, TF32_ROUTE: 4,
+                    "birnn_recurrence": 4,
+                    "region_attention": cfg0.seq_length}
+        check(got == want, f"eval kernels={kernels} launches {got} != "
+              f"{want}")
+        for k, v in stats.items():
+            check(isinstance(v, str) or math.isfinite(v),
+                  f"eval kernels={kernels} stat {k} = {v}")
+        rec["stats"], rec["out_dir"] = stats, out_dir
+        out[kernels] = rec
+        del m, ev
+        torch.cuda.empty_cache()
+    return out
+
+
+def dp_rank(rank, tmp, cfg0, vocab):
+    """Rank ``rank`` of ``DP_WORLD`` on cuda:0 over gloo: ``dp_train_runs``
+    on its rows, then ``dp_eval_runs`` on the shared validation batch;
+    its results to ``tmp``."""
+    sys.path.insert(0, ROOT)
+    import torch
+    from grounded_video_description_torch.parallel import (
+        close_data_mesh, init_data_mesh)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    # NCCL refuses two ranks on one device; gloo runs the collectives on
+    # CUDA tensors by staging them through the host
+    mesh = init_data_mesh(dev, world=DP_WORLD, rank=rank,
+                          init_method=f"file://{tmp}/rdzv", backend="gloo")
+    try:
+        state = torch.load(os.path.join(tmp, "state.pt"), weights_only=True)
+        out = {"train": dp_train_runs(dev, state, load_batch(
+            os.path.join(tmp, f"rows{rank}")), mesh)}
+        out["eval"] = dp_eval_runs(dev, cfg0, state, vocab, load_batch(
+            os.path.join(tmp, "val")), mesh, os.path.join(tmp, "dp"))
+    finally:
+        close_data_mesh(mesh)
+    torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
+
+
+def dp_nccl(rank, tmp, cfg, vocab):
+    """The driver's path on one NCCL rank (world size 1) on cuda:0:
+    ``main.run`` for one epoch of one bf16 step through K5, validated
+    over the validation batch (K6, K7, K2, K3) and checkpointed, every
+    collective of the trainer, evaluator and checkpoint on NCCL."""
+    sys.path.insert(0, ROOT)
+    import torch
+    from grounded_video_description_torch import main as driver
+    from grounded_video_description_torch.engine.checkpoint import (
+        CheckpointManager)
+    from grounded_video_description_torch.engine.evaluator import (
+        Evaluator, grounding_eval_cfg)
+    from grounded_video_description_torch.engine.trainer import Trainer
+    from grounded_video_description_torch.models import GVDModel
+    from grounded_video_description_torch.ops.kernels import _build
+    from grounded_video_description_torch.parallel import (
+        close_data_mesh, init_data_mesh)
+    from grounded_video_description_torch.utils.logging import MetricLogger
+
+    dev = torch.device("cuda", 0)
+    mesh = init_data_mesh(dev, world=1, rank=0,
+                          init_method=f"file://{tmp}/rdzv-nccl")
+    try:
+        check(torch.distributed.get_backend() == "nccl", "not on NCCL")
+        model = GVDModel(cfg)
+        model.load_state_dict(torch.load(os.path.join(tmp, "state.pt"),
+                                         weights_only=True))
+        trainer = Trainer(cfg, model.to(dev), mesh=mesh)
+        eval_cfg = grounding_eval_cfg(cfg)
+        evaluator = Evaluator(eval_cfg, driver.sharing_model(
+            trainer.model, eval_cfg), vocab, mesh)
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        records = driver.run(
+            cfg, trainer, evaluator, [whole_batch(tmp, cfg.grad_accum)],
+            [load_batch(os.path.join(tmp, "val"))],
+            CheckpointManager(cfg.checkpoint_path, mesh), MetricLogger(),
+            {"epoch": 0, "best_val_score": None},
+            out_dir=os.path.join(tmp, "nccl"))
+        torch.cuda.synchronize()
+        out = {"records": records, "s": time.perf_counter() - t0,
+               "launches": dict(_build.launches)}
+    finally:
+        close_data_mesh(mesh)
+    torch.save(out, os.path.join(tmp, "nccl.pt"))
+
+
+def whole_batch(tmp, accum):
+    """The train batch from the ranks' rows: each microbatch is rank 0's
+    slice of it, then rank 1's (``shard_rows``)."""
+    import numpy as np
+    parts = [load_batch(os.path.join(tmp, f"rows{r}"))
+             for r in range(DP_WORLD)]
+    return {k: np.concatenate([
+        np.stack(np.split(p[k], accum)) for p in parts], axis=1).reshape(
+            (-1,) + parts[0][k].shape[1:]) for k in parts[0]}
+
+
+def dp_row0(dev, results):
+    """K4 and K5 on rank 1's rows of a flagship microbatch at D = 2: 15
+    rows from row0 = 15, drop 0.2, f32 and bf16, the kernel against its
+    plain version at the same row0 (output and gradients, at the K4 and
+    K5 phases' bars); the errors go to the kernels' rows as
+    ``row0_max_abs_err``."""
+    import torch
+    from grounded_video_description_torch.ops.kernels.attention_train \
+        import mha_probs_dropout, mha_probs_dropout_plain
+    from grounded_video_description_torch.ops.kernels.encoder_layer_train \
+        import fused_encoder_layer_train, fused_encoder_layer_train_plain
+
+    Bm, row0, drop = 15, 15, 0.2
+    g = torch.Generator(device=dev).manual_seed(13)
+    base = [torch.randn(Bm, R, D_RNN, generator=g, device=dev)
+            for _ in range(4)]
+    seed = torch.tensor([0x9E3779B9], device=dev)
+    enc, x0, cot, _ = k5_layer(dev, Bm)
+    lw = list(enc.layers[0].weights())
+    for dt in (torch.float32, torch.bfloat16):
+        name = str(dt).replace("torch.", "")
+        q, k, v, w = (t.to(dt) for t in base)
+        runs = []
+        for fn in (mha_probs_dropout, mha_probs_dropout_plain):
+            leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+            o = fn(*leaves, seed, n_heads=6, scale=D_RNN ** 0.5, drop=drop,
+                   row0=row0)
+            runs.append([o.detach()] + list(torch.autograd.grad(
+                o, leaves, w)))
+        errs = {}
+        for part, a, b in zip(("out", "dq", "dk", "dv"), *runs):
+            check(bool(torch.isfinite(a.float()).all()),
+                  f"K4 {name} row0 {part} not finite")
+            errs[part] = max_err(a, b)
+            if dt == torch.float32:
+                check(errs[part] <= 1e-4,
+                      f"K4 f32 row0 {part} err {errs[part]}")
+            else:
+                check_attention_bf16(a, b, f"K4 bf16 row0 {part}")
+        results[("attention_train_fwd", name)]["row0_max_abs_err"] = \
+            errs["out"]
+        results[("attention_train_bwd", name)]["row0_max_abs_err"] = max(
+            errs["dq"], errs["dk"], errs["dv"])
+        x, w5 = x0.to(dt), cot.to(dt)
+        runs = []
+        for fn in (fused_encoder_layer_train, fused_encoder_layer_train_plain):
+            xl = x.clone().requires_grad_(True)
+            o = fn(xl, enc.layers[0].weights(), seed, n_heads=6, drop=drop,
+                   row0=row0)
+            runs.append([o.detach()] + list(torch.autograd.grad(
+                o, [xl] + lw, w5)))
+        ties = k5_ties(x, enc.layers[0].weights(), seed, drop, row0)
+        res = k5_held(runs[0], runs[1], name, ties)
+        for part, (err, ratio, rel) in res.items():
+            check(ratio <= 1.0, f"K5 {name} row0 {part}: err {err}, "
+                  f"relative norm {rel}: {ratio:.3g} of its bar")
+        results[("encoder_layer_train_fwd", name)]["row0_max_abs_err"] = \
+            res["out"][0]
+        results[("encoder_layer_train_bwd", name)]["row0_max_abs_err"] = max(
+            r[0] for p, r in res.items() if p != "out")
+        print(f"row0 {row0} ({Bm} rows, drop {drop}) {name}: K4 err "
+              f"{ {p: f'{e:.3e}' for p, e in errs.items()} }; K5 max err "
+              f"out {res['out'][0]:.3e}, grads "
+              f"{max(r[0] for p, r in res.items() if p != 'out'):.3e}",
+              flush=True)
+        del runs
+        torch.cuda.empty_cache()
+
+
+def phase_data_parallel(dev, base, state, results):
+    """The data-parallel train step and evaluation
+    (``grounded_video_description_torch.parallel``) at flagship width:
+    K4 and K5 at a row offset (``dp_row0``); the train step of
+    ``DP_RUNS`` and the evaluation of ``dp_eval_runs`` on one device,
+    then on two gloo ranks sharing cuda:0 (``dp_rank``, one process each:
+    NCCL refuses two ranks on one device), held against one device: f32
+    losses within 1e-4 relative and the gradient norm within 1e-3, bf16
+    finite and its losses within 1e-2, both ranks' metrics equal; f32
+    eval tokens and grounding argmaxes >= 0.99 equal through the kernels
+    and equal on the plain path; then one epoch of the driver's path on
+    one NCCL rank (``dp_nccl``).  Each group of processes has a time
+    limit, and a rank that fails fails the phase."""
+    import tempfile
+    import torch
+    from grounded_video_description_torch.data.synthetic import synthetic_batch
+    from grounded_video_description_torch.ops.kernels.decode_scan import (
+        GEMM_ROUTES)
+    from grounded_video_description_torch.parallel import shard_rows, spawn
+    from grounded_video_description_torch.tools.eval_files import (
+        eval_references, eval_vocab)
+
+    dp_row0(dev, results)
+    t0 = time.perf_counter()
+    tcfg = train_config()
+    train = train_batch()
+    val = synthetic_batch(base, B, seed=1)
+    val["seg_id"] = [f"v_DP{b:04d}_segment_{b % 3:02d}" for b in range(B)]
+    val["n_valid"] = B
+    vocab = eval_vocab(base)
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save(state, os.path.join(tmp, "state.pt"))
+        for r in range(DP_WORLD):
+            rows = shard_rows(tcfg.batch_size, tcfg.grad_accum, r, DP_WORLD)
+            save_batch(os.path.join(tmp, f"rows{r}"),
+                       {k: v[rows] for k, v in train.items()
+                        if k != "seg_id"})
+        save_batch(os.path.join(tmp, "val"), val)
+        cfg0 = dp_eval_cfg(base, eval_references(tmp, base, vocab, [val]))
+        print(f"data parallel set-up (batches, their files) "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+        t0 = time.perf_counter()
+        one = {"train": dp_train_runs(dev, state, train, None),
+               "eval": dp_eval_runs(dev, cfg0, state, vocab, val, None,
+                                    os.path.join(tmp, "one"))}
+        torch.cuda.empty_cache()
+        print(f"data parallel: one device's steps and evaluation "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        spawn(dp_rank, DP_WORLD, (tmp, cfg0, vocab), timeout_s=DP_TIMEOUT_S)
+        group_s = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"),
+                            weights_only=False) for r in range(DP_WORLD)]
+
+        # the train step
+        terms = ("loss", "lm_loss", "att2_loss", "ground_loss", "cls_loss")
+        summary = {"group_s": group_s}
+        for run, ref in one["train"].items():
+            got = [r["train"][run] for r in ranks]
+            check(all(g["metrics"] == got[0]["metrics"] for g in got),
+                  f"{run}: the ranks' metrics differ")
+            a, b = got[0]["metrics"][0], ref["metrics"][0]
+            for k in terms + ("grad_norm",):
+                check(math.isfinite(a[k]), f"{run} {k} = {a[k]}")
+                tol = (1e-2 if "bfloat16" in run
+                       else 1e-3 if k == "grad_norm" else 1e-4)
+                check(abs(a[k] - b[k]) <= tol * abs(b[k]),
+                      f"{run} {k}: 2 ranks {a[k]} vs one device {b[k]}")
+            rel = max(abs(a[k] - b[k]) / abs(b[k]) for k in terms)
+            timed_s = (lambda s: statistics.median(s[1:]) if len(s) > 1
+                       else s[0])
+            one_s = timed_s(ref["s"])
+            dp_s = max(timed_s(g["s"]) for g in got)
+            summary[run] = dict(
+                one_step_s=one_s, dp_step_s=dp_s,
+                one_seg_per_s=tcfg.batch_size / one_s,
+                dp_seg_per_s=tcfg.batch_size / dp_s,
+                one_peak_gb=ref["peak_gb"],
+                dp_peak_gb=max(g["peak_gb"] for g in got),
+                loss_rel_err=rel,
+                grad_norm_rel_err=abs(a["grad_norm"] - b["grad_norm"])
+                / abs(b["grad_norm"]))
+            if "allreduce_ms" in got[0]:
+                summary[run]["allreduce_ms"] = max(g["allreduce_ms"]
+                                                   for g in got)
+                summary[run]["allreduce_mb"] = got[0]["allreduce_mb"]
+            print(f"data parallel train {run}: 2 gloo ranks on cuda:0 vs one "
+                  f"device: max loss rel err {rel:.2e}, grad norm "
+                  f"{a['grad_norm']:.6f} / {b['grad_norm']:.6f}; step "
+                  f"{dp_s:.3f} s vs {one_s:.3f} s ("
+                  f"{tcfg.batch_size / dp_s:.2f} vs "
+                  f"{tcfg.batch_size / one_s:.2f} segments/s); peak GB per "
+                  f"rank {summary[run]['dp_peak_gb']:.2f} (one device "
+                  f"{ref['peak_gb']:.2f})"
+                  + (f"; gradient all-reduce "
+                     f"{summary[run]['allreduce_ms']:.1f} ms for "
+                     f"{summary[run]['allreduce_mb']:.0f} MB"
+                     if "allreduce_ms" in summary[run] else ""),
+                  flush=True)
+
+        # the evaluation
+        frames = (-1, base.seq_length, base.num_sampled_frm,
+                  base.num_prop_per_frm)
+        for kernels, ref in one["eval"].items():
+            got = ranks[0]["eval"][kernels]
+            check(ranks[1]["eval"][kernels]["stats"] == got["stats"],
+                  f"eval kernels={kernels}: the ranks' stats differ")
+            check_eval_files(got["out_dir"], cfg0, val["seg_id"],
+                             {s.split("_segment_")[0] for s in val["seg_id"]})
+            agree = {}
+            for key, get in (
+                    ("tokens", lambda o: o["gen"][0]["seq"]),
+                    ("gen att2_ind", lambda o: o["gen"][0]["att2_weights"]
+                     .reshape(frames).argmax(-1)),
+                    ("gt att2_ind", lambda o: o["grd"][0]["att2_ind"]),
+                    ("gt grd_ind", lambda o: o["grd"][0]["grd_ind"])):
+                agree[key] = float((get(got) == get(ref)).mean())
+                bar = 0.99 if kernels else 1.0
+                check(agree[key] >= bar, f"eval kernels={kernels} {key}: "
+                      f"2 ranks vs one device agreement {agree[key]}")
+            summary[f"eval kernels={kernels}"] = dict(
+                agreement=agree, one_evaluate_s=ref["evaluate_s"],
+                dp_evaluate_s=got["evaluate_s"],
+                one_grounding_s=ref["grounding_s"],
+                dp_grounding_s=got["grounding_s"])
+            print(f"data parallel eval f32 kernels={kernels}: 2 ranks vs one "
+                  f"device agreement "
+                  + ", ".join(f"{k} {v:.4f}" for k, v in agree.items())
+                  + f"; evaluate {got['evaluate_s']:.3f} s vs "
+                  f"{ref['evaluate_s']:.3f} s, eval_grounding_gt "
+                  f"{got['grounding_s']:.3f} s vs {ref['grounding_s']:.3f} s",
+                  flush=True)
+
+        # the driver's path on one NCCL rank
+        ncfg = tcfg.replace(
+            dtype="bfloat16", use_pallas_encoder_train=True, use_pallas=True,
+            use_pallas_rnn=True, use_pallas_decode=True, use_pallas_mha=True,
+            use_pallas_encoder=True, pallas_encoder_grounding_guard=True,
+            language_eval=True, eval_obj_grounding=True,
+            eval_obj_grounding_gt=True, id="nccl", val_every_epoch=1,
+            max_epochs=1, checkpoint_path=os.path.join(tmp, "save"),
+            **{k: getattr(cfg0, k) for k in ("grd_reference", "split_file",
+                                             "densecap_references",
+                                             "data_path")})
+        t0 = time.perf_counter()
+        spawn(dp_nccl, 1, (tmp, ncfg, vocab), timeout_s=DP_TIMEOUT_S)
+        summary["nccl_s"] = time.perf_counter() - t0
+        nccl = torch.load(os.path.join(tmp, "nccl.pt"), weights_only=False)
+        want = {**train_step_counts("K5", "bfloat16", ncfg.grad_accum),
+                "decode_scan": 1, GEMM_ROUTES[torch.bfloat16]: 1,
+                "flash_self_attention": 4, "birnn_recurrence": 4,
+                "region_attention": ncfg.seq_length}
+        check(nccl["launches"] == want,
+              f"NCCL driver launches {nccl['launches']} != {want}")
+        rec = nccl["records"]
+        check([r["epoch"] for r in rec] == [0], f"NCCL driver records {rec}")
+        for key in ("CIDEr", "box_accu_att", "box_accu_grd"):
+            check(math.isfinite(rec[0]["stats"][key]),
+                  f"NCCL driver stat {key}")
+        with open(os.path.join(ncfg.checkpoint_path, "infos.json")) as f:
+            infos = json.load(f)
+        check(infos["epoch"] == 1 and infos["step"] == 1,
+              f"NCCL driver infos {infos}")
+        summary["nccl_world1"] = dict(train_s=rec[0]["train_s"],
+                                      val_s=rec[0]["val_s"],
+                                      save_s=rec[0]["save_s"])
+        print(f"data parallel NCCL world size 1, the driver's path: train "
+              f"{rec[0]['train_s']:.3f} s, validation {rec[0]['val_s']:.3f} "
+              f"s, save {rec[0]['save_s']:.3f} s; launches as one device's",
+              flush=True)
+    print("data_parallel " + json.dumps(summary), flush=True)
+    return summary
+
 
 def check_eval_files(out_dir, cfg, seg_ids, vids,
                      kinds=("attn-gen", "attn-gt", "grd-gt")):
@@ -2039,6 +2575,7 @@ def main() -> int:
         launches[dt].update(counts)
     driver = timed(phase_driver, dev, state)
     timed(phase_transformer, dev, base, state)
+    timed(phase_data_parallel, dev, base, state, results)
     for name in ("encoder_layer_train_fwd", "encoder_layer_train_bwd"):
         launches["bfloat16"][name] = driver[name]
 
@@ -2098,7 +2635,8 @@ def main() -> int:
                    "dtype": dt}
             for extra in ("repack_ms", "exchange_ms", "gemm_tflops",
                           "library_gemm_tflops", "bound_rates",
-                          "stream_floor_ms", "phase_ms", "queued_ms"):
+                          "stream_floor_ms", "phase_ms", "queued_ms",
+                          "row0_max_abs_err"):
                 if extra in r:
                     row[extra] = r[extra]
             kernels.append(row)

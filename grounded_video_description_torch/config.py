@@ -27,8 +27,9 @@ The evaluator's fields (``language_eval``, ``eval_obj_grounding``,
 are the JAX package's too (``beam_size > 1`` decodes by beam search;
 ``vis_attn`` is not ported and makes the evaluator raise).  So are the
 training driver's (``main.py``: the dataset files, the epoch loop,
-checkpointing, logging); ``mesh_shape`` and ``coordinator_address`` are
-read only to refuse them.
+checkpointing, logging), and of its device mesh's data axis
+(``mesh_shape``, ``coordinator_address``, ``num_processes``,
+``process_id``; a model axis is refused).
 ``from_cli`` parses flags named after these fields, so a JAX flag the
 port does not read is an argparse error.
 """
@@ -155,10 +156,15 @@ class GVDConfig:
     # logit head width rounded up to a multiple of this; pad columns are
     # masked before the log-softmax
     vocab_pad_to: int = 1
-    # a device mesh and multi-host runs are not ported: the driver refuses
-    # them (ROADMAP Queue 1 item 13)
+    # the device mesh: [D] or [D, 1] trains and evaluates data-parallel on
+    # D processes, one per device; a model axis M > 1 (tensor parallelism)
+    # is not ported (ROADMAP Queue 1 item 13b).  Multi-host: every host
+    # runs the driver with the coordinator's host:port, the host count and
+    # its own index
     mesh_shape: Optional[List[int]] = None
     coordinator_address: Optional[str] = None
+    num_processes: int = 1
+    process_id: int = 0
     log_jsonl: Optional[str] = None     # metrics JSONL sink
     tensorboard_dir: Optional[str] = None   # TensorBoard scalar mirror
 
@@ -245,6 +251,22 @@ class GVDConfig:
             raise ValueError(
                 f"batch_size {self.batch_size} must be divisible by "
                 f"grad_accum {self.grad_accum}")
+        if self.mesh_shape is not None:
+            shape = list(self.mesh_shape)
+            if not 1 <= len(shape) <= 2 or min(shape) < 1:
+                raise ValueError(f"mesh_shape {shape}: one or two sizes >= 1")
+            if len(shape) == 2 and shape[1] > 1:
+                raise NotImplementedError(
+                    f"mesh_shape {shape}: a model axis (tensor parallelism "
+                    "on the vocab head) is not ported (ROADMAP Queue 1 "
+                    "item 13b)")
+            if (self.batch_size // self.grad_accum) % shape[0]:
+                raise ValueError(
+                    f"microbatch {self.batch_size}//{self.grad_accum} must "
+                    f"be divisible by the mesh data axis {shape[0]}")
+        if not 0 <= self.process_id < self.num_processes:
+            raise ValueError(f"process_id {self.process_id} is not one of "
+                             f"{self.num_processes} processes")
         return self
 
     def replace(self, **kw) -> "GVDConfig":

@@ -27,6 +27,7 @@ import numpy as np
 
 from grounded_video_description_torch.config import GVDConfig
 from grounded_video_description_torch.data.vocab import VocabTables
+from grounded_video_description_torch.parallel.mesh import shard_rows
 
 ARRAY_KEYS = ("seg_feat", "input_seq", "gt_seq", "num", "ppls", "gt_boxes",
               "mask_boxes", "ppls_feat", "frm_mask", "sample_idx",
@@ -269,12 +270,20 @@ class Loader:
     training so every step has the same shape (the reference iterates
     len(dataloader) - 1 for the same reason, main.py:210); ``pad_last``
     instead repeats the last item to fill it, and every batch carries
-    ``n_valid`` for the consumer to truncate."""
+    ``n_valid`` for the consumer to truncate.
+
+    With ``world`` > 1 the loader is rank ``rank``'s of a data-parallel
+    run: batches are drawn in the global order of ``seed`` and it reads
+    only the rank's rows of each (``parallel.shard_rows``: its slice of
+    each of the ``accum`` microbatches), so no rank loads another's
+    features."""
 
     def __init__(self, dataset, batch_size: int, *, shuffle: bool,
                  seed: int = 0, drop_last: bool = True,
-                 pad_last: bool = False, num_threads: int = 4):
+                 pad_last: bool = False, num_threads: int = 4,
+                 rank: int = 0, world: int = 1, accum: int = 1):
         self.dataset = dataset
+        self.rank, self.world, self.accum = rank, world, accum
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.seed = seed
@@ -302,11 +311,16 @@ class Loader:
                 sel = np.concatenate(
                     [sel, np.repeat(sel[-1:],
                                     self.batch_size - n_valid)])
+            if self.world > 1:
+                rows = shard_rows(len(sel), self.accum, self.rank,
+                                  self.world)
+                sel, n_valid = sel[rows], int((rows < n_valid).sum())
             out.append((sel, n_valid))
         return out
 
     def __iter__(self) -> Iterator[Dict]:
-        if not self.shuffle and hasattr(self.dataset, "iter_batches"):
+        if (not self.shuffle and self.world == 1
+                and hasattr(self.dataset, "iter_batches")):
             # a packed cache read in order: each batch is a slice of its
             # memory maps, with no copy
             self.epoch += 1

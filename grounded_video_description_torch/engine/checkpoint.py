@@ -10,23 +10,33 @@ holds one ``torch.save`` file: the model's ``state_dict`` (whose keys the
 JAX package's ``import_torch_checkpoint`` reads), the optimizer's
 ``state_dict``, the step and the dropout generator's state, so a resumed
 run draws the masks the uninterrupted one would have.
+
+Under a ``DataMesh`` every rank holds the same weights, optimizer state
+and generator state, so rank 0 alone writes one copy; every rank
+restores it, and a run resumed at another world size goes on with the
+run it came from.  A barrier follows each save and each restore.
 """
 
 from __future__ import annotations
 
 import json
 import os
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
+
+from grounded_video_description_torch.parallel.mesh import DataMesh, barrier
 
 STATE_FILE = "checkpoint.pt"
 
 
 class CheckpointManager:
-    def __init__(self, directory: str):
+    def __init__(self, directory: str, mesh: Optional[DataMesh] = None):
         self.dir = os.path.abspath(directory)
-        os.makedirs(self.dir, exist_ok=True)
+        self.mesh = mesh
+        if mesh is None or mesh.writer:
+            os.makedirs(self.dir, exist_ok=True)
+        barrier(mesh)
 
     def _save(self, name: str, blob: Dict, infos: Dict, infos_name: str):
         path = os.path.join(self.dir, name)
@@ -46,9 +56,11 @@ class CheckpointManager:
                 "step": trainer.step,
                 "generator": trainer.generator.get_state()}
         infos = {**infos, "step": trainer.step}
-        self._save("model", blob, infos, "infos.json")
-        if best:
-            self._save("model-best", blob, infos, "infos-best.json")
+        if self.mesh is None or self.mesh.writer:
+            self._save("model", blob, infos, "infos.json")
+            if best:
+                self._save("model-best", blob, infos, "infos-best.json")
+        barrier(self.mesh)
 
     def restore(self, trainer, *, load_best: bool = True) -> Dict:
         """Loads ``model-best`` when ``load_best`` and it exists, else
@@ -70,4 +82,5 @@ class CheckpointManager:
             with open(infos_file) as f:
                 infos = json.load(f)
         trainer.step = infos.get("step", blob["step"])
+        barrier(self.mesh)
         return infos

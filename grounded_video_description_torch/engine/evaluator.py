@@ -22,8 +22,14 @@ generated words ground on proposal 0 of each frame, as in the JAX
 evaluator.  The model
 holds its weights, so unlike the JAX evaluator no ``variables`` are
 passed.  Not ported: the attention-overlay visualization (``vis_attn``,
-ROADMAP Queue 1 item 15) and a device mesh (item 13); each raises
-``NotImplementedError``.
+ROADMAP Queue 1 item 15), which raises ``NotImplementedError``.
+
+With a ``DataMesh`` (the batch-parallel decode of the JAX evaluator's
+mesh, evaluator.py:37-51, 263-266) every rank holds the whole batch and
+runs the model on its share of the rows (``parallel.split_rows``); the
+outputs are gathered to rank 0 as host arrays, and rank 0 alone writes
+the JSONs and scores them, then broadcasts the scores so that every rank
+sees the same ones.
 """
 
 from __future__ import annotations
@@ -32,7 +38,7 @@ import json
 import os
 import time
 from collections import defaultdict
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -41,6 +47,8 @@ from grounded_video_description_torch.config import GVDConfig
 from grounded_video_description_torch.data.vocab import decode_sequence
 from grounded_video_description_torch.models.gvd import (
     GVDModel, batch_to_tensors)
+from grounded_video_description_torch.parallel.mesh import (
+    DataMesh, broadcast_object, gather_rows, split_rows)
 
 EXTERNAL_DATA = {"used": True, "details": "Object detector pre-trained on "
                  "Visual Genome on object detection task."}
@@ -68,20 +76,43 @@ def _numpy(t: torch.Tensor) -> np.ndarray:
 
 
 class Evaluator:
-    def __init__(self, cfg: GVDConfig, model: GVDModel, vocab, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "a device mesh is not ported (ROADMAP Queue 1 item 13)")
+    def __init__(self, cfg: GVDConfig, model: GVDModel, vocab,
+                 mesh: Optional[DataMesh] = None):
         self.cfg = cfg
         self.model = model
         self.vocab = vocab
+        self.mesh = mesh
+        self.writer = mesh is None or mesh.writer
 
     def _device(self) -> torch.device:
         return next(self.model.parameters()).device
 
+    def _sharded(self, fn, arrays) -> Dict[str, np.ndarray]:
+        """``fn`` of the batch ``arrays``: on one device, of all of it;
+        with a mesh, each rank's of its rows, gathered on rank 0 (None on
+        the others)."""
+        if self.mesh is None:
+            return fn(arrays)
+        rows = split_rows(len(arrays["seg_feat"]), self.mesh.rank,
+                          self.mesh.world)
+        mine = ({k: v[rows] for k, v in arrays.items()}
+                if rows.stop > rows.start else None)
+        return gather_rows(self.mesh, fn(mine) if mine else None)
+
+    def _shared(self, stats: Optional[Dict]) -> Dict:
+        """Rank 0's scores on every rank."""
+        if self.mesh is None:
+            return stats
+        return broadcast_object(self.mesh, stats)
+
     # ------------------------------------------------------------------ #
 
-    def generate(self, batch_arrays) -> Dict[str, np.ndarray]:
+    def generate(self, batch_arrays) -> Optional[Dict[str, np.ndarray]]:
+        """The decode of one batch of host arrays, as host arrays (with a
+        mesh, on rank 0; None on the others)."""
+        return self._sharded(self._generate, batch_arrays)
+
+    def _generate(self, batch_arrays) -> Dict[str, np.ndarray]:
         batch = batch_to_tensors(batch_arrays, self._device())
         if self.cfg.beam_size > 1:
             seq, lps, att2_ind, att2_frm = self.model.sample_beam(
@@ -100,11 +131,17 @@ class Evaluator:
         """Generated-sentence eval: captions (+ language metrics) and
         grounding on generated words (main.py:314-467)."""
         cfg = self.cfg
-        os.makedirs(os.path.join(out_dir, "densecap_results"), exist_ok=True)
-        os.makedirs(os.path.join(out_dir, "results"), exist_ok=True)
-
-        with open(cfg.grd_reference) as f:
-            timestamp_file = json.load(f)
+        # attention-overlay visualization (main.py:47-85, 402-410)
+        if cfg.vis_attn and cfg.image_path:
+            raise NotImplementedError(
+                "vis_attn is not ported (ROADMAP Queue 1 item 15: "
+                "utils/visualize.py)")
+        if self.writer:
+            os.makedirs(os.path.join(out_dir, "densecap_results"),
+                        exist_ok=True)
+            os.makedirs(os.path.join(out_dir, "results"), exist_ok=True)
+            with open(cfg.grd_reference) as f:
+                timestamp_file = json.load(f)
 
         predictions = defaultdict(list)
         grd_output: Dict = defaultdict(dict)
@@ -123,8 +160,10 @@ class Evaluator:
             arrays = {k: v for k, v in batch.items()
                       if k not in ("seg_id", "n_valid")}
             out = self.generate(arrays)
-            seq = out["seq"][:n_valid]
             n_caps += n_valid
+            if not self.writer:
+                continue
+            seq = out["seq"][:n_valid]
 
             if cfg.eval_obj_grounding:
                 # per-frame argmax box per generated word
@@ -163,12 +202,6 @@ class Evaluator:
 
             sents = decode_sequence(self.vocab.itow, seq)
 
-            # attention-overlay visualization (main.py:47-85, 402-410)
-            if cfg.vis_attn and cfg.image_path:
-                raise NotImplementedError(
-                    "vis_attn is not ported (ROADMAP Queue 1 item 15: "
-                    "utils/visualize.py)")
-
             for k, sent in enumerate(sents):
                 vid_id, seg_idx = seg_ids[k].split("_segment_")
                 seg_idx = str(int(seg_idx))
@@ -180,6 +213,8 @@ class Evaluator:
 
         stats: Dict[str, float] = defaultdict(float)
         stats["captions_per_sec"] = n_caps / max(time.time() - t0, 1e-9)
+        if not self.writer:
+            return self._shared(None)
 
         if cfg.language_eval:
             submission = os.path.join(
@@ -237,7 +272,7 @@ class Evaluator:
                     stats[f"grd_recall_{mode}"] = r
                     stats[f"grd_f1_{mode}"] = f1
 
-        return dict(stats)
+        return self._shared(dict(stats))
 
     # ------------------------------------------------------------------ #
 
@@ -245,7 +280,6 @@ class Evaluator:
                           ) -> Dict[str, float]:
         """GT-sentence localization eval (main.py:89-194)."""
         cfg = self.cfg
-        os.makedirs(os.path.join(out_dir, "results"), exist_ok=True)
         att2_output: Dict = defaultdict(dict)
         grd_output: Dict = defaultdict(dict)
         vocab_in_split = set()
@@ -256,12 +290,13 @@ class Evaluator:
             seg_ids = batch["seg_id"][:n_valid]
             arrays = {k: v for k, v in batch.items()
                       if k not in ("seg_id", "n_valid")}
-            out = self.model.forward(
-                batch_to_tensors(arrays, self._device()), mode="GRD")
-            att2_ind = _numpy(out["att2_ind"])[:n_valid]  # (B, L, n_frm)
-            grd_ind = _numpy(out["grd_ind"])[:n_valid]
-            sim_target = _numpy(out["sim_target"])[:n_valid]  # (B, K, R)
-            pred_cls = _numpy(out["pred_cls"])[:n_valid]      # (B, R)
+            out = self.ground(arrays)
+            if not self.writer:
+                continue
+            att2_ind = out["att2_ind"][:n_valid]          # (B, L, n_frm)
+            grd_ind = out["grd_ind"][:n_valid]
+            sim_target = out["sim_target"][:n_valid]      # (B, K, R)
+            pred_cls = out["pred_cls"][:n_valid]          # (B, R)
             input_seq = np.array(arrays["input_seq"])[:n_valid]
             ppls = np.array(arrays["ppls"]).reshape(
                 -1, cfg.num_sampled_frm, cfg.num_prop_per_frm, 7)
@@ -300,6 +335,28 @@ class Evaluator:
                 att2_output[vid_id][seg_idx] = res_a
                 grd_output[vid_id][seg_idx] = res_g
 
+        if not self.writer:
+            return self._shared(None)
+        return self._shared(self._grounding_stats(
+            att2_output, grd_output, cls_pairs, vocab_in_split, out_dir))
+
+    def ground(self, batch_arrays) -> Optional[Dict[str, np.ndarray]]:
+        """The GT-sentence grounding (``forward(mode="GRD")``) of one batch
+        of host arrays, as host arrays (with a mesh, on rank 0; None on the
+        others)."""
+        return self._sharded(self._grounding, batch_arrays)
+
+    def _grounding(self, arrays) -> Dict[str, np.ndarray]:
+        out = self.model.forward(batch_to_tensors(arrays, self._device()),
+                                 mode="GRD")
+        return {k: _numpy(out[k]) for k in ("att2_ind", "grd_ind",
+                                            "sim_target", "pred_cls")}
+
+    def _grounding_stats(self, att2_output, grd_output, cls_pairs,
+                         vocab_in_split, out_dir: str) -> Dict[str, float]:
+        """The GT-sentence JSONs written, and their scores."""
+        cfg = self.cfg
+        os.makedirs(os.path.join(out_dir, "results"), exist_ok=True)
         attn_file = os.path.join(
             out_dir, "results",
             f"attn-gt-sent-results-{cfg.val_split}-{cfg.id}.json")

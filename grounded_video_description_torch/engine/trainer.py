@@ -11,6 +11,14 @@ The JAX package's optax chain (clip, torch-style L2, the base optimizer,
 the 0.1 scale on the transferred layers, -lr) is a torch optimizer with
 two parameter groups here; the clip runs before it, in ``train_step``,
 with optax's formula.
+
+With a ``DataMesh`` the step is data-parallel (the JAX mesh step's data
+axis, ``parallel/``): each rank holds its rows of every microbatch
+(``parallel.shard_rows``), the mask counts are summed over the ranks, the
+gradients once after the accumulation loop, and the forward runs under a
+``RowShard`` (BatchNorm over the whole microbatch, dropout masks and K4's
+and K5's hashes of the global rows), so D ranks take the step one device
+takes on the whole batch.
 """
 
 from __future__ import annotations
@@ -24,12 +32,12 @@ from grounded_video_description_torch import losses as L
 from grounded_video_description_torch.config import GVDConfig
 from grounded_video_description_torch.models.gvd import (
     GVDModel, batch_to_tensors)
+from grounded_video_description_torch.parallel import spmd
+from grounded_video_description_torch.parallel.mesh import (
+    DataMesh, RowShard, all_reduce_grads_sum, broadcast_module)
+from grounded_video_description_torch.parallel.spmd import COUNTS
 
 FINETUNE_KEYS = ("ctx2pool_grd", "vis_embed")
-# (loss, the mask count that is its masked-mean denominator)
-TERMS = (("lm_loss", "txt_count"), ("att2_loss", "roi_count"),
-         ("ground_loss", "roi_count"), ("cls_loss", "cls_count"))
-COUNTS = ("txt_count", "roi_count", "cls_count")
 
 
 def make_optimizer(cfg: GVDConfig, model: GVDModel) -> torch.optim.Optimizer:
@@ -91,12 +99,18 @@ def batch_to_device(cfg: GVDConfig, batch: Dict,
 class Trainer:
     """Holds the model, its optimizer, the dropout generator (on the
     model's device, seeded with ``cfg.seed`` unless one is given) and the
-    count of updates made (``step``, which the checkpoint saves)."""
+    count of updates made (``step``, which the checkpoint saves).  With a
+    ``mesh`` every rank starts from rank 0's weights and runs the same
+    generator stream."""
 
     def __init__(self, cfg: GVDConfig, model: GVDModel,
-                 generator: torch.Generator = None):
+                 generator: torch.Generator = None,
+                 mesh: Optional[DataMesh] = None):
         self.cfg = cfg
         self.model = model
+        self.mesh = mesh
+        if mesh is not None:
+            broadcast_module(mesh, model)
         device = next(model.parameters()).device
         self.generator = generator or torch.Generator(
             device=device).manual_seed(cfg.seed)
@@ -117,23 +131,35 @@ class Trainer:
                     lr *= cfg.learning_rate_decay_rate
         return lr
 
+    def _generator(self, rows: int):
+        """The forward's generator argument for a microbatch of which this
+        process holds ``rows`` rows."""
+        mesh = self.mesh
+        if mesh is None:
+            return self.generator
+        return RowShard(self.generator, row0=mesh.rank * rows, rows=rows,
+                        total=mesh.world * rows, group=mesh.group)
+
     def train_step(self, batch: Dict[str, torch.Tensor],
                    lr: float) -> Dict[str, torch.Tensor]:
-        """One update on ``batch`` (tensors on the model's device) over
+        """One update on ``batch`` (tensors on the model's device; with a
+        mesh, this rank's rows, ``parallel.shard_rows``) over
         ``cfg.grad_accum`` sequential microbatches.
 
-        The supervision is computed once for the full batch and sliced per
+        The supervision is computed once for the batch and sliced per
         microbatch.  Each microbatch's masked mean is scaled by its count
-        over the full batch's count and the scaled gradients are summed,
-        which is the full batch's gradient (trainer.py:209-306).  The
-        BatchNorm statistics are carried from one microbatch to the next.
-        Returns the loss terms summed over the microbatches (each the full
-        batch's value) and the global gradient norm before the clip, as
-        0-d tensors on the device."""
+        over the whole batch's count (over every rank) and the scaled
+        gradients are summed, over the microbatches and then, in one
+        collective, over the ranks, which is the whole batch's gradient
+        (trainer.py:209-306, spmd.py:47-72).  The BatchNorm statistics are
+        carried from one microbatch to the next.  Returns the loss terms
+        summed over the microbatches and the ranks (each the whole batch's
+        value) and the global gradient norm before the clip, as 0-d
+        tensors on the device."""
         cfg, model = self.cfg, self.model
         accum = cfg.grad_accum
         sup = model.supervision(batch)
-        totals = {k: sup[k].clamp_min(1.0) for k in COUNTS}
+        totals = spmd.global_counts(self.mesh, sup)
         sup_rows = {k: v for k, v in sup.items() if k not in COUNTS}
 
         def part(t: torch.Tensor, i: int) -> torch.Tensor:
@@ -142,12 +168,12 @@ class Trainer:
 
         metrics = None
         for i in range(accum):
+            mb = {k: part(v, i) for k, v in batch.items()}
             losses, bn_state = model(
-                {k: part(v, i) for k, v in batch.items()}, mode="MLE",
-                train=True, generator=self.generator,
+                mb, mode="MLE", train=True,
+                generator=self._generator(mb["seg_feat"].shape[0]),
                 sup={k: part(v, i) for k, v in sup_rows.items()})
-            frac = {name: losses[name] * (losses[ck] / totals[ck])
-                    for name, ck in TERMS}
+            frac = spmd.renormalized(losses, totals)
             loss = L.total_loss(
                 frac["lm_loss"], frac["att2_loss"], frac["ground_loss"],
                 frac["cls_loss"], w_att2=cfg.w_att2, w_grd=cfg.w_grd,
@@ -158,6 +184,9 @@ class Trainer:
                     **{k: v.detach() for k, v in frac.items()}}
             metrics = step if metrics is None else {
                 k: metrics[k] + step[k] for k in metrics}
+        if self.mesh is not None:
+            all_reduce_grads_sum(self.mesh, self.params)
+            metrics = spmd.sum_metrics(self.mesh, metrics)
         metrics["grad_norm"] = clip_by_global_norm(self.params, cfg.grad_clip)
         for group in self.optimizer.param_groups:
             group["lr"] = lr * group["lr_scale"]

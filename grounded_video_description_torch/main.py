@@ -26,9 +26,16 @@ When ``data_path/detectron_weights`` exists and ``transfer_mode`` is not
 "none", the model starts from the Visual-Genome weight transfer
 (``data/transfer.py``), as the JAX driver's does.
 
-Not ported, and refused with ``NotImplementedError``: a device mesh and
-multi-host runs (``--mesh_shape``, ``--coordinator_address``; ROADMAP
-Queue 1 item 13).
+Data parallelism (the JAX driver's ``build_driver_mesh``, main.py:86-149),
+one process per device in a ``torch.distributed`` group (``parallel/``):
+``--mesh_shape D`` (or ``D 1``) spawns D workers on ``cuda:0 .. D-1``
+(NCCL), or with ``--device cpu`` D CPU workers (gloo); with no flag and
+more than one visible card, D is the most cards that divide the
+microbatch.  Multi-host: ``--coordinator_address host:port
+--num_processes N --process_id i`` on every host joins one group of N x D
+ranks, rank i x D + the local rank.  Rank 0 writes the checkpoints, the
+evaluation JSONs and the logs.  A model axis (``--mesh_shape D M``, M >
+1) is refused with ``NotImplementedError`` (ROADMAP Queue 1 item 13b).
 """
 
 from __future__ import annotations
@@ -106,6 +113,28 @@ def sharing_model(model, cfg: GVDConfig):
     return view
 
 
+def data_axis(cfg: GVDConfig, device: torch.device) -> int:
+    """The ranks on this host: ``mesh_shape``'s data axis, else (on the
+    card) the most visible cards that divide the microbatch, as the JAX
+    driver's auto-DP picks them (main.py:111-124)."""
+    if cfg.mesh_shape is not None:
+        local = cfg.mesh_shape[0]
+    elif device.type == "cuda":
+        micro = cfg.batch_size // cfg.grad_accum
+        local = max(k for k in range(1, torch.cuda.device_count() + 1)
+                    if micro % k == 0)
+    else:
+        local = 1
+    if device.type == "cuda" and local > torch.cuda.device_count():
+        raise ValueError(f"a data axis of {local} needs {local} cards, "
+                         f"{torch.cuda.device_count()} visible")
+    world = cfg.num_processes * local
+    if (cfg.batch_size // cfg.grad_accum) % world:
+        raise ValueError(f"microbatch {cfg.batch_size}//{cfg.grad_accum} "
+                         f"must be divisible by the {world} ranks")
+    return local
+
+
 def run(cfg: GVDConfig, trainer, evaluator, loader, loader_val, ckpt,
         logger, infos: Dict, *, out_dir: str = ".") -> List[Dict]:
     """The epoch loop (main.py:223-265) from ``infos["epoch"]`` to
@@ -175,38 +204,84 @@ def parse_args(argv: Optional[List[str]] = None):
 
 
 def main(argv: Optional[List[str]] = None) -> int:
+    """The driver: one process, or D workers per host (``data_axis``)."""
+    import tempfile
+
+    from grounded_video_description_torch.parallel import spawn
+
+    device, cfg = parse_args(argv)
+    local = data_axis(cfg, device)
+    if local * cfg.num_processes == 1 and not cfg.coordinator_address:
+        return train(cfg, device)
+    with tempfile.TemporaryDirectory() as rdzv:
+        init = (f"tcp://{cfg.coordinator_address}" if cfg.coordinator_address
+                else f"file://{rdzv}/rdzv")
+        spawn(_worker, local, (cfg, device.type, init, local))
+    return 0
+
+
+def _worker(local_rank: int, cfg: GVDConfig, device_type: str,
+            init_method: str, local: int) -> None:
+    """Rank ``process_id`` x ``local`` + ``local_rank``: join the group on
+    this host's device ``local_rank`` and train.  Ranks other than 0 print
+    nothing."""
+    from grounded_video_description_torch.parallel import (
+        close_data_mesh, init_data_mesh)
+
+    device = (torch.device("cuda", local_rank) if device_type == "cuda"
+              else torch.device("cpu"))
+    if device.type == "cpu":
+        torch.set_num_threads(max(1, torch.get_num_threads() // local))
+    rank = cfg.process_id * local + local_rank
+    if rank:
+        sys.stdout = open(os.devnull, "w")
+    mesh = init_data_mesh(device, world=cfg.num_processes * local,
+                          rank=rank, init_method=init_method)
+    try:
+        train(cfg, device, mesh)
+    finally:
+        close_data_mesh(mesh)
+
+
+def train(cfg: GVDConfig, device: torch.device, mesh=None) -> int:
+    """Build the datasets, the model and its trainer, evaluator and
+    checkpoints on ``device`` (as one rank of ``mesh`` if given), resume
+    if a checkpoint says so, and run the epoch loop."""
     from grounded_video_description_torch.data.dataset import Loader
     from grounded_video_description_torch.engine.checkpoint import (
         CheckpointManager)
     from grounded_video_description_torch.engine.evaluator import (
         Evaluator, grounding_eval_cfg)
     from grounded_video_description_torch.engine.trainer import Trainer
+    from grounded_video_description_torch.parallel.mesh import barrier
     from grounded_video_description_torch.utils.logging import MetricLogger
 
-    device, cfg = parse_args(argv)
-    if cfg.mesh_shape is not None or cfg.coordinator_address:
-        raise NotImplementedError(
-            "a device mesh and multi-host runs (--mesh_shape, "
-            "--coordinator_address) are not ported (ROADMAP Queue 1 "
-            "item 13)")
     np.random.seed(cfg.seed)
-
+    writer = mesh is None or mesh.writer
     cfg, model, dataset, dataset_val, vocab = build_model_and_vocab(
         cfg, device)
     if cfg.packed_cache_dir:
         from grounded_video_description_torch.data.packed_cache import (
             open_or_build)
-        dataset = open_or_build(
-            dataset, os.path.join(cfg.packed_cache_dir, cfg.train_split))
-        dataset_val = open_or_build(
-            dataset_val, os.path.join(cfg.packed_cache_dir, cfg.val_split))
-    loader = Loader(dataset, cfg.batch_size, shuffle=True, seed=cfg.seed)
+        # rank 0 builds the caches, then the others open them
+        for rank0_turn in (True, False):
+            if writer == rank0_turn:
+                dataset = open_or_build(dataset, os.path.join(
+                    cfg.packed_cache_dir, cfg.train_split))
+                dataset_val = open_or_build(dataset_val, os.path.join(
+                    cfg.packed_cache_dir, cfg.val_split))
+            barrier(mesh)
+    shard = ({} if mesh is None else
+             dict(rank=mesh.rank, world=mesh.world, accum=cfg.grad_accum))
+    loader = Loader(dataset, cfg.batch_size, shuffle=True, seed=cfg.seed,
+                    **shard)
     loader_val = Loader(dataset_val, cfg.batch_size, shuffle=False,
                         drop_last=False, pad_last=True)
 
-    trainer = Trainer(cfg, model)
-    ckpt = CheckpointManager(cfg.checkpoint_path)
-    logger = MetricLogger(cfg.log_jsonl, tensorboard_dir=cfg.tensorboard_dir)
+    trainer = Trainer(cfg, model, mesh=mesh)
+    ckpt = CheckpointManager(cfg.checkpoint_path, mesh)
+    logger = (MetricLogger(cfg.log_jsonl, tensorboard_dir=cfg.tensorboard_dir)
+              if writer else MetricLogger())
 
     infos = {"epoch": 0, "best_val_score": None}
     resume_dir = cfg.start_from
@@ -218,15 +293,16 @@ def main(argv: Optional[List[str]] = None) -> int:
         # crash recovery continues from the latest state; an explicit
         # --start_from honours --load_best_score (main.py:622-628)
         load_best = (cfg.load_best_score == 1) if cfg.start_from else False
-        infos = CheckpointManager(resume_dir).restore(trainer,
-                                                      load_best=load_best)
+        infos = CheckpointManager(resume_dir, mesh).restore(
+            trainer, load_best=load_best)
         print(f"resumed from {resume_dir} at epoch {infos.get('epoch', 0)}")
 
     eval_cfg = grounding_eval_cfg(cfg)
     if eval_cfg is not cfg:
         print("grounding eval active: encoder kernel gated off for metric "
               "fidelity (pallas_encoder_grounding_guard)")
-    evaluator = Evaluator(eval_cfg, sharing_model(model, eval_cfg), vocab)
+    evaluator = Evaluator(eval_cfg, sharing_model(model, eval_cfg), vocab,
+                          mesh)
     run(cfg, trainer, evaluator, loader, loader_val, ckpt, logger, infos)
     logger.close()
     return 0

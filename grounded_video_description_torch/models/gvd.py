@@ -29,7 +29,10 @@ runs its plain version on CPU tensors.  The config is the port's own
 
 Training draws every dropout mask from one ``torch.Generator`` on the
 model's device, passed down explicitly; without one, dropout is the
-identity, as the JAX package's is without an rng.
+identity, as the JAX package's is without an rng.  A data-parallel rank
+passes a ``parallel.RowShard`` instead: the generator every rank shares,
+its rows of the microbatch and the group that BatchNorm's statistics are
+summed over.
 """
 
 from __future__ import annotations
@@ -62,6 +65,9 @@ from grounded_video_description_torch.ops.kernels.decode_scan import (
 )
 from grounded_video_description_torch.ops.quantize import (
     dequantize, quantize_rows,
+)
+from grounded_video_description_torch.parallel.mesh import (
+    generator_of, group_of,
 )
 
 
@@ -224,7 +230,11 @@ class GVDModel(nn.Module):
 
         # visual-word embeddings for all classes (model.py:321-326)
         vis_word_embed = F.relu(self.vis_embed[0].weight)
-        vis_word_embed = drop(vis_word_embed).to(dt)
+        # one mask for the class table, which no row owns: every rank
+        # draws it whole
+        vis_word_embed = dropout(vis_word_embed, cfg.drop_prob_lm,
+                                 train=train,
+                                 generator=generator_of(generator)).to(dt)
         p_vis_word = vis_word_embed[None].expand(
             (B,) + tuple(vis_word_embed.shape))
 
@@ -280,7 +290,9 @@ class GVDModel(nn.Module):
                 drop(F.relu(_lin(self.att_embed[0][0], rgb))),
                 drop(F.relu(_lin(self.att_embed[1][0], motion)))], dim=-1)
             if train:
-                conv, bn_state = batch_norm_train(self.att_embed_aux[0], conv)
+                conv, bn_state = batch_norm_train(
+                    self.att_embed_aux[0], conv,
+                    group=group_of(generator))
             else:
                 conv = batch_norm(self.att_embed_aux[0], conv)
             conv = birnn(self.context_enc, F.relu(conv),

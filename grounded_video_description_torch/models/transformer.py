@@ -42,6 +42,7 @@ from grounded_video_description_torch.ops.kernels.encoder_layer_train import (
     fused_encoder_layer_train)
 from grounded_video_description_torch.ops.kernels.mha import (
     flash_self_attention)
+from grounded_video_description_torch.parallel.mesh import row0_of
 
 # the K4 and K7 dispatch of the JAX package (models/transformer.py:157-159,
 # 179-180): self-attention over more than this many keys
@@ -149,7 +150,8 @@ def _self_attention_train(w: EncoderLayerWeights, x: torch.Tensor, *,
         else:
             seed, rate = torch.zeros(1, dtype=torch.int64,
                                      device=x.device), 0.0
-        o = prim(q, k, v, seed, n_heads=n_heads, scale=scale, drop=rate)
+        o = prim(q, k, v, seed, n_heads=n_heads, scale=scale, drop=rate,
+                 row0=row0_of(generator, x))
     else:
         heads = []
         for sl in head_slices(D, n_heads):
@@ -226,7 +228,7 @@ def encoder_apply_fused_train(enc: Encoder, x: torch.Tensor, *,
     encodings = []
     for lp, seed in zip(enc.layers, seeds):
         x = fused_encoder_layer_train(x, lp.weights(), seed, n_heads=n_heads,
-                                      drop=drop)
+                                      drop=drop, row0=row0_of(generator, x))
         encodings.append(x)
     return encodings
 

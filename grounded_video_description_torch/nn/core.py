@@ -20,6 +20,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from grounded_video_description_torch.parallel.mesh import (
+    RowShard, all_reduce_sum)
+
 
 # --------------------------------------------------------------------- #
 # initializers
@@ -255,24 +258,39 @@ def batch_norm(bn: nn.BatchNorm1d, x: torch.Tensor,
 
 
 def batch_norm_train(bn: nn.BatchNorm1d, x: torch.Tensor, *,
-                     momentum: float = 0.1, eps: float = 1e-5
+                     momentum: float = 0.1, eps: float = 1e-5,
+                     group=None
                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """BatchNorm of a (B, T, C) tensor in training: statistics of the
     batch over (B, T) in f32.  Returns (y, new_state); new_state holds
     the running statistics after this batch under ``bn``'s buffer names
     (momentum 0.1, unbiased variance, count + 1), for the caller to
-    carry to the next batch.  ``bn`` itself is left as it is."""
+    carry to the next batch.  ``bn`` itself is left as it is.
+
+    With a process ``group`` the batch is the rows of every rank: the
+    sums, the count and the squared deviations are summed over the ranks
+    by a differentiable all-reduce, so every rank normalizes by the whole
+    microbatch's statistics (as the JAX mesh step does) and carries the
+    same running statistics."""
     x32 = x.float()
-    mean = x32.mean(dim=(0, 1))
-    var = x32.var(dim=(0, 1), unbiased=False)
-    n = x.shape[0] * x.shape[1]
+    if group is None:
+        mean = x32.mean(dim=(0, 1))
+        var = x32.var(dim=(0, 1), unbiased=False)
+        n = x.shape[0] * x.shape[1]
+        unbias = n / max(n - 1, 1)
+    else:
+        s = all_reduce_sum(torch.cat([x32.sum(dim=(0, 1)), x32.new_tensor(
+            [x.shape[0] * x.shape[1]])]), group)
+        n = s[-1]
+        mean = s[:-1] / n
+        var = all_reduce_sum(((x32 - mean) ** 2).sum(dim=(0, 1)), group) / n
+        unbias = n / (n - 1).clamp_min(1.0)
     with torch.no_grad():
-        unbiased = var * (n / max(n - 1, 1))
         new_state = {
             "running_mean": (1 - momentum) * bn.running_mean
             + momentum * mean,
             "running_var": (1 - momentum) * bn.running_var
-            + momentum * unbiased,
+            + momentum * (var * unbias),
             "num_batches_tracked": bn.num_batches_tracked + 1,
         }
     y = (x - mean.to(x.dtype)) * torch.rsqrt(var.to(x.dtype) + eps)
@@ -284,13 +302,25 @@ def batch_norm_train(bn: nn.BatchNorm1d, x: torch.Tensor, *,
 # --------------------------------------------------------------------- #
 
 def dropout(x: torch.Tensor, rate: float, *, train: bool,
-            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+            generator=None) -> torch.Tensor:
     """JAX ``nn/core.py::dropout``: the identity at eval, at rate 0 or
     without a generator; else each element is kept with probability
     1 - rate, scaled by 1 / (1 - rate), and the result is in x's dtype.
-    The mask comes from ``generator``, which lives on x's device."""
+    The mask comes from ``generator``, which lives on x's device.
+
+    Under a ``RowShard`` (a data-parallel rank) x's leading axis holds the
+    rank's rows: the mask of the whole microbatch is drawn, as one device
+    draws it, and the rank keeps its rows, so D ranks drop what one device
+    drops."""
     if not train or rate <= 0.0 or generator is None:
         return x
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    if isinstance(generator, RowShard):
+        row0, total = generator.span(x)
+        u = torch.rand((total,) + tuple(x.shape[1:]),
+                       generator=generator.generator, device=x.device)
+        mask = u[row0:row0 + x.shape[0]] < keep
+    else:
+        mask = torch.rand(x.shape, generator=generator,
+                          device=x.device) < keep
     return torch.where(mask, x / keep, 0.0).to(x.dtype)

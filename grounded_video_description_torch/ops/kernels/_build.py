@@ -5,7 +5,10 @@ At first use, every ``csrc/*.cu`` of the package is compiled with
 interface, and loaded with ``ctypes``.  The library lives in
 ``grounded_video_description_torch/_build/`` (listed in .gitignore),
 named by a hash of the sources, so a changed source builds anew and an
-unchanged one is loaded as it is.
+unchanged one is loaded as it is.  Processes that ask for it at once (the
+ranks of a data-parallel run) build it once: the first holds a lock on
+the build directory while it builds, the others wait and load its
+library.
 
 Each C entry point launches on the stream it is given, allocates
 nothing, and returns ``cudaGetLastError()``; ``check`` raises on a
@@ -20,6 +23,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -117,7 +121,8 @@ def _nvcc() -> str:
 def build() -> Path:
     """Compile csrc/*.cu into _build/libgvd_kernels-<hash>.so unless
     that file exists already; returns its path.  One nvcc per source,
-    all started together, then one link."""
+    all started together, then one link, under the build directory's
+    lock (``.lock``)."""
     sources = sorted(CSRC_DIR.glob("*.cu")) + sorted(CSRC_DIR.glob("*.cuh"))
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for s in sources:
@@ -127,35 +132,45 @@ def build() -> Path:
     if so.is_file():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tag = f"{h.hexdigest()[:16]}.{os.getpid()}"
+    with open(BUILD_DIR / ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not so.is_file():        # else built while this one waited
+            _compile(sources, so, h.hexdigest()[:16])
+    return so
+
+
+def _compile(sources, so: Path, digest: str) -> None:
+    """The nvcc runs of ``build``; no object or partial library outlives
+    them."""
+    tag = f"{digest}.{os.getpid()}"
     nvcc = _nvcc()
     compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
-    jobs = []
-    for s in sources:
-        if s.suffix != ".cu":
-            continue
-        obj = BUILD_DIR / f"{s.stem}-{tag}.o"
-        cmd = [nvcc, *compile_flags, "-c", "-o", str(obj), str(s)]
-        jobs.append((cmd, obj, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True)))
-    failed = []
-    for cmd, _, proc in jobs:
-        out, _ = proc.communicate()
-        if proc.returncode != 0:
-            failed.append(f"{' '.join(cmd)}\n{out}")
-    if failed:
-        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    objs = [BUILD_DIR / f"{s.stem}-{tag}.o" for s in sources
+            if s.suffix == ".cu"]
     tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *[str(j[1]) for j in jobs]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    for _, obj, _ in jobs:
-        obj.unlink()
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, so)
-    return so
+    try:
+        jobs = []
+        for s, obj in zip((s for s in sources if s.suffix == ".cu"), objs):
+            cmd = [nvcc, *compile_flags, "-c", "-o", str(obj), str(s)]
+            jobs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        failed = []
+        for cmd, proc in jobs:
+            out, _ = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"{' '.join(cmd)}\n{out}")
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+        os.replace(tmp, so)
+    finally:
+        for path in objs + [tmp]:
+            path.unlink(missing_ok=True)
 
 
 def lib() -> ctypes.CDLL:

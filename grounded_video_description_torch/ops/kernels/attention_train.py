@@ -26,7 +26,11 @@ head's zero pad changes no product, so the two compute the same function.
 The dropout masks are the JAX kernel's bit for bit: ``uniform_hash`` is
 its counter hash in int64 arithmetic held to 32 bits, keyed by one seed
 per call (an int64 tensor on the device, of which the low 32 bits count)
-and salted per (batch row, head).  Scores, softmax and the softmax
+and salted per (batch row, head).  ``row0`` is the global index of the
+call's first row: a data-parallel rank holding rows row0.. of the
+microbatch hashes those rows, so D ranks draw the masks of one device.
+The salt is affine in the row, so the kernels take row0 in their salt
+base.  Scores, softmax and the softmax
 backward run in f32 in both dtypes, as the port's K1 does (in bf16 the
 dropped probs and the score gradient enter their products in bf16, as
 in the JAX primitive); the JAX primitive casts the scores to the compute
@@ -42,6 +46,7 @@ from __future__ import annotations
 import torch
 
 from grounded_video_description_torch.ops.kernels import _build
+from grounded_video_description_torch.parallel.mesh import generator_of
 from grounded_video_description_torch.ops.kernels.encoder_layer import (
     head_slices)
 
@@ -131,10 +136,12 @@ def uniform_hash(shape, seed: torch.Tensor, salt: torch.Tensor
     return (h >> 8).float() * (1.0 / (1 << 24))
 
 
-def _salts(B: int, head: int, n_heads: int, device) -> torch.Tensor:
-    """JAX ``attention_train.py::_salt`` for every batch row of a head."""
-    return (SITE_ATTN + torch.arange(B, device=device) * max(n_heads, 8)
-            + head)
+def _salts(B: int, head: int, n_heads: int, device,
+           row0: int = 0) -> torch.Tensor:
+    """JAX ``attention_train.py::_salt`` for the batch rows row0 ..
+    row0 + B - 1 of a head."""
+    return (SITE_ATTN + (row0 + torch.arange(B, device=device))
+            * max(n_heads, 8) + head)
 
 
 def _head_scores(q, k, sl, inv_scale) -> torch.Tensor:
@@ -231,12 +238,13 @@ def pack_heads(xs, n_heads: int) -> torch.Tensor:
 
 
 def mha_probs_dropout_plain(q, k, v, seed, *, n_heads: int, scale: float,
-                            drop: float) -> torch.Tensor:
+                            drop: float, row0: int = 0) -> torch.Tensor:
     """q, k, v (B, R, D); seed an int64 tensor of one element.  Returns
     the attention output (B, R, D) in q's dtype: per head
     softmax(q_h k_h^T / scale) with dropout at ``drop`` on the probs
-    (kept where the hash is >= drop, scaled by 1 / (1 - drop)), times
-    v_h.  Differentiable by autograd."""
+    (kept where the hash is >= drop, scaled by 1 / (1 - drop); row b
+    hashed as global row row0 + b), times v_h.  Differentiable by
+    autograd."""
     B, R, D = q.shape
     inv_scale = 1.0 / scale
     Rp = -(-R // 128) * 128
@@ -246,7 +254,8 @@ def mha_probs_dropout_plain(q, k, v, seed, *, n_heads: int, scale: float,
         p = torch.softmax(_head_scores(q, k, sl, inv_scale), dim=-1)
         if drop > 0.0:
             u = uniform_hash((Rp, Rp), seed,
-                             _salts(B, h, n_heads, q.device))[:, :R, :R]
+                             _salts(B, h, n_heads, q.device, row0)
+                             )[:, :R, :R]
             p = torch.where(u >= drop, p / keep, 0.0)
         outs.append((p @ v[..., sl].float()).to(q.dtype))
     return torch.cat(outs, dim=-1)
@@ -329,18 +338,23 @@ def attention_backward(q, k, v, out, lse, seed, dout, *, n_heads: int,
     return dq, dk, dv
 
 
-def _kernel_forward(q, k, v, seed, n_heads, scale, drop):
+def _salt_base(n_heads: int, row0: int) -> int:
+    """The salt of (row 0 of the call, head 0): global row row0."""
+    return SITE_ATTN + row0 * max(n_heads, 8)
+
+
+def _kernel_forward(q, k, v, seed, n_heads, scale, drop, row0):
     return attention_forward(q, k, v, seed, n_heads=n_heads, scale=scale,
-                             drop=drop, salt_base=SITE_ATTN,
+                             drop=drop, salt_base=_salt_base(n_heads, row0),
                              salt_mul=max(n_heads, 8))
 
 
-def _plain_forward(q, k, v, seed, n_heads, scale, drop):
+def _plain_forward(q, k, v, seed, n_heads, scale, drop, row0):
     """The plain forward of the hybrid schedule, with the row
     log-sum-exp that the backward kernel reads."""
     D = q.shape[-1]
     out = mha_probs_dropout_plain(q, k, v, seed, n_heads=n_heads,
-                                  scale=scale, drop=drop)
+                                  scale=scale, drop=drop, row0=row0)
     lse = torch.stack([
         torch.logsumexp(_head_scores(q, k, sl, 1.0 / scale), dim=-1)
         for sl in head_slices(D, n_heads)], dim=1)
@@ -349,55 +363,62 @@ def _plain_forward(q, k, v, seed, n_heads, scale, drop):
 
 class _AttentionTrain(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, seed, n_heads, scale, drop, plain_forward):
+    def forward(ctx, q, k, v, seed, n_heads, scale, drop, plain_forward,
+                row0):
         if plain_forward:
-            out, lse = _plain_forward(q, k, v, seed, n_heads, scale, drop)
+            out, lse = _plain_forward(q, k, v, seed, n_heads, scale, drop,
+                                      row0)
         else:
-            out, lse = _kernel_forward(q, k, v, seed, n_heads, scale, drop)
+            out, lse = _kernel_forward(q, k, v, seed, n_heads, scale, drop,
+                                       row0)
             _build.launches["attention_train_fwd"] += 1
         ctx.save_for_backward(q, k, v, out, lse, seed)
-        ctx.args = (n_heads, scale, drop)
+        ctx.args = (n_heads, scale, drop, row0)
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse, seed = ctx.saved_tensors
-        n_heads, scale, drop = ctx.args
+        n_heads, scale, drop, row0 = ctx.args
         dq, dk, dv = attention_backward(
             q, k, v, out, lse, seed, dout, n_heads=n_heads, scale=scale,
-            drop=drop, salt_base=SITE_ATTN, salt_mul=max(n_heads, 8))
+            drop=drop, salt_base=_salt_base(n_heads, row0),
+            salt_mul=max(n_heads, 8))
         _build.launches["attention_train_bwd"] += 1
-        return dq, dk, dv, None, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None, None
 
 
-def _dispatch(q, k, v, seed, n_heads, scale, drop, plain_forward):
+def _dispatch(q, k, v, seed, n_heads, scale, drop, plain_forward, row0):
     if not q.is_cuda:
         return mha_probs_dropout_plain(q, k, v, seed, n_heads=n_heads,
-                                       scale=scale, drop=drop)
+                                       scale=scale, drop=drop, row0=row0)
     _check(q, k, v, seed, n_heads)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     return _AttentionTrain.apply(q, k, v, seed, n_heads, float(scale),
-                                 float(drop), plain_forward)
+                                 float(drop), plain_forward, int(row0))
 
 
 def mha_probs_dropout(q, k, v, seed, *, n_heads: int, scale: float,
-                      drop: float) -> torch.Tensor:
+                      drop: float, row0: int = 0) -> torch.Tensor:
     """Same contract as ``mha_probs_dropout_plain``.  A CPU tensor takes
     the plain version; a CUDA tensor runs the forward kernel, and its
     backward runs the backward kernels (one count each per call)."""
-    return _dispatch(q, k, v, seed, n_heads, scale, drop, False)
+    return _dispatch(q, k, v, seed, n_heads, scale, drop, False, row0)
 
 
 def mha_probs_dropout_hybrid(q, k, v, seed, *, n_heads: int, scale: float,
-                             drop: float) -> torch.Tensor:
+                             drop: float, row0: int = 0) -> torch.Tensor:
     """The JAX package's hybrid schedule: the plain forward (same masks)
     and the backward kernels.  A CPU tensor takes the plain version."""
-    return _dispatch(q, k, v, seed, n_heads, scale, drop, True)
+    return _dispatch(q, k, v, seed, n_heads, scale, drop, True, row0)
 
 
-def draw_seed(generator: torch.Generator) -> torch.Tensor:
+def draw_seed(generator) -> torch.Tensor:
     """One dropout seed for a layer call: an int64 in [0, 2**32) on the
-    generator's device, drawn without a host synchronisation."""
+    generator's device, drawn without a host synchronisation.  A
+    ``RowShard`` draws from its generator, the same seed on every
+    rank."""
+    generator = generator_of(generator)
     return torch.randint(0, 1 << 32, (1,), generator=generator,
                          device=generator.device, dtype=torch.int64)
 

@@ -21,7 +21,10 @@ FFN with dropout, residual + LayerNorm.  The masks are the JAX kernel's
 bit for bit (``uniform_hash``): the prob site salted 0x10000000 + b * 8 + h
 over an (Rp, Rp) counter, Rp = R rounded up to 128; the residual sites
 0x20000000 + b and 0x30000000 + b over an (R, D) counter; b is the row
-within the call.  A kept value is divided by (1 - drop).
+within the call plus ``row0``, the global index of the call's first row
+(a data-parallel rank's offset in the microbatch; the salts are affine in
+b, so the kernels take it in their salt bases).  A kept value is divided
+by (1 - drop).
 
 Numerics (both versions): q, k, v, the attention output, the FFN input
 x1c and the FFN activation are stored in the input dtype; every product
@@ -132,10 +135,11 @@ class _FlashPV(torch.autograd.Function):
 class _Plain:
     """The twin's pieces for inputs of dtype ``dt`` and shape (B, R, D)."""
 
-    def __init__(self, x: torch.Tensor, seed: torch.Tensor, drop: float):
+    def __init__(self, x: torch.Tensor, seed: torch.Tensor, drop: float,
+                 row0: int = 0):
         self.dt, self.seed, self.drop = x.dtype, seed, drop
         B, self.R, self.D = x.shape
-        self.rows = torch.arange(B, device=x.device)
+        self.rows = row0 + torch.arange(B, device=x.device)
         self.lowp = self.dt != torch.float32
 
     def rounded(self, t):
@@ -161,11 +165,11 @@ class _Plain:
 
 
 def attention_heads_plain(q, k, v, seed: torch.Tensor, *, n_heads: int,
-                          drop: float) -> torch.Tensor:
+                          drop: float, row0: int = 0) -> torch.Tensor:
     """The twin's attention: concat_h drop(softmax(q_h k_h^T / sqrt(D)))
     v_h for q, k, v (B, R, D) in the compute dtype, returned in it;
     differentiable, with the bf16 kernels' rounding of P~ and dS."""
-    ops = _Plain(q, seed, drop)
+    ops = _Plain(q, seed, drop, row0)
     dt, R, D = ops.dt, ops.R, ops.D
     Rp = -(-R // 128) * 128
     inv_scale = 1.0 / math.sqrt(D)
@@ -193,21 +197,23 @@ def attention_heads_plain(q, k, v, seed: torch.Tensor, *, n_heads: int,
 
 def attention_sublayer_plain(x: torch.Tensor, w: EncoderLayerWeights,
                              seed: torch.Tensor, *, n_heads: int,
-                             drop: float) -> torch.Tensor:
+                             drop: float, row0: int = 0) -> torch.Tensor:
     """The twin's first half: x1 = LN1(x + drop(attention(x) Wo)) in f32,
     the FFN's input (its ReLU pre-activation is mm(x1, W1) + b1)."""
-    ops = _Plain(x, seed, drop)
+    ops = _Plain(x, seed, drop, row0)
     dt = ops.dt
     xf = x.float()            # one node, so dx is rounded once, at the end
     q, k, v = (ops.mm(xf, m).to(dt) for m in (w.wq, w.wk, w.wv))
-    o = attention_heads_plain(q, k, v, seed, n_heads=n_heads, drop=drop)
+    o = attention_heads_plain(q, k, v, seed, n_heads=n_heads, drop=drop,
+                              row0=row0)
     a = ops.grad_rounded(ops.mm(o, w.wo))
     return ops.ln(xf + ops.resid_drop(a, SITE_RESID1), w.g1, w.be1)
 
 
 def fused_encoder_layer_train_plain(x: torch.Tensor, w: EncoderLayerWeights,
                                     seed: torch.Tensor, *, n_heads: int,
-                                    drop: float) -> torch.Tensor:
+                                    drop: float, row0: int = 0
+                                    ) -> torch.Tensor:
     """x (B, R, D) in f32 or bf16; w the layer's tensors (f32, linear
     weights in (out, in) layout); seed an int64 tensor of one element.
     Returns the layer's output (B, R, D) in x's dtype.  Differentiable by
@@ -219,8 +225,9 @@ def fused_encoder_layer_train_plain(x: torch.Tensor, w: EncoderLayerWeights,
     probs P~ enter P~ V (and dV) and the score gradient dS enters dQ and
     dK in the compute dtype, as in the bf16 tensor-core kernels, and the
     forward rounds P~ as their online softmax does (``flash_rounding``)."""
-    ops = _Plain(x, seed, drop)
-    x1 = attention_sublayer_plain(x, w, seed, n_heads=n_heads, drop=drop)
+    ops = _Plain(x, seed, drop, row0)
+    x1 = attention_sublayer_plain(x, w, seed, n_heads=n_heads, drop=drop,
+                                  row0=row0)
     hid = ops.rounded(torch.relu(ops.grad_rounded(ops.mm(x1, w.w1))
                                  + w.b1.float()))
     f = ops.grad_rounded(ops.mm(hid, w.w2)) + w.b2.float()
@@ -493,28 +500,30 @@ def _colsum(a, b=None, *, dt):
     return out1, out2
 
 
-def _attn_fwd(q, k, v, seed, n_heads, drop):
+def _attn_fwd(q, k, v, seed, n_heads, drop, row0=0):
     """K4's forward with K5's salts: the output and the row log-sum-exp
     (None on the CPU, whose backward recomputes the attention)."""
     if q.is_cuda:
         return attention_forward(q, k, v, seed, n_heads=n_heads,
                                  scale=math.sqrt(q.shape[-1]), drop=drop,
-                                 salt_base=SITE_PROBS, salt_mul=SALT_MUL)
+                                 salt_base=SITE_PROBS + row0 * SALT_MUL,
+                                 salt_mul=SALT_MUL)
     return attention_heads_plain(q, k, v, seed, n_heads=n_heads,
-                                 drop=drop), None
+                                 drop=drop, row0=row0), None
 
 
-def _attn_bwd(q, k, v, o, lse, seed, dout, n_heads, drop):
+def _attn_bwd(q, k, v, o, lse, seed, dout, n_heads, drop, row0=0):
     """K4's backward with K5's salts: dq, dk, dv in q's dtype."""
     if q.is_cuda:
         return attention_backward(q, k, v, o, lse, seed, dout,
                                   n_heads=n_heads, scale=math.sqrt(
                                       q.shape[-1]), drop=drop,
-                                  salt_base=SITE_PROBS, salt_mul=SALT_MUL)
+                                  salt_base=SITE_PROBS + row0 * SALT_MUL,
+                                  salt_mul=SALT_MUL)
     leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
     with torch.enable_grad():
         out = attention_heads_plain(*leaves, seed, n_heads=n_heads,
-                                    drop=drop)
+                                    drop=drop, row0=row0)
         return torch.autograd.grad(out, leaves, dout)
 
 
@@ -543,8 +552,9 @@ class K5Saved(NamedTuple):
     seed: torch.Tensor
 
 
-def _kernel_forward(x, w, seed, n_heads, drop):
-    """Returns the output (B, R, D) and the ``K5Saved`` of the backward."""
+def _kernel_forward(x, w, seed, n_heads, drop, row0=0):
+    """Returns the output (B, R, D) and the ``K5Saved`` of the backward.
+    Row b of the call is hashed as global row row0 + b."""
     B, R, D = x.shape
     M, dt = B * R, x.dtype
     Fh = w.w1.shape[0]
@@ -555,22 +565,22 @@ def _kernel_forward(x, w, seed, n_heads, drop):
         w.b1, w.b2, w.g1, w.be1, w.g2, w.be2))
     q, k, v = (_mm(NT, x2, m, M, D, D, out_f32=False).view(B, R, D)
                for m in (wq, wk, wv))
-    o, lse = _attn_fwd(q, k, v, seed, n_heads, drop)
+    o, lse = _attn_fwd(q, k, v, seed, n_heads, drop, row0)
     o = o.reshape(M, D)
     a = _mm(NT, o, wo, M, D, D, out_f32=True)
-    x1c, x1, n1, s1 = _ln_fwd(x2, a, seed, SITE_RESID1, R, drop, g1, be1,
-                              f32_out=True, dt=dt)
+    x1c, x1, n1, s1 = _ln_fwd(x2, a, seed, SITE_RESID1 + row0, R, drop, g1,
+                              be1, f32_out=True, dt=dt)
     del a
     hid = _mm(NT, x1c, w1, M, Fh, D, out_f32=False, bias=b1, relu=True)
     f = _mm(NT, hid, w2, M, D, Fh, out_f32=True, bias=b2)
-    out, _, n2, s2 = _ln_fwd(x1, f, seed, SITE_RESID2, R, drop, g2, be2,
-                             f32_out=False, dt=dt)
+    out, _, n2, s2 = _ln_fwd(x1, f, seed, SITE_RESID2 + row0, R, drop, g2,
+                             be2, f32_out=False, dt=dt)
     return out.view(B, R, D), K5Saved(x2, q, k, v, o, lse, x1c, hid, n1, s1,
                                       n2, s2, wq, wk, wv, wo, w1, w2, g1,
                                       g2, seed)
 
 
-def _kernel_backward(g, saved: K5Saved, n_heads, drop, shape):
+def _kernel_backward(g, saved: K5Saved, n_heads, drop, shape, row0=0):
     """dx and the twelve weight gradients (f32) for the output gradient g.
     In bf16 every product takes bf16 operands: the f32 gradients df, dz1
     and dacc enter as the bf16 copies their producers write, while db1,
@@ -581,8 +591,8 @@ def _kernel_backward(g, saved: K5Saved, n_heads, drop, shape):
     g2d = g.reshape(M, D).contiguous()
     lowp = dt != torch.float32
     # LN2, the FFN and its dropout
-    dy2, df, df_t = _ln_bwd(g2d, s.n2, s.s2, s.g2, s.seed, SITE_RESID2, R,
-                            drop, dt)
+    dy2, df, df_t = _ln_bwd(g2d, s.n2, s.s2, s.g2, s.seed,
+                            SITE_RESID2 + row0, R, drop, dt)
     dbe2, dg2 = _colsum(g2d, s.n2, dt=dt)
     db2, _ = _colsum(df, dt=dt)
     del df
@@ -601,15 +611,15 @@ def _kernel_backward(g, saved: K5Saved, n_heads, drop, shape):
     del dz1_t
     # LN1, the output projection and its dropout
     dbe1, dg1 = _colsum(dx1, s.n1, dt=dt)
-    dy1, dacc, dacc_t = _ln_bwd(dx1, s.n1, s.s1, s.g1, s.seed, SITE_RESID1,
-                                R, drop, dt)
+    dy1, dacc, dacc_t = _ln_bwd(dx1, s.n1, s.s1, s.g1, s.seed,
+                                SITE_RESID1 + row0, R, drop, dt)
     del dx1, dacc                    # its products read dacc_t
     dwo = _grad_w(dacc_t, s.o)
     dattn = _mm(NN, dacc_t, s.wo, M, D, D, out_f32=False)
     del dacc_t
     # the attention, then the projections
     dq, dk, dv = _attn_bwd(s.q, s.k, s.v, s.o.view(B, R, D), s.lse, s.seed,
-                           dattn.view(B, R, D), n_heads, drop)
+                           dattn.view(B, R, D), n_heads, drop, row0)
     del dattn
     dq, dk, dv = (t.reshape(M, D) for t in (dq, dk, dv))
     dwq, dwk, dwv = (_grad_w(t, s.x2) for t in (dq, dk, dv))
@@ -622,22 +632,22 @@ def _kernel_backward(g, saved: K5Saved, n_heads, drop, shape):
 
 class _EncoderLayerTrain(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, seed, n_heads, drop, *weights):
+    def forward(ctx, x, seed, n_heads, drop, row0, *weights):
         out, saved = _kernel_forward(x, EncoderLayerWeights(*weights), seed,
-                                     n_heads, drop)
+                                     n_heads, drop, row0)
         ctx.save_for_backward(*saved)
         ctx.args = (n_heads, drop, tuple(x.shape),
-                    [t.dtype for t in weights])
+                    [t.dtype for t in weights], row0)
         _build.launches["encoder_layer_train_fwd"] += 1
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        n_heads, drop, shape, wdtypes = ctx.args
+        n_heads, drop, shape, wdtypes, row0 = ctx.args
         dx, dw = _kernel_backward(dout, K5Saved(*ctx.saved_tensors), n_heads,
-                                  drop, shape)
+                                  drop, shape, row0)
         _build.launches["encoder_layer_train_bwd"] += 1
-        return (dx, None, None, None,
+        return (dx, None, None, None, None,
                 *(d.to(t) for d, t in zip(dw, wdtypes)))
 
 
@@ -661,13 +671,13 @@ def _check(x, w, seed, n_heads):
 
 def fused_encoder_layer_train(x: torch.Tensor, w: EncoderLayerWeights,
                               seed: torch.Tensor, *, n_heads: int,
-                              drop: float) -> torch.Tensor:
+                              drop: float, row0: int = 0) -> torch.Tensor:
     """Same contract as ``fused_encoder_layer_train_plain``.  A CPU tensor
     takes the plain version; a CUDA tensor runs the forward kernels, and
     its backward the backward kernels (one count each per layer call)."""
     if not x.is_cuda:
         return fused_encoder_layer_train_plain(x, w, seed, n_heads=n_heads,
-                                               drop=drop)
+                                               drop=drop, row0=row0)
     _check(x, w, seed, n_heads)
     return _EncoderLayerTrain.apply(x.contiguous(), seed, n_heads,
-                                    float(drop), *w)
+                                    float(drop), int(row0), *w)

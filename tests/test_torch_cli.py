@@ -17,8 +17,9 @@ package's ``write_synthetic_dataset`` (as tests/test_cli_end_to_end.py):
   ``--start_from ... --inference_only`` runs; the saved state dict goes
   through the JAX package's ``import_torch_checkpoint`` with every key
   read;
-- the paths that are not ported raise ``NotImplementedError``, and no
-  visible card with ``--device cuda`` raises."""
+- a model axis (``--mesh_shape D M``, M > 1), which is not ported,
+  raises ``NotImplementedError``; a multi-host process index outside the
+  host count raises; no visible card with ``--device cuda`` raises."""
 
 import dataclasses
 import json
@@ -458,13 +459,15 @@ def test_unported_paths_raise(synth, tmp_path, case):
     extra = ["--checkpoint_path", str(tmp_path / "save")]
     device = ["--device", "cpu"]
     if case == "mesh":
-        extra += ["--mesh_shape", "2", "1"]
+        extra += ["--mesh_shape", "2", "2"]
     elif case == "multi-host":
-        extra += ["--coordinator_address", "localhost:1234"]
+        extra += ["--coordinator_address", "localhost:1234",
+                  "--num_processes", "2", "--process_id", "2"]
     else:
         if torch.cuda.is_available():
             pytest.skip("a card is visible")
         device = []                                # the default, cuda
-    err = RuntimeError if case == "no-card" else NotImplementedError
-    with pytest.raises(err):
+    err = {"mesh": NotImplementedError, "multi-host": ValueError,
+           "no-card": RuntimeError}[case]
+    with pytest.raises(err, match="13b" if case == "mesh" else None):
         tmain.main(device + _argv(cfg, paths, extra))

@@ -306,6 +306,8 @@ def test_port_imports_no_jax():
         "import grounded_video_description_torch.main\n"
         "import grounded_video_description_torch.models.beam\n"
         "import grounded_video_description_torch.data.transfer\n"
+        "import grounded_video_description_torch.parallel.mesh\n"
+        "import grounded_video_description_torch.parallel.spmd\n"
         "import grounded_video_description_torch.tools.eval_files\n"
         "import grounded_video_description_torch.tools.overfit\n"
         "import grounded_video_description_torch.tools.kernel_delta\n"
