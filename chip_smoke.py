@@ -42,9 +42,14 @@ banks (``quantize_banks``) on the TopDown weights.  Last the data
 parallelism of ``grounded_video_description_torch.parallel``
 (``phase_data_parallel``): K4 and K5 at a row offset, the train step and
 the sharded evaluator on two gloo ranks sharing the card (one process
-each) against one device, and one epoch of the driver's path on one NCCL
-rank.  Any failed check, in this process or in a rank's, ends the run
-with a non-zero exit.
+each) against one device, the same on a model axis (mesh (1, 2): the two
+ranks split the padded vocab head), and one epoch of the driver's path on
+one NCCL rank.  Then ``utils/params_io.py`` (the flagship model saved in
+the JAX tools' npz format and loaded into a fresh model: a greedy decode
+gives the same tokens) and ``utils/logging.py::ProfilerHooks`` around one
+bf16 train step through K5 (its trace names K5's kernels).  Any failed
+check, in this process or in a rank's, ends the run with a non-zero
+exit.
 
 Output: human-readable lines, then the card's name and power limit, then
 one JSON line with a row per kernel and dtype (f32, bf16): its launches
@@ -65,6 +70,7 @@ import functools
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -1978,6 +1984,11 @@ DP_TIMEOUT_S = 480      # of each spawned group
 # (step 0 held, steps 1-2 timed)
 DP_RUNS = (("K5", "float32", 1), ("K4", "float32", 1),
            ("K5", "bfloat16", 3))
+# the model axis: two ranks on cuda:0 that split the vocab head (padded
+# to 4906 rows), each on the whole batch; bf16 step 0 held, step 1 timed
+TP_SHAPE = (1, 2)
+TP_RUNS = (("K5", "float32", 1), ("K4", "float32", 1),
+           ("K5", "bfloat16", 2))
 
 
 def train_step_counts(path: str, dt: str, accum: int) -> dict:
@@ -2021,24 +2032,27 @@ def load_batch(directory):
     return batch
 
 
-def dp_train_runs(dev, state, batch, mesh):
-    """``DP_RUNS`` from the weights ``state`` on ``batch`` (the whole
-    batch on one device, the rank's rows under ``mesh``): per run each
-    step's metrics, seconds and launches (held to
-    ``train_step_counts``), the peak device memory, and under a mesh the
-    time of the gradient all-reduce alone (``all_reduce_sum_`` of one f32
-    tensor per parameter, as ``all_reduce_grads_sum`` runs it)."""
+def dp_train_runs(dev, state, batch, mesh, runs=DP_RUNS, vocab_pad_to=1):
+    """``runs`` from the weights ``state`` on ``batch`` (the whole batch
+    on one device, the rank's rows under ``mesh``): per run each step's
+    metrics, seconds and launches (held to ``train_step_counts``), the
+    peak device memory, and in bf16 under a mesh the time of the gradient
+    all-reduce alone over the data axis (``all_reduce_sum_`` of one f32
+    tensor per parameter, as ``all_reduce_grads_sum`` runs it) or, on a
+    model axis, of one all-gather of a microbatch's logits
+    (``parallel.tensor.gather_model``)."""
     import torch
     from grounded_video_description_torch.engine.trainer import (
         Trainer, batch_to_device)
     from grounded_video_description_torch.models import GVDModel
     from grounded_video_description_torch.ops.kernels import _build
+    from grounded_video_description_torch.parallel import tensor as tp
     from grounded_video_description_torch.parallel.mesh import (
         all_reduce_sum_, barrier)
 
-    base = train_config()
+    base = train_config().replace(vocab_pad_to=vocab_pad_to)
     out = {}
-    for path, dt, steps in DP_RUNS:
+    for path, dt, steps in runs:
         cfg = base.replace(dtype=dt, **TRAIN_PATHS[path])
         if dt == "float32":
             cfg = cfg.replace(drop_prob_lm=0.0, loc_drop=0.0, enc_drop=0.0)
@@ -2061,7 +2075,7 @@ def dp_train_runs(dev, state, batch, mesh):
                   f"{want}")
             rec["metrics"].append({k: float(v) for k, v in m.items()})
         rec["peak_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
-        if mesh is not None and dt == "bfloat16":
+        if mesh is not None and mesh.data > 1 and dt == "bfloat16":
             grads = [torch.ones_like(p) for p in tr.params]
             rec["allreduce_mb"] = nbytes(*grads) / 2 ** 20
             times = []
@@ -2069,11 +2083,27 @@ def dp_train_runs(dev, state, batch, mesh):
                 barrier(mesh)
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                all_reduce_sum_(mesh, grads)
+                all_reduce_sum_(mesh.data_group, grads)
                 torch.cuda.synchronize()
                 times.append(1e3 * (time.perf_counter() - t0))
             rec["allreduce_ms"] = statistics.median(times)
             del grads
+        if mesh is not None and mesh.model > 1 and dt == "bfloat16":
+            shard = tp.shard_of(tr.model)
+            rows = cfg.batch_size // cfg.grad_accum * cfg.seq_length
+            part = torch.ones(rows, tr.model.logit.weight.shape[0],
+                              dtype=tr.model.dtype, device=dev)
+            rec["gather_mb"] = mesh.model * nbytes(part) / 2 ** 20
+            times = []
+            for _ in range(3):
+                barrier(mesh)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                tp.gather_model(part, -1, shard)
+                torch.cuda.synchronize()
+                times.append(1e3 * (time.perf_counter() - t0))
+            rec["gather_ms"] = statistics.median(times)
+            del part
         out[f"{path} {dt}"] = rec
         del tr, model, dev_batch
         torch.cuda.empty_cache()
@@ -2104,6 +2134,7 @@ def dp_eval_runs(dev, cfg0, state, vocab, val, mesh, out_root):
     from grounded_video_description_torch.ops.kernels import _build
     from grounded_video_description_torch.ops.kernels.decode_scan import (
         GEMM_ROUTES)
+    from grounded_video_description_torch.parallel import shard_model
 
     arrays = {k: v for k, v in val.items() if k not in ("seg_id", "n_valid")}
     out = {}
@@ -2111,6 +2142,9 @@ def dp_eval_runs(dev, cfg0, state, vocab, val, mesh, out_root):
         flags = dict(use_pallas=kernels, use_pallas_rnn=kernels,
                      use_pallas_decode=kernels, use_pallas_mha=kernels)
         m = model_of(cfg0.replace(**flags), state, dev)
+        # as the driver's trainer holds it: on a model axis, its slice of
+        # the head (the evaluator gathers it whole)
+        shard_model(m, mesh)
         ev = Evaluator(m.cfg, m, vocab, mesh)
         rec = {"gen": [], "grd": []}
         generate, ground = ev.generate, ev.ground
@@ -2160,15 +2194,15 @@ def dp_rank(rank, tmp, cfg0, vocab):
     sys.path.insert(0, ROOT)
     import torch
     from grounded_video_description_torch.parallel import (
-        close_data_mesh, init_data_mesh)
+        close_mesh, init_mesh)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     # NCCL refuses two ranks on one device; gloo runs the collectives on
     # CUDA tensors by staging them through the host
-    mesh = init_data_mesh(dev, world=DP_WORLD, rank=rank,
-                          init_method=f"file://{tmp}/rdzv", backend="gloo")
+    mesh = init_mesh(dev, shape=(DP_WORLD, 1), rank=rank,
+                     init_method=f"file://{tmp}/rdzv", backend="gloo")
     try:
         state = torch.load(os.path.join(tmp, "state.pt"), weights_only=True)
         out = {"train": dp_train_runs(dev, state, load_batch(
@@ -2176,8 +2210,36 @@ def dp_rank(rank, tmp, cfg0, vocab):
         out["eval"] = dp_eval_runs(dev, cfg0, state, vocab, load_batch(
             os.path.join(tmp, "val")), mesh, os.path.join(tmp, "dp"))
     finally:
-        close_data_mesh(mesh)
+        close_mesh(mesh)
     torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
+
+
+def tp_rank(rank, tmp, cfg0, vocab):
+    """Rank ``rank`` of the (1, 2) mesh ``TP_SHAPE`` on cuda:0 over gloo:
+    ``dp_train_runs`` of ``TP_RUNS`` on the whole batch (one data index)
+    with the vocab head split in two, then ``dp_eval_runs`` on the
+    validation batch; its results to ``tmp``."""
+    sys.path.insert(0, ROOT)
+    import torch
+    from grounded_video_description_torch.parallel import (
+        close_mesh, init_mesh)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    mesh = init_mesh(dev, shape=TP_SHAPE, rank=rank,
+                     init_method=f"file://{tmp}/rdzv-tp", backend="gloo")
+    try:
+        state = torch.load(os.path.join(tmp, "state-tp.pt"),
+                           weights_only=True)
+        out = {"train": dp_train_runs(
+            dev, state, whole_batch(tmp, train_config().grad_accum), mesh,
+            runs=TP_RUNS, vocab_pad_to=TP_SHAPE[1])}
+        out["eval"] = dp_eval_runs(dev, cfg0, state, vocab, load_batch(
+            os.path.join(tmp, "val")), mesh, os.path.join(tmp, "tp"))
+    finally:
+        close_mesh(mesh)
+    torch.save(out, os.path.join(tmp, f"tp{rank}.pt"))
 
 
 def dp_nccl(rank, tmp, cfg, vocab):
@@ -2196,12 +2258,12 @@ def dp_nccl(rank, tmp, cfg, vocab):
     from grounded_video_description_torch.models import GVDModel
     from grounded_video_description_torch.ops.kernels import _build
     from grounded_video_description_torch.parallel import (
-        close_data_mesh, init_data_mesh)
+        close_mesh, init_mesh)
     from grounded_video_description_torch.utils.logging import MetricLogger
 
     dev = torch.device("cuda", 0)
-    mesh = init_data_mesh(dev, world=1, rank=0,
-                          init_method=f"file://{tmp}/rdzv-nccl")
+    mesh = init_mesh(dev, shape=(1, 1), rank=0,
+                     init_method=f"file://{tmp}/rdzv-nccl")
     try:
         check(torch.distributed.get_backend() == "nccl", "not on NCCL")
         model = GVDModel(cfg)
@@ -2223,7 +2285,7 @@ def dp_nccl(rank, tmp, cfg, vocab):
         out = {"records": records, "s": time.perf_counter() - t0,
                "launches": dict(_build.launches)}
     finally:
-        close_data_mesh(mesh)
+        close_mesh(mesh)
     torch.save(out, os.path.join(tmp, "nccl.pt"))
 
 
@@ -2441,6 +2503,9 @@ def phase_data_parallel(dev, base, state, results):
                   f"{got['grounding_s']:.3f} s vs {ref['grounding_s']:.3f} s",
                   flush=True)
 
+        summary["model_axis"] = model_axis_runs(dev, tmp, base, state,
+                                                cfg0, vocab, val, one)
+
         # the driver's path on one NCCL rank
         ncfg = tcfg.replace(
             dtype="bfloat16", use_pallas_encoder_train=True, use_pallas=True,
@@ -2480,6 +2545,221 @@ def phase_data_parallel(dev, base, state, results):
               flush=True)
     print("data_parallel " + json.dumps(summary), flush=True)
     return summary
+
+
+def padded_head(state, rows: int):
+    """``state`` with the vocab head padded by zero rows to ``rows``
+    (the pad columns are masked before the log-softmax, so the padded
+    model computes the unpadded one's log-probabilities)."""
+    import torch
+    out = dict(state)
+    for key in ("logit.weight", "logit.bias"):
+        w = state[key]
+        out[key] = torch.cat([w, w.new_zeros((rows - w.shape[0],)
+                                             + tuple(w.shape[1:]))])
+    return out
+
+
+def model_axis_runs(dev, tmp, base, state, cfg0, vocab, val, one):
+    """The model axis (``parallel/tensor.py``) at flagship width: two
+    gloo ranks sharing cuda:0 as a (1, 2) mesh (``tp_rank``), each
+    holding half of the vocab head padded to 4906 rows, on the whole
+    train batch: ``TP_RUNS`` held against one device's steps of
+    ``phase_data_parallel`` (``one``; f32 losses within 1e-4 relative,
+    grad norm within 1e-3; bf16 at the flagship dropout within 1e-2), the
+    two ranks' metrics equal, step seconds and peak GB per rank beside
+    one device's, and one logits all-gather's ms; then ``evaluate`` and
+    ``eval_grounding_gt`` over the batch of 100, rows split 50 / 50 on
+    the whole model each evaluation gathers, f32, through the kernels (K6
+    counted on each rank) and plain, against one device on the padded
+    weights: tokens and the three argmax sets >= 0.998 equal through the
+    kernels and equal on the plain path."""
+    import torch
+    from grounded_video_description_torch.parallel import spawn
+
+    vp = base.replace(vocab_pad_to=TP_SHAPE[1]).vocab_size_padded
+    tp_state = padded_head(state, vp)
+    torch.save(tp_state, os.path.join(tmp, "state-tp.pt"))
+    cfg_tp = cfg0.replace(vocab_pad_to=TP_SHAPE[1])
+    t0 = time.perf_counter()
+    one_eval = dp_eval_runs(dev, cfg_tp, tp_state, vocab, val, None,
+                            os.path.join(tmp, "one-tp"))
+    torch.cuda.empty_cache()
+    one_eval_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    spawn(tp_rank, TP_SHAPE[0] * TP_SHAPE[1], (tmp, cfg_tp, vocab),
+          timeout_s=DP_TIMEOUT_S)
+    summary = {"vocab_padded": vp, "one_eval_s": one_eval_s,
+               "group_s": time.perf_counter() - t0}
+    ranks = [torch.load(os.path.join(tmp, f"tp{r}.pt"), weights_only=False)
+             for r in range(TP_SHAPE[0] * TP_SHAPE[1])]
+    terms = ("loss", "lm_loss", "att2_loss", "ground_loss", "cls_loss")
+    batch = train_config().batch_size
+    for path, dt, _ in TP_RUNS:
+        run = f"{path} {dt}"
+        ref = one["train"][run]
+        got = [r["train"][run] for r in ranks]
+        check(all(g["metrics"] == got[0]["metrics"] for g in got),
+              f"model axis {run}: the ranks' metrics differ")
+        a, b = got[0]["metrics"][0], ref["metrics"][0]
+        for k in terms + ("grad_norm",):
+            check(math.isfinite(a[k]), f"model axis {run} {k} = {a[k]}")
+            tol = (1e-2 if dt == "bfloat16"
+                   else 1e-3 if k == "grad_norm" else 1e-4)
+            check(abs(a[k] - b[k]) <= tol * abs(b[k]),
+                  f"model axis {run} {k}: {TP_SHAPE} {a[k]} vs one device "
+                  f"{b[k]}")
+        one_s = statistics.median(ref["s"][1:] or ref["s"])
+        tp_s = max(statistics.median(g["s"][1:] or g["s"]) for g in got)
+        rec = dict(one_step_s=one_s, tp_step_s=tp_s,
+                   one_seg_per_s=batch / one_s, tp_seg_per_s=batch / tp_s,
+                   one_peak_gb=ref["peak_gb"],
+                   tp_peak_gb=max(g["peak_gb"] for g in got),
+                   loss_rel_err=max(abs(a[k] - b[k]) / abs(b[k])
+                                    for k in terms),
+                   grad_norm_rel_err=abs(a["grad_norm"] - b["grad_norm"])
+                   / abs(b["grad_norm"]))
+        if "gather_ms" in got[0]:
+            rec["gather_ms"] = max(g["gather_ms"] for g in got)
+            rec["gather_mb"] = got[0]["gather_mb"]
+        summary[run] = rec
+        print(f"model axis train {run}: {TP_SHAPE} on cuda:0 (gloo) vs one "
+              f"device: max loss rel err {rec['loss_rel_err']:.2e}, grad "
+              f"norm {a['grad_norm']:.6f} / {b['grad_norm']:.6f}; step "
+              f"{tp_s:.3f} s vs {one_s:.3f} s ({batch / tp_s:.2f} vs "
+              f"{batch / one_s:.2f} segments/s); peak GB per rank "
+              f"{rec['tp_peak_gb']:.2f} (one device {ref['peak_gb']:.2f})"
+              + (f"; logits all-gather {rec['gather_ms']:.2f} ms for "
+                 f"{rec['gather_mb']:.2f} MB" if "gather_ms" in rec else ""),
+              flush=True)
+    frames = (-1, base.seq_length, base.num_sampled_frm,
+              base.num_prop_per_frm)
+    for kernels, ref in one_eval.items():
+        got = ranks[0]["eval"][kernels]
+        check(ranks[1]["eval"][kernels]["stats"] == got["stats"],
+              f"model axis eval kernels={kernels}: the ranks' stats differ")
+        check_eval_files(got["out_dir"], cfg_tp, val["seg_id"],
+                         {s.split("_segment_")[0] for s in val["seg_id"]})
+        agree = {}
+        for key, get in (
+                ("tokens", lambda o: o["gen"][0]["seq"]),
+                ("gen att2_ind", lambda o: o["gen"][0]["att2_weights"]
+                 .reshape(frames).argmax(-1)),
+                ("gt att2_ind", lambda o: o["grd"][0]["att2_ind"]),
+                ("gt grd_ind", lambda o: o["grd"][0]["grd_ind"])):
+            agree[key] = float((get(got) == get(ref)).mean())
+            bar = 0.998 if kernels else 1.0
+            check(agree[key] >= bar, f"model axis eval kernels={kernels} "
+                  f"{key}: agreement with one device {agree[key]}")
+        summary[f"eval kernels={kernels}"] = dict(
+            agreement=agree, one_evaluate_s=ref["evaluate_s"],
+            tp_evaluate_s=got["evaluate_s"],
+            one_grounding_s=ref["grounding_s"],
+            tp_grounding_s=got["grounding_s"])
+        print(f"model axis eval f32 kernels={kernels}: {TP_SHAPE} vs one "
+              f"device agreement "
+              + ", ".join(f"{k} {v:.4f}" for k, v in agree.items())
+              + f"; evaluate {got['evaluate_s']:.3f} s vs "
+              f"{ref['evaluate_s']:.3f} s, eval_grounding_gt "
+              f"{got['grounding_s']:.3f} s vs {ref['grounding_s']:.3f} s",
+              flush=True)
+    return summary
+
+
+def phase_params_io(dev, base, state):
+    """``utils/params_io.py`` at flagship width: the model's weights
+    (``weights.to_jax_variables``) saved in the JAX tools' npz format,
+    loaded onto a model of another seed (``load_variables``,
+    ``weights.from_jax_variables``); a greedy decode of one batch of 100
+    through K1 and K2 gives the same tokens as the original model's."""
+    import tempfile
+    import torch
+    from grounded_video_description_torch.data.synthetic import synthetic_batch
+    from grounded_video_description_torch.models import (
+        GVDModel, batch_to_tensors)
+    from grounded_video_description_torch.utils.params_io import (
+        load_variables, save_variables)
+    from grounded_video_description_torch.weights import (
+        from_jax_variables, to_jax_variables)
+
+    m = model_of(base, state, dev)
+    batch = batch_to_tensors(synthetic_batch(base, B, seed=1), dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "flagship.npz")
+        t0 = time.perf_counter()
+        save_variables(path, to_jax_variables(m))
+        save_s = time.perf_counter() - t0
+        mb = os.path.getsize(path) / 2 ** 20
+        other = GVDModel(base).init(torch.Generator().manual_seed(1))
+        t0 = time.perf_counter()
+        loaded = load_variables(path, to_jax_variables(other))
+        load_s = time.perf_counter() - t0
+    other.load_state_dict(from_jax_variables(loaded))
+    other = other.to(dev).eval()
+    seq = m.sample_greedy(batch)[0]
+    seq2 = other.sample_greedy(batch)[0]
+    check(torch.equal(seq, seq2), "params_io: the reloaded model's tokens "
+          "differ")
+    for k, v in m.state_dict().items():
+        check(torch.equal(other.state_dict()[k], v),
+              f"params_io: {k} differs after the round trip")
+    print(f"params_io: flagship npz {mb:.1f} MB, save {save_s:.2f} s, "
+          f"load {load_s:.2f} s; greedy tokens of the reloaded model "
+          f"identical ({tuple(seq.shape)})", flush=True)
+    return dict(npz_mb=mb, save_s=save_s, load_s=load_s)
+
+
+# the kernels of one bf16 K5 train step (csrc/encoder_layer_train.cu, its
+# attention in csrc/attention_mma.cu), as the profiler names them
+K5_KERNELS = ("gemm_tc_kernel", "ln_fwd_kernel", "ln_bwd_kernel",
+              "fwd_kernel", "bwd_kv_kernel", "bwd_q_kernel")
+
+
+def phase_profile(dev, state):
+    """``ProfilerHooks`` (CPU and CUDA activity) around one bf16 train
+    step through K5 at flagship width, one microbatch of 30 after a
+    warm-up step: the Chrome trace's size, its kernels, and K5's among
+    them."""
+    import tempfile
+    import torch
+    from grounded_video_description_torch.engine.trainer import (
+        Trainer, batch_to_device)
+    from grounded_video_description_torch.models import GVDModel
+    from grounded_video_description_torch.utils.logging import (
+        ProfilerHooks, kernel_names)
+
+    cfg = train_config().replace(dtype="bfloat16", batch_size=30,
+                                 grad_accum=1, **TRAIN_PATHS["K5"])
+    model = GVDModel(cfg)
+    model.load_state_dict(state)
+    tr = Trainer(cfg, model.to(dev))
+    batch = batch_to_device(cfg, {k: v[:30] for k, v in train_batch().items()
+                                  if k != "seg_id"}, dev)
+    tr.train_step(batch, cfg.learning_rate)
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        hooks = ProfilerHooks(tmp, start_step=tr.step, num_steps=1,
+                              device=dev)
+        hooks.maybe_start(tr.step)
+        t0 = time.perf_counter()
+        tr.train_step(batch, cfg.learning_rate)
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        hooks.maybe_stop(tr.step)
+        export_s = time.perf_counter() - t0
+        mb = os.path.getsize(hooks.path) / 2 ** 20
+        names = kernel_names(hooks.path)
+    found = {k: [n for n in names if re.search(rf"\b{k}\b", n)]
+             for k in K5_KERNELS}
+    missing = [k for k, v in found.items() if not v]
+    check(not missing, f"profile: K5's kernels {missing} not in the trace")
+    print(f"profile: one bf16 K5 step (30 segments) {step_s:.2f} s under "
+          f"the profiler, trace {mb:.1f} MB written in {export_s:.1f} s, "
+          f"{len(names)} kernel names; K5's: "
+          + "; ".join(f"{k}: {len(v)}" for k, v in found.items()),
+          flush=True)
+    return dict(trace_mb=mb, export_s=export_s, kernel_names=len(names))
 
 
 def check_eval_files(out_dir, cfg, seg_ids, vids,
@@ -2576,6 +2856,8 @@ def main() -> int:
     driver = timed(phase_driver, dev, state)
     timed(phase_transformer, dev, base, state)
     timed(phase_data_parallel, dev, base, state, results)
+    timed(phase_params_io, dev, base, state)
+    timed(phase_profile, dev, state)
     for name in ("encoder_layer_train_fwd", "encoder_layer_train_bwd"):
         launches["bfloat16"][name] = driver[name]
 

@@ -25,11 +25,11 @@ honours every flag on every device.
 The evaluator's fields (``language_eval``, ``eval_obj_grounding``,
 ``eval_obj_grounding_gt``, the reference files, ``val_split``, ``id``)
 are the JAX package's too (``beam_size > 1`` decodes by beam search;
-``vis_attn`` is not ported and makes the evaluator raise).  So are the
-training driver's (``main.py``: the dataset files, the epoch loop,
-checkpointing, logging), and of its device mesh's data axis
-(``mesh_shape``, ``coordinator_address``, ``num_processes``,
-``process_id``; a model axis is refused).
+``vis_attn`` draws the attention over the frames under ``image_path``).
+So are the training driver's (``main.py``: the dataset files, the epoch
+loop, checkpointing, logging, ``profile_dir``), and of its device mesh
+(``mesh_shape`` [D] or [D, M], ``coordinator_address``,
+``num_processes``, ``process_id``).
 ``from_cli`` parses flags named after these fields, so a JAX flag the
 port does not read is an argparse error.
 """
@@ -126,7 +126,7 @@ class GVDConfig:
     split_file: str = "tools/anet_entities/data/split_ids_anet_entities.json"
     eval_obj_grounding_gt: bool = False
     eval_obj_grounding: bool = False
-    vis_attn: bool = False              # not ported (utils/visualize.py)
+    vis_attn: bool = False              # utils/visualize.py
     val_images_use: int = -1
     val_every_epoch: int = 2
     checkpoint_path: str = "save"
@@ -157,16 +157,17 @@ class GVDConfig:
     # masked before the log-softmax
     vocab_pad_to: int = 1
     # the device mesh: [D] or [D, 1] trains and evaluates data-parallel on
-    # D processes, one per device; a model axis M > 1 (tensor parallelism)
-    # is not ported (ROADMAP Queue 1 item 13b).  Multi-host: every host
-    # runs the driver with the coordinator's host:port, the host count and
-    # its own index
+    # D processes, one per device; [D, M] adds a model axis of M ranks
+    # that split the vocab head (parallel/tensor.py), D x M processes.
+    # Multi-host: every host runs the driver with the coordinator's
+    # host:port, the host count and its own index
     mesh_shape: Optional[List[int]] = None
     coordinator_address: Optional[str] = None
     num_processes: int = 1
     process_id: int = 0
     log_jsonl: Optional[str] = None     # metrics JSONL sink
     tensorboard_dir: Optional[str] = None   # TensorBoard scalar mirror
+    profile_dir: Optional[str] = None   # torch.profiler trace output
 
     # ---- from the dataset ----
     vocab_size: int = 0
@@ -255,11 +256,6 @@ class GVDConfig:
             shape = list(self.mesh_shape)
             if not 1 <= len(shape) <= 2 or min(shape) < 1:
                 raise ValueError(f"mesh_shape {shape}: one or two sizes >= 1")
-            if len(shape) == 2 and shape[1] > 1:
-                raise NotImplementedError(
-                    f"mesh_shape {shape}: a model axis (tensor parallelism "
-                    "on the vocab head) is not ported (ROADMAP Queue 1 "
-                    "item 13b)")
             if (self.batch_size // self.grad_accum) % shape[0]:
                 raise ValueError(
                     f"microbatch {self.batch_size}//{self.grad_accum} must "

@@ -11,10 +11,13 @@ JAX package's ``import_torch_checkpoint`` reads), the optimizer's
 ``state_dict``, the step and the dropout generator's state, so a resumed
 run draws the masks the uninterrupted one would have.
 
-Under a ``DataMesh`` every rank holds the same weights, optimizer state
-and generator state, so rank 0 alone writes one copy; every rank
-restores it, and a run resumed at another world size goes on with the
-run it came from.  A barrier follows each save and each restore.
+Under a ``Mesh`` every rank holds the same generator state and the same
+weights and optimizer state, but for a model axis's slices of the vocab
+head and the visual-word table (``parallel/tensor.py``): those, and
+their moments, are gathered whole, and rank 0 alone writes one copy of a
+whole model.  Every rank restores it and keeps its slices, so a run
+resumed on one device or on another mesh goes on with the run it came
+from.  A barrier follows each save and each restore.
 """
 
 from __future__ import annotations
@@ -25,13 +28,16 @@ from typing import Dict, Optional
 
 import torch
 
-from grounded_video_description_torch.parallel.mesh import DataMesh, barrier
+from grounded_video_description_torch.parallel.mesh import Mesh, barrier
+from grounded_video_description_torch.parallel.tensor import (
+    local_optimizer_state, local_state_dict, whole_optimizer_state,
+    whole_state_dict)
 
 STATE_FILE = "checkpoint.pt"
 
 
 class CheckpointManager:
-    def __init__(self, directory: str, mesh: Optional[DataMesh] = None):
+    def __init__(self, directory: str, mesh: Optional[Mesh] = None):
         self.dir = os.path.abspath(directory)
         self.mesh = mesh
         if mesh is None or mesh.writer:
@@ -51,8 +57,8 @@ class CheckpointManager:
         """``model`` (and ``model-best`` when ``best``) from the trainer's
         model, optimizer, step and generator, with ``infos`` (plus the
         step) beside it."""
-        blob = {"model": trainer.model.state_dict(),
-                "optimizer": trainer.optimizer.state_dict(),
+        blob = {"model": whole_state_dict(trainer.model),
+                "optimizer": whole_optimizer_state(trainer),
                 "step": trainer.step,
                 "generator": trainer.generator.get_state()}
         infos = {**infos, "step": trainer.step}
@@ -71,8 +77,10 @@ class CheckpointManager:
         # its parameter lives, and Adam keeps its step counts on the host
         blob = torch.load(os.path.join(self.dir, name, STATE_FILE),
                           map_location="cpu", weights_only=True)
-        trainer.model.load_state_dict(blob["model"])
-        trainer.optimizer.load_state_dict(blob["optimizer"])
+        trainer.model.load_state_dict(local_state_dict(trainer.model,
+                                                       blob["model"]))
+        trainer.optimizer.load_state_dict(local_optimizer_state(
+            trainer, blob["optimizer"]))
         trainer.generator.set_state(blob["generator"])
         infos_file = os.path.join(
             self.dir, "infos-best.json" if name == "model-best"

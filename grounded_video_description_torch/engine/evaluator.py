@@ -21,15 +21,18 @@ transformer family's greedy decode returns zero region logits, so its
 generated words ground on proposal 0 of each frame, as in the JAX
 evaluator.  The model
 holds its weights, so unlike the JAX evaluator no ``variables`` are
-passed.  Not ported: the attention-overlay visualization (``vis_attn``,
-ROADMAP Queue 1 item 15), which raises ``NotImplementedError``.
+passed.  Under ``vis_attn`` the greedy decode's attention is drawn over
+the frames under ``image_path`` (``utils/visualize.py``).
 
-With a ``DataMesh`` (the batch-parallel decode of the JAX evaluator's
-mesh, evaluator.py:37-51, 263-266) every rank holds the whole batch and
-runs the model on its share of the rows (``parallel.split_rows``); the
-outputs are gathered to rank 0 as host arrays, and rank 0 alone writes
-the JSONs and scores them, then broadcasts the scores so that every rank
-sees the same ones.
+With a ``Mesh`` (the batch-parallel decode of the JAX evaluator's mesh,
+evaluator.py:37-51, 263-266) every rank holds the whole batch and runs
+the model on its share of the rows (``parallel.split_rows``, over all D x
+M ranks); the outputs are gathered to rank 0 as host arrays, and rank 0
+alone writes the JSONs and scores them, then broadcasts the scores so
+that every rank sees the same ones.  On a model axis each ``evaluate``
+and ``eval_grounding_gt`` first gathers the split vocab head and
+visual-word table once (``parallel.whole_model``), so every rank decodes
+with the whole model, K6 included.
 """
 
 from __future__ import annotations
@@ -48,7 +51,8 @@ from grounded_video_description_torch.data.vocab import decode_sequence
 from grounded_video_description_torch.models.gvd import (
     GVDModel, batch_to_tensors)
 from grounded_video_description_torch.parallel.mesh import (
-    DataMesh, broadcast_object, gather_rows, split_rows)
+    Mesh, broadcast_object, gather_rows, split_rows)
+from grounded_video_description_torch.parallel.tensor import whole_model
 
 EXTERNAL_DATA = {"used": True, "details": "Object detector pre-trained on "
                  "Visual Genome on object detection task."}
@@ -77,12 +81,19 @@ def _numpy(t: torch.Tensor) -> np.ndarray:
 
 class Evaluator:
     def __init__(self, cfg: GVDConfig, model: GVDModel, vocab,
-                 mesh: Optional[DataMesh] = None):
+                 mesh: Optional[Mesh] = None):
         self.cfg = cfg
         self.model = model
         self.vocab = vocab
         self.mesh = mesh
         self.writer = mesh is None or mesh.writer
+        # what decodes: the model, or on a model axis the whole model,
+        # gathered at the start of each evaluation and at the first
+        # ``generate`` / ``ground`` before one
+        self.decoder = None
+
+    def _gather_model(self):
+        self.decoder = whole_model(self.model)
 
     def _device(self) -> torch.device:
         return next(self.model.parameters()).device
@@ -110,17 +121,19 @@ class Evaluator:
     def generate(self, batch_arrays) -> Optional[Dict[str, np.ndarray]]:
         """The decode of one batch of host arrays, as host arrays (with a
         mesh, on rank 0; None on the others)."""
+        if self.decoder is None:
+            self._gather_model()
         return self._sharded(self._generate, batch_arrays)
 
     def _generate(self, batch_arrays) -> Dict[str, np.ndarray]:
         batch = batch_to_tensors(batch_arrays, self._device())
         if self.cfg.beam_size > 1:
-            seq, lps, att2_ind, att2_frm = self.model.sample_beam(
+            seq, lps, att2_ind, att2_frm = self.decoder.sample_beam(
                 batch, beam_size=self.cfg.beam_size)
             return {"seq": _numpy(seq), "logprobs": _numpy(lps),
                     "att2_ind": _numpy(att2_ind),
                     "att2_frm_ind": _numpy(att2_frm)}
-        seq, lps, att2_w, sim = self.model.sample_greedy(batch)
+        seq, lps, att2_w, sim = self.decoder.sample_greedy(batch)
         return {"seq": _numpy(seq), "logprobs": _numpy(lps),
                 "att2_weights": _numpy(att2_w), "sim_mat": _numpy(sim)}
 
@@ -131,11 +144,7 @@ class Evaluator:
         """Generated-sentence eval: captions (+ language metrics) and
         grounding on generated words (main.py:314-467)."""
         cfg = self.cfg
-        # attention-overlay visualization (main.py:47-85, 402-410)
-        if cfg.vis_attn and cfg.image_path:
-            raise NotImplementedError(
-                "vis_attn is not ported (ROADMAP Queue 1 item 15: "
-                "utils/visualize.py)")
+        self._gather_model()
         if self.writer:
             os.makedirs(os.path.join(out_dir, "densecap_results"),
                         exist_ok=True)
@@ -201,6 +210,11 @@ class Evaluator:
                     grd_output[vid_id][seg_idx] = tmp
 
             sents = decode_sequence(self.vocab.itow, seq)
+
+            # attention-overlay visualization (main.py:47-85, 402-410);
+            # requires extracted frames under cfg.image_path
+            if cfg.vis_attn and "att2_weights" in out and cfg.image_path:
+                self._visualize_batch(batch, out, sents)
 
             for k, sent in enumerate(sents):
                 vid_id, seg_idx = seg_ids[k].split("_segment_")
@@ -276,10 +290,45 @@ class Evaluator:
 
     # ------------------------------------------------------------------ #
 
+    def _visualize_batch(self, batch, out, sents):
+        """Draw top-1 attended boxes per word onto sampled frames
+        (frames expected at <image_path>/<seg_id>/NN.jpg, the
+        reference's frames_10frm layout, dataloader_anet.py:305-308)."""
+        cfg = self.cfg
+        from grounded_video_description_torch.utils.visualize import (
+            vis_infer)
+
+        att2_w = out["att2_weights"]
+        att2_soft = np.exp(att2_w - att2_w.max(-1, keepdims=True))
+        att2_soft /= att2_soft.sum(-1, keepdims=True)
+        ppls = np.array(batch["ppls"])
+        num = np.array(batch["num"])
+        sim = out.get("sim_mat")
+        for i, (sent, seg_id) in enumerate(zip(sents, batch["seg_id"])):
+            frame_dir = os.path.join(cfg.image_path, seg_id)
+            if not os.path.isdir(frame_dir) or not sent:
+                continue
+            try:
+                from PIL import Image
+                frames = []
+                for f in range(cfg.num_sampled_frm):
+                    path = os.path.join(frame_dir, f"{f + 1:02d}.jpg")
+                    frames.append(np.array(Image.open(path).convert("RGB")))
+                vis_infer(np.stack(frames), seg_id, sent, att2_soft[i],
+                          ppls[i], int(num[i, 1]),
+                          sim[i] if sim is not None else
+                          np.zeros((1, ppls.shape[1])),
+                          self.vocab.itod, run_id=cfg.id or "run")
+            except Exception as e:   # missing frames are non-fatal
+                print(f"[vis_attn] skipped {seg_id}: {e}")
+
+    # ------------------------------------------------------------------ #
+
     def eval_grounding_gt(self, loader, *, out_dir: str = "."
                           ) -> Dict[str, float]:
         """GT-sentence localization eval (main.py:89-194)."""
         cfg = self.cfg
+        self._gather_model()
         att2_output: Dict = defaultdict(dict)
         grd_output: Dict = defaultdict(dict)
         vocab_in_split = set()
@@ -344,11 +393,13 @@ class Evaluator:
         """The GT-sentence grounding (``forward(mode="GRD")``) of one batch
         of host arrays, as host arrays (with a mesh, on rank 0; None on the
         others)."""
+        if self.decoder is None:
+            self._gather_model()
         return self._sharded(self._grounding, batch_arrays)
 
     def _grounding(self, arrays) -> Dict[str, np.ndarray]:
-        out = self.model.forward(batch_to_tensors(arrays, self._device()),
-                                 mode="GRD")
+        out = self.decoder.forward(
+            batch_to_tensors(arrays, self._device()), mode="GRD")
         return {k: _numpy(out[k]) for k in ("att2_ind", "grd_ind",
                                             "sim_target", "pred_cls")}
 

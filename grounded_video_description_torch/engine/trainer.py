@@ -12,21 +12,28 @@ the 0.1 scale on the transferred layers, -lr) is a torch optimizer with
 two parameter groups here; the clip runs before it, in ``train_step``,
 with optax's formula.
 
-With a ``DataMesh`` the step is data-parallel (the JAX mesh step's data
-axis, ``parallel/``): each rank holds its rows of every microbatch
-(``parallel.shard_rows``), the mask counts are summed over the ranks, the
-gradients once after the accumulation loop, and the forward runs under a
-``RowShard`` (BatchNorm over the whole microbatch, dropout masks and K4's
-and K5's hashes of the global rows), so D ranks take the step one device
-takes on the whole batch.
+With a ``Mesh`` the step is the JAX mesh step's (``parallel/``): each
+rank holds its data index's rows of every microbatch
+(``parallel.shard_rows``), the mask counts are summed over the data
+group, the gradients once after the accumulation loop, and the forward
+runs under a ``RowShard`` (BatchNorm over the whole microbatch, dropout
+masks and K4's and K5's hashes of the global rows).  On a model axis the
+vocab head and the visual-word table are split over the model group
+(``parallel/tensor.py``), with their Adam moments, and the clip's norm
+counts each slice once.  So D x M ranks take the step one device takes
+on the whole batch.
+
+With ``profile_dir`` the trainer traces three steps from its second
+(``utils.logging.ProfilerHooks``; on rank 0 of a mesh).
 """
 
 from __future__ import annotations
 
 import time
-from typing import Callable, Dict, Iterable, List, Optional
+from typing import Callable, Dict, Iterable, List, Optional, Sequence
 
 import torch
+import torch.distributed as dist
 
 from grounded_video_description_torch import losses as L
 from grounded_video_description_torch.config import GVDConfig
@@ -34,8 +41,10 @@ from grounded_video_description_torch.models.gvd import (
     GVDModel, batch_to_tensors)
 from grounded_video_description_torch.parallel import spmd
 from grounded_video_description_torch.parallel.mesh import (
-    DataMesh, RowShard, all_reduce_grads_sum, broadcast_module)
+    Mesh, RowShard, all_reduce_grads_sum, broadcast_module)
 from grounded_video_description_torch.parallel.spmd import COUNTS
+from grounded_video_description_torch.parallel.tensor import (
+    shard_model, split_params)
 
 FINETUNE_KEYS = ("ctx2pool_grd", "vis_embed")
 
@@ -67,15 +76,30 @@ def make_optimizer(cfg: GVDConfig, model: GVDModel) -> torch.optim.Optimizer:
                               weight_decay=cfg.weight_decay)
 
 
-def clip_by_global_norm(params: List[torch.Tensor],
-                        max_norm: float) -> torch.Tensor:
+def clip_by_global_norm(params: List[torch.Tensor], max_norm: float,
+                        split: Sequence[torch.Tensor] = (),
+                        group=None) -> torch.Tensor:
     """optax.clip_by_global_norm on the ``.grad`` of ``params``, in
     place: g * max_norm / |g| only where |g| >= max_norm (no epsilon, as
     ``torch.nn.utils.clip_grad_norm_`` adds).  Returns |g| on the device,
-    with no host synchronisation."""
-    grads = [p.grad for p in params if p.grad is not None]
-    norm = torch.linalg.vector_norm(torch.stack(
-        [torch.linalg.vector_norm(g.float()) for g in grads]))
+    with no host synchronisation.
+
+    ``split``: the parameters of ``params`` that a model axis splits over
+    ``group``; their squared norms are summed over it, so each slice counts
+    once and each replicated parameter once."""
+    ids = {id(p) for p in split}
+    held = [p for p in params if p.grad is not None]
+    grads = [p.grad for p in held]
+    norms = torch.stack([torch.linalg.vector_norm(g.float()) for g in grads])
+    if ids:
+        is_split = torch.tensor([id(p) in ids for p in held],
+                                device=norms.device)
+        sq = norms * norms
+        sq_split = torch.where(is_split, sq, 0.0).sum()
+        dist.all_reduce(sq_split, group=group)
+        norm = torch.sqrt(torch.where(is_split, 0.0, sq).sum() + sq_split)
+    else:
+        norm = torch.linalg.vector_norm(norms)
     factor = torch.where(norm < max_norm, 1.0, max_norm / norm)
     for g in grads:
         g.mul_(factor.to(g.dtype))
@@ -101,23 +125,27 @@ class Trainer:
     model's device, seeded with ``cfg.seed`` unless one is given) and the
     count of updates made (``step``, which the checkpoint saves).  With a
     ``mesh`` every rank starts from rank 0's weights and runs the same
-    generator stream."""
+    generator stream; on a model axis the model keeps its slices of the
+    split parameters (``parallel.tensor.shard_model``)."""
 
     def __init__(self, cfg: GVDConfig, model: GVDModel,
                  generator: torch.Generator = None,
-                 mesh: Optional[DataMesh] = None):
+                 mesh: Optional[Mesh] = None):
         self.cfg = cfg
         self.model = model
         self.mesh = mesh
         if mesh is not None:
             broadcast_module(mesh, model)
-        device = next(model.parameters()).device
+            shard_model(model, mesh)
+        self.device = next(model.parameters()).device
         self.generator = generator or torch.Generator(
-            device=device).manual_seed(cfg.seed)
+            device=self.device).manual_seed(cfg.seed)
         self.optimizer = make_optimizer(cfg, model)
         self.params = [p for g in self.optimizer.param_groups
                        for p in g["params"]]
+        self.split = split_params(self)
         self.step = 0
+        self.profiler = None
 
     def lr_at_epoch(self, epoch: int) -> float:
         """main.py:679-684: times decay_rate every decay_every epochs past
@@ -135,10 +163,11 @@ class Trainer:
         """The forward's generator argument for a microbatch of which this
         process holds ``rows`` rows."""
         mesh = self.mesh
-        if mesh is None:
+        if mesh is None or mesh.data == 1:
             return self.generator
-        return RowShard(self.generator, row0=mesh.rank * rows, rows=rows,
-                        total=mesh.world * rows, group=mesh.group)
+        return RowShard(self.generator, row0=mesh.data_rank * rows,
+                        rows=rows, total=mesh.data * rows,
+                        group=mesh.data_group)
 
     def train_step(self, batch: Dict[str, torch.Tensor],
                    lr: float) -> Dict[str, torch.Tensor]:
@@ -187,7 +216,9 @@ class Trainer:
         if self.mesh is not None:
             all_reduce_grads_sum(self.mesh, self.params)
             metrics = spmd.sum_metrics(self.mesh, metrics)
-        metrics["grad_norm"] = clip_by_global_norm(self.params, cfg.grad_clip)
+        metrics["grad_norm"] = clip_by_global_norm(
+            self.params, cfg.grad_clip, self.split,
+            self.mesh.model_group if self.split else None)
         for group in self.optimizer.param_groups:
             group["lr"] = lr * group["lr_scale"]
         self.optimizer.step()
@@ -204,15 +235,33 @@ class Trainer:
         learning rate.  Metrics are summed on the device; they are read
         only every ``disp_interval`` steps, for ``log_fn`` (running means
         with the epoch, step, learning rate and seconds per batch), and at
-        the end, as means over the epoch's steps."""
-        device = next(self.model.parameters()).device
+        the end, as means over the epoch's steps.
+
+        With ``profile_dir`` the trainer's first epoch opens a profile at
+        step ``step + 2`` for 3 steps (trainer.py:342-346 of the JAX
+        package), each step synchronized so that the trace holds it
+        whole."""
+        device = self.device
         lr = self.lr_at_epoch(epoch)
+        prof = self._profiler()
         total, n = None, 0
         t0 = time.time()
         for batch in loader:
             batch = {k: v for k, v in batch.items()
                      if k not in ("seg_id", "n_valid")}
-            m = self.train_step(batch_to_device(self.cfg, batch, device), lr)
+            batch = batch_to_device(self.cfg, batch, device)
+            if prof is not None:
+                prof.maybe_start(self.step)
+            if prof is not None and prof.active:
+                with torch.profiler.record_function(
+                        f"train_step {self.step}"):
+                    m = self.train_step(batch, lr)
+                    if device.type == "cuda":
+                        torch.cuda.synchronize(device)
+            else:
+                m = self.train_step(batch, lr)
+            if prof is not None:
+                prof.maybe_stop(self.step)
             total = m if total is None else {k: total[k] + m[k]
                                              for k in total}
             n += 1
@@ -221,3 +270,15 @@ class Trainer:
                         **{k: float(v) / n for k, v in total.items()},
                         "time_per_batch": (time.time() - t0) / n})
         return {k: float(v) / n for k, v in (total or {}).items()}
+
+    def _profiler(self):
+        """The trainer's ``ProfilerHooks`` under ``profile_dir`` (on the
+        writer rank), made at its first epoch."""
+        if self.profiler is None and self.cfg.profile_dir and (
+                self.mesh is None or self.mesh.writer):
+            from grounded_video_description_torch.utils.logging import (
+                ProfilerHooks)
+            self.profiler = ProfilerHooks(
+                self.cfg.profile_dir, start_step=self.step + 2,
+                num_steps=3, device=self.device)
+        return self.profiler

@@ -26,16 +26,21 @@ When ``data_path/detectron_weights`` exists and ``transfer_mode`` is not
 "none", the model starts from the Visual-Genome weight transfer
 (``data/transfer.py``), as the JAX driver's does.
 
-Data parallelism (the JAX driver's ``build_driver_mesh``, main.py:86-149),
+The device mesh (the JAX driver's ``build_driver_mesh``, main.py:86-149),
 one process per device in a ``torch.distributed`` group (``parallel/``):
 ``--mesh_shape D`` (or ``D 1``) spawns D workers on ``cuda:0 .. D-1``
 (NCCL), or with ``--device cpu`` D CPU workers (gloo); with no flag and
 more than one visible card, D is the most cards that divide the
-microbatch.  Multi-host: ``--coordinator_address host:port
---num_processes N --process_id i`` on every host joins one group of N x D
-ranks, rank i x D + the local rank.  Rank 0 writes the checkpoints, the
-evaluation JSONs and the logs.  A model axis (``--mesh_shape D M``, M >
-1) is refused with ``NotImplementedError`` (ROADMAP Queue 1 item 13b).
+microbatch.  ``--mesh_shape D M`` adds a model axis: D x M workers, rank
+d x M + m, the M ranks of one d splitting the vocab head
+(``parallel/tensor.py``); the vocab is padded to a multiple of M
+(``vocab_pad_to``, as the JAX driver pads it), so a run resumed from its
+checkpoint on another mesh passes the same ``--vocab_pad_to``.
+Multi-host: ``--coordinator_address host:port --num_processes N
+--process_id i`` on every host joins one group of N x D x M ranks, rank i
+x D x M + the local rank.  Rank 0 writes the checkpoints, the evaluation
+JSONs and the logs.  With ``--profile_dir`` rank 0 traces three train
+steps (``utils.logging.ProfilerHooks``).
 """
 
 from __future__ import annotations
@@ -114,9 +119,9 @@ def sharing_model(model, cfg: GVDConfig):
 
 
 def data_axis(cfg: GVDConfig, device: torch.device) -> int:
-    """The ranks on this host: ``mesh_shape``'s data axis, else (on the
-    card) the most visible cards that divide the microbatch, as the JAX
-    driver's auto-DP picks them (main.py:111-124)."""
+    """The data indices on this host: ``mesh_shape``'s data axis, else
+    (on the card) the most visible cards that divide the microbatch, as
+    the JAX driver's auto-DP picks them (main.py:111-124)."""
     if cfg.mesh_shape is not None:
         local = cfg.mesh_shape[0]
     elif device.type == "cuda":
@@ -125,14 +130,26 @@ def data_axis(cfg: GVDConfig, device: torch.device) -> int:
                     if micro % k == 0)
     else:
         local = 1
-    if device.type == "cuda" and local > torch.cuda.device_count():
-        raise ValueError(f"a data axis of {local} needs {local} cards, "
-                         f"{torch.cuda.device_count()} visible")
     world = cfg.num_processes * local
     if (cfg.batch_size // cfg.grad_accum) % world:
         raise ValueError(f"microbatch {cfg.batch_size}//{cfg.grad_accum} "
                          f"must be divisible by the {world} ranks")
     return local
+
+
+def model_axis(cfg: GVDConfig) -> int:
+    """M, the model axis of ``mesh_shape`` (1 without one)."""
+    shape = cfg.mesh_shape or [1]
+    return shape[1] if len(shape) > 1 else 1
+
+
+def padded_for_mesh(cfg: GVDConfig) -> GVDConfig:
+    """``cfg`` with ``vocab_pad_to`` the model axis's size where it does
+    not divide by it, so the vocab head splits (main.py:145-147)."""
+    M = model_axis(cfg)
+    if M > 1 and cfg.vocab_pad_to % M:
+        return cfg.replace(vocab_pad_to=M)
+    return cfg
 
 
 def run(cfg: GVDConfig, trainer, evaluator, loader, loader_val, ckpt,
@@ -204,13 +221,18 @@ def parse_args(argv: Optional[List[str]] = None):
 
 
 def main(argv: Optional[List[str]] = None) -> int:
-    """The driver: one process, or D workers per host (``data_axis``)."""
+    """The driver: one process, or D x M workers per host
+    (``data_axis`` x ``model_axis``)."""
     import tempfile
 
     from grounded_video_description_torch.parallel import spawn
 
     device, cfg = parse_args(argv)
-    local = data_axis(cfg, device)
+    cfg = padded_for_mesh(cfg)
+    local = data_axis(cfg, device) * model_axis(cfg)
+    if device.type == "cuda" and local > torch.cuda.device_count():
+        raise ValueError(f"a mesh of {local} ranks a host needs {local} "
+                         f"cards, {torch.cuda.device_count()} visible")
     if local * cfg.num_processes == 1 and not cfg.coordinator_address:
         return train(cfg, device)
     with tempfile.TemporaryDirectory() as rdzv:
@@ -222,11 +244,11 @@ def main(argv: Optional[List[str]] = None) -> int:
 
 def _worker(local_rank: int, cfg: GVDConfig, device_type: str,
             init_method: str, local: int) -> None:
-    """Rank ``process_id`` x ``local`` + ``local_rank``: join the group on
-    this host's device ``local_rank`` and train.  Ranks other than 0 print
-    nothing."""
+    """Rank ``process_id`` x ``local`` + ``local_rank`` of the (N x D, M)
+    mesh: join the group on this host's device ``local_rank`` and train.
+    Ranks other than 0 print nothing."""
     from grounded_video_description_torch.parallel import (
-        close_data_mesh, init_data_mesh)
+        close_mesh, init_mesh)
 
     device = (torch.device("cuda", local_rank) if device_type == "cuda"
               else torch.device("cpu"))
@@ -235,12 +257,13 @@ def _worker(local_rank: int, cfg: GVDConfig, device_type: str,
     rank = cfg.process_id * local + local_rank
     if rank:
         sys.stdout = open(os.devnull, "w")
-    mesh = init_data_mesh(device, world=cfg.num_processes * local,
-                          rank=rank, init_method=init_method)
+    M = model_axis(cfg)
+    mesh = init_mesh(device, shape=(cfg.num_processes * local // M, M),
+                     rank=rank, init_method=init_method)
     try:
         train(cfg, device, mesh)
     finally:
-        close_data_mesh(mesh)
+        close_mesh(mesh)
 
 
 def train(cfg: GVDConfig, device: torch.device, mesh=None) -> int:
@@ -272,7 +295,7 @@ def train(cfg: GVDConfig, device: torch.device, mesh=None) -> int:
                     cfg.packed_cache_dir, cfg.val_split))
             barrier(mesh)
     shard = ({} if mesh is None else
-             dict(rank=mesh.rank, world=mesh.world, accum=cfg.grad_accum))
+             dict(rank=mesh.data_rank, world=mesh.data, accum=cfg.grad_accum))
     loader = Loader(dataset, cfg.batch_size, shuffle=True, seed=cfg.seed,
                     **shard)
     loader_val = Loader(dataset_val, cfg.batch_size, shuffle=False,

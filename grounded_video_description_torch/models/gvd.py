@@ -32,7 +32,9 @@ model's device, passed down explicitly; without one, dropout is the
 identity, as the JAX package's is without an rng.  A data-parallel rank
 passes a ``parallel.RowShard`` instead: the generator every rank shares,
 its rows of the microbatch and the group that BatchNorm's statistics are
-summed over.
+summed over.  On a model-axis rank (``parallel/tensor.py``) the model
+holds its slice of the vocab head and of the visual-word table, and the
+forward gathers them whole where it uses them.
 """
 
 from __future__ import annotations
@@ -68,6 +70,9 @@ from grounded_video_description_torch.ops.quantize import (
 )
 from grounded_video_description_torch.parallel.mesh import (
     generator_of, group_of,
+)
+from grounded_video_description_torch.parallel.tensor import (
+    head_logits, vis_embed_weight,
 )
 
 
@@ -229,7 +234,7 @@ class GVDModel(nn.Module):
         g_pool_feats = drop(F.relu(_lin(self.ctx2pool_grd[0], ppls_feat)))
 
         # visual-word embeddings for all classes (model.py:321-326)
-        vis_word_embed = F.relu(self.vis_embed[0].weight)
+        vis_word_embed = F.relu(vis_embed_weight(self))
         # one mask for the class table, which no row owns: every rank
         # draws it whole
         vis_word_embed = dropout(vis_word_embed, cfg.drop_prob_lm,
@@ -439,16 +444,17 @@ class GVDModel(nn.Module):
 
     def embed_vis_words(self, ids: torch.Tensor, *, train: bool = False,
                         generator: Optional[torch.Generator] = None):
-        x = F.relu(embedding(self.vis_embed[0].weight, ids))
+        x = F.relu(embedding(vis_embed_weight(self), ids))
         return dropout(x, self.cfg.drop_prob_lm, train=train,
                        generator=generator).to(self.dtype)
 
     def logit_logprobs(self, x: torch.Tensor) -> torch.Tensor:
         """Vocab log-probabilities; pad columns of the padded logit head
         are forced to MIN_VALUE before the log_softmax and sliced away
-        (model.py:464, 612)."""
+        (model.py:464, 612).  A model-axis rank gathers its columns of
+        the head whole first."""
         V, Vp = self.cfg.vocab_size, self.cfg.vocab_size_padded
-        logits = _lin(self.logit, x).float()
+        logits = head_logits(self, x, _lin).float()
         if Vp > V:
             # out of place: .float() of an f32 tensor is no copy
             pad = torch.arange(Vp, device=logits.device) >= V

@@ -239,6 +239,10 @@ def _launch(model, enc, pnt_mask, stamps, barriers_only: bool):
     req(all(t.device == dev for t in banks)
         and model.logit.weight.device == dev,
         "banks, mask and model must be on one device")
+    req(Vp == cfg.vocab_size_padded and getattr(model, "tp", None) is None,
+        f"K6 takes the whole vocab head ({cfg.vocab_size_padded} rows), "
+        f"not a model-axis rank's {Vp}: decode with "
+        "parallel.whole_model(model)")
     req(H % 8 == 0 and E % 8 == 0 and A % 4 == 0,
         f"the kernel takes rnn_size {H} and input_encoding_size {E} in "
         f"multiples of 8 (16-byte rows) and att_hid {A} in loads of 4")

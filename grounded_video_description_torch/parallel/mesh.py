@@ -1,31 +1,36 @@
-"""Data parallelism of the port: one process per device in a
-``torch.distributed`` process group.
+"""The device mesh of the port: one process per device in a
+``torch.distributed`` process group, laid out as a (D, M) grid.
 
-The counterpart of the data axis of
-``grounded_video_description_tpu/parallel/mesh.py``, where ``jax.jit``
-partitions the global step over a device mesh.  Here each rank runs the
-model on its own rows of every microbatch and the ranks meet in explicit
-collectives, placed so that a step of D ranks computes the step of one
-device on the whole batch:
+The counterpart of ``grounded_video_description_tpu/parallel/mesh.py``,
+where ``jax.jit`` partitions the global step over a ("data", "model")
+device mesh.  Rank r is (d, m) = divmod(r, M), the order of the JAX
+``make_mesh``'s reshape; the data group joins the D ranks of one m, the
+model group the M ranks of one d.  Here each rank runs the model on its
+data index's rows of every microbatch and the ranks meet in explicit
+collectives, placed so that a step of D x M ranks computes the step of
+one device on the whole batch:
 
-* rows: rank r of D takes rows [i n + r n / D, i n + (r + 1) n / D) of
+* rows: rank (d, m) takes rows [i n + d n / D, i n + (d + 1) n / D) of
   microbatch i, n = batch / accum (``shard_rows``), as the JAX trainer
-  shards axis 1 of the (accum, n) reshaped batch;
-* gradients: summed once a step, after the accumulation loop, in one
-  collective per dtype (``all_reduce_grads_sum``), over losses that
-  ``spmd.py`` renormalizes by the global mask counts;
+  shards axis 1 of the (accum, n) reshaped batch; the M ranks of one d
+  hold the same rows;
+* gradients: summed over the data group once a step, after the
+  accumulation loop, in one collective per dtype
+  (``all_reduce_grads_sum``), over losses that ``spmd.py`` renormalizes
+  by the global mask counts;
 * BatchNorm: statistics of the whole microbatch through a differentiable
-  all-reduce (``all_reduce_sum``, which ``nn.core.batch_norm_train``
-  takes under a ``RowShard``);
-* dropout: every rank runs the same generator stream and keeps its own
-  rows of each whole-microbatch mask (``RowShard``), and K4 and K5 hash
-  global rows (their ``row0``).
+  all-reduce over the data group (``all_reduce_sum``, which
+  ``nn.core.batch_norm_train`` takes under a ``RowShard``);
+* dropout: every rank runs the same generator stream and keeps its data
+  index's rows of each whole-microbatch mask (``RowShard``), and K4 and
+  K5 hash global rows (their ``row0``);
+* the model axis splits the vocab head and the visual-word table over
+  the model group (``parallel/tensor.py``).
 
 The backend follows the device: NCCL for CUDA, gloo for the CPU.  An
 explicit ``backend`` is taken as given (two ranks on one card need gloo,
 since NCCL refuses two ranks on one device); nothing falls back to
-another backend or device by itself.  The model axis of the JAX mesh
-(tensor parallelism on the vocab head) is not ported.
+another backend or device by itself.
 """
 
 from __future__ import annotations
@@ -33,7 +38,7 @@ from __future__ import annotations
 import datetime
 import time
 from dataclasses import dataclass
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -43,13 +48,38 @@ TIMEOUT_S = 1800        # of every collective, the rendezvous included
 
 
 @dataclass(frozen=True)
-class DataMesh:
-    """The data axis: ``world`` ranks, this process's ``rank`` and
-    ``device``, and the process group of the collectives."""
-    world: int
+class Mesh:
+    """A (D, M) grid of ranks: this process's ``rank`` and ``device``, the
+    world's process ``group`` and the groups of its data and model axes
+    (each None where its axis has one rank)."""
+    shape: Tuple[int, int]
     rank: int
     device: torch.device
     group: Any = None
+    data_group: Any = None
+    model_group: Any = None
+
+    @property
+    def world(self) -> int:
+        return self.shape[0] * self.shape[1]
+
+    @property
+    def data(self) -> int:
+        """D, the ranks of the data axis."""
+        return self.shape[0]
+
+    @property
+    def model(self) -> int:
+        """M, the ranks of the model axis."""
+        return self.shape[1]
+
+    @property
+    def data_rank(self) -> int:
+        return self.rank // self.shape[1]
+
+    @property
+    def model_rank(self) -> int:
+        return self.rank % self.shape[1]
 
     @property
     def writer(self) -> bool:
@@ -57,24 +87,46 @@ class DataMesh:
         return self.rank == 0
 
 
-def init_data_mesh(device, *, world: int, rank: int, init_method: str,
-                   backend: Optional[str] = None) -> DataMesh:
-    """Join the process group of ``world`` ranks as ``rank`` on
-    ``device`` (``init_method``: ``tcp://host:port`` or
-    ``file://path``).  The backend is the device's (NCCL for CUDA, gloo
-    for the CPU) unless ``backend`` names one."""
+def init_mesh(device, *, shape: Sequence[int], rank: int, init_method: str,
+              backend: Optional[str] = None) -> Mesh:
+    """Join the process group of the (D, M) ``shape``'s D x M ranks (a
+    one-element shape is (D, 1)) as ``rank`` on ``device``
+    (``init_method``: ``tcp://host:port`` or ``file://path``), and make
+    the groups of its axes.  The backend is the device's (NCCL for CUDA,
+    gloo for the CPU) unless ``backend`` names one."""
+    shape = (tuple(shape) + (1,))[:2]
+    D, M = shape
     device = torch.device(device)
     if device.type == "cuda":
         torch.cuda.set_device(device)
     dist.init_process_group(
         backend or ("nccl" if device.type == "cuda" else "gloo"),
         init_method=init_method,
-        world_size=world, rank=rank,
+        world_size=D * M, rank=rank,
         timeout=datetime.timedelta(seconds=TIMEOUT_S))
-    return DataMesh(world, rank, device, dist.group.WORLD)
+    world = dist.group.WORLD
+
+    def axis_groups(members):
+        """Every rank makes every group, in one order; returns this
+        rank's."""
+        mine = None
+        for ranks in members:
+            g = dist.new_group(ranks)
+            if rank in ranks:
+                mine = g
+        return mine
+
+    data_group = model_group = None
+    if D > 1:
+        data_group = world if M == 1 else axis_groups(
+            [[d * M + m for d in range(D)] for m in range(M)])
+    if M > 1:
+        model_group = world if D == 1 else axis_groups(
+            [[d * M + m for m in range(M)] for d in range(D)])
+    return Mesh(shape, rank, device, world, data_group, model_group)
 
 
-def close_data_mesh(mesh: Optional[DataMesh]) -> None:
+def close_mesh(mesh: Optional[Mesh]) -> None:
     if mesh is not None and dist.is_initialized():
         dist.destroy_process_group()
 
@@ -127,8 +179,9 @@ class RowShard:
     """What a data-parallel training forward needs beside the model: the
     dropout ``generator`` (the same stream on every rank), this rank's
     rows of the microbatch (``rows`` of ``total``, from ``row0``) and the
-    process ``group`` BatchNorm reduces over.  The model's ``generator``
-    arguments take it in place of a ``torch.Generator``."""
+    process ``group`` BatchNorm reduces over (the data group).  The
+    model's ``generator`` arguments take it in place of a
+    ``torch.Generator``."""
     generator: torch.Generator
     row0: int
     rows: int
@@ -208,29 +261,32 @@ def _flat_collective(tensors: List[torch.Tensor], op) -> None:
                 o += t.numel()
 
 
-def all_reduce_sum_(mesh: DataMesh, tensors: List[torch.Tensor]) -> None:
-    """Sum ``tensors`` over the ranks in place, one collective per
-    dtype."""
-    _flat_collective(tensors, lambda f: dist.all_reduce(f, group=mesh.group))
+def all_reduce_sum_(group, tensors: List[torch.Tensor]) -> None:
+    """Sum ``tensors`` over the ranks of ``group`` in place, one
+    collective per dtype."""
+    _flat_collective(tensors, lambda f: dist.all_reduce(f, group=group))
 
 
-def all_reduce_grads_sum(mesh: DataMesh,
-                         params: List[torch.Tensor]) -> None:
-    """Sum the ``.grad`` of ``params`` over the ranks: each rank's
-    gradient is of its count-renormalized share of the loss, so the sum is
-    the whole batch's gradient.  Every rank runs the same graph, so the
-    same parameters hold a gradient on each."""
-    all_reduce_sum_(mesh, [p.grad for p in params if p.grad is not None])
+def all_reduce_grads_sum(mesh: Mesh, params: List[torch.Tensor]) -> None:
+    """Sum the ``.grad`` of ``params`` over the data group: each rank's
+    gradient is of its data index's count-renormalized share of the loss,
+    so the sum is the whole batch's gradient.  Every rank runs the same
+    graph, so the same parameters hold a gradient on each; a model-axis
+    rank's slice of the head sums with the same slice of the other data
+    indices."""
+    if mesh.data > 1:
+        all_reduce_sum_(mesh.data_group,
+                        [p.grad for p in params if p.grad is not None])
 
 
-def broadcast_module(mesh: DataMesh, module: torch.nn.Module) -> None:
+def broadcast_module(mesh: Mesh, module: torch.nn.Module) -> None:
     """Rank 0's parameters and buffers on every rank."""
     tensors = list(module.parameters()) + list(module.buffers())
     _flat_collective(tensors, lambda f: dist.broadcast(
         f, src=0, group=mesh.group))
 
 
-def gather_rows(mesh: DataMesh,
+def gather_rows(mesh: Mesh,
                 arrays: Optional[Dict[str, np.ndarray]]
                 ) -> Optional[Dict[str, np.ndarray]]:
     """Every rank's host arrays, concatenated along the rows in rank
@@ -244,13 +300,13 @@ def gather_rows(mesh: DataMesh,
     return {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
 
 
-def broadcast_object(mesh: DataMesh, obj):
+def broadcast_object(mesh: Mesh, obj):
     """Rank 0's ``obj`` on every rank."""
     box = [obj]
     dist.broadcast_object_list(box, src=0, group=mesh.group)
     return box[0]
 
 
-def barrier(mesh: Optional[DataMesh]) -> None:
+def barrier(mesh: Optional[Mesh]) -> None:
     if mesh is not None and mesh.world > 1:
         dist.barrier(group=mesh.group)

@@ -5,9 +5,11 @@ Every loss is a masked mean, and the ranks (and the microbatches of one
 rank) hold different mask counts, so averaging their means would bias the
 step.  Each rank scales its local mean by its local count over the
 global count; the scaled losses, and their gradients, then sum to the
-whole batch's (spmd.py:47-58 of the JAX package).  With no mesh the
-global count is the process's own, which is gradient accumulation on one
-device.
+whole batch's (spmd.py:47-58 of the JAX package).  The sums run over the
+mesh's data group: the M ranks of a model axis hold the same rows, and
+summing over the world would count each row M times.  With no mesh, or
+one data index, the global count is the process's own, which is gradient
+accumulation on one device.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ from typing import Dict, Optional
 import torch
 import torch.distributed as dist
 
-from grounded_video_description_torch.parallel.mesh import DataMesh
+from grounded_video_description_torch.parallel.mesh import Mesh
 
 # (loss, the mask count that is its masked-mean denominator)
 TERMS = (("lm_loss", "txt_count"), ("att2_loss", "roi_count"),
@@ -25,21 +27,21 @@ TERMS = (("lm_loss", "txt_count"), ("att2_loss", "roi_count"),
 COUNTS = ("txt_count", "roi_count", "cls_count")
 
 
-def _summed(mesh: Optional[DataMesh], values: Dict[str, torch.Tensor]
+def _summed(mesh: Optional[Mesh], values: Dict[str, torch.Tensor]
             ) -> Dict[str, torch.Tensor]:
-    """0-d tensors summed over the ranks in one collective."""
-    if mesh is None:
+    """0-d tensors summed over the data group in one collective."""
+    if mesh is None or mesh.data == 1:
         return values
     keys = list(values)
     stacked = torch.stack([values[k].detach().float() for k in keys])
-    dist.all_reduce(stacked, group=mesh.group)
+    dist.all_reduce(stacked, group=mesh.data_group)
     return {k: stacked[i] for i, k in enumerate(keys)}
 
 
-def global_counts(mesh: Optional[DataMesh], sup: Dict[str, torch.Tensor]
+def global_counts(mesh: Optional[Mesh], sup: Dict[str, torch.Tensor]
                   ) -> Dict[str, torch.Tensor]:
-    """The batch's mask counts over every rank (at least 1), from a
-    rank's ``supervision``."""
+    """The batch's mask counts over every data index (at least 1), from
+    a rank's ``supervision``."""
     return {k: v.clamp_min(1.0)
             for k, v in _summed(mesh, {k: sup[k] for k in COUNTS}).items()}
 
@@ -52,7 +54,8 @@ def renormalized(losses: Dict[str, torch.Tensor],
             for name, ck in TERMS}
 
 
-def sum_metrics(mesh: Optional[DataMesh], metrics: Dict[str, torch.Tensor]
+def sum_metrics(mesh: Optional[Mesh], metrics: Dict[str, torch.Tensor]
                 ) -> Dict[str, torch.Tensor]:
-    """The ranks' renormalized loss terms summed: the batch's values."""
+    """The data indices' renormalized loss terms summed: the batch's
+    values."""
     return _summed(mesh, metrics)

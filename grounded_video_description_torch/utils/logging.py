@@ -1,18 +1,22 @@
-"""Metrics logging of the port.
+"""Metrics logging and profiling of the port.
 
-The port's copy of ``MetricLogger`` from
-``grounded_video_description_tpu/utils/logging.py``: an append-only JSONL
-sink every run can tail, with an optional TensorBoard scalar mirror
-through ``torch.utils.tensorboard`` (imported when first written).  If
-that import fails, the logger says the sink is unavailable and keeps the
-JSONL sink, as the JAX package does.
+The port's copy of ``grounded_video_description_tpu/utils/logging.py``:
+``MetricLogger``, an append-only JSONL sink every run can tail, with an
+optional TensorBoard scalar mirror through ``torch.utils.tensorboard``
+(imported when first written; if that import fails, the logger says the
+sink is unavailable and keeps the JSONL sink, as the JAX package does),
+and ``ProfilerHooks``, a ``torch.profiler`` trace of a window of steps
+where the JAX package takes ``jax.profiler``.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import time
-from typing import Dict, Optional
+from typing import Dict, List, Optional
+
+import torch
 
 
 class MetricLogger:
@@ -61,3 +65,76 @@ class MetricLogger:
         if self._tb is not None:
             self._tb.flush()
             self._tb.close()
+
+
+class ProfilerHooks:
+    """A ``torch.profiler`` trace of a window of steps, written as a
+    Chrome trace under ``log_dir``.
+
+    Usage:
+        prof = ProfilerHooks("/tmp/trace", start_step=10, num_steps=5,
+                             device=model_device)
+        for step in ...:
+            prof.maybe_start(step)
+            ... run step ...
+            prof.maybe_stop(step)
+
+    ``maybe_start(step)`` opens the window at ``start_step`` and
+    ``maybe_stop(step)`` closes it at ``start_step + num_steps``, as the
+    JAX package's hooks do.  The trace holds CPU activity, and CUDA
+    activity when ``device`` is a CUDA device; a CUDA trace without
+    kernel events raises, since a trace that silently lost the device
+    says nothing of it.  ``path`` names the file written."""
+
+    def __init__(self, log_dir: str, start_step: int = 10,
+                 num_steps: int = 5, device=None):
+        self.log_dir = log_dir
+        self.start_step = start_step
+        self.stop_step = start_step + num_steps
+        self.device = torch.device(device or "cpu")
+        self.path: Optional[str] = None
+        self._prof = None
+
+    @property
+    def active(self) -> bool:
+        return self._prof is not None
+
+    def maybe_start(self, step: int):
+        if step == self.start_step and not self.active:
+            from torch.profiler import ProfilerActivity, profile
+
+            activities = [ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                activities.append(ProfilerActivity.CUDA)
+            self._prof = profile(activities=activities)
+            self._prof.__enter__()
+
+    def maybe_stop(self, step: int):
+        if step == self.stop_step and self.active:
+            prof, self._prof = self._prof, None
+            prof.__exit__(None, None, None)
+            os.makedirs(self.log_dir, exist_ok=True)
+            path = os.path.join(
+                self.log_dir,
+                f"trace_steps_{self.start_step}-{self.stop_step - 1}.json")
+            prof.export_chrome_trace(path)
+            self.path = path
+            if self.device.type == "cuda" and not kernel_names(path):
+                raise RuntimeError(
+                    f"the profile of steps {self.start_step}.."
+                    f"{self.stop_step - 1} on {self.device} holds no CUDA "
+                    f"kernel (CUPTI tracing unavailable?): {path}")
+
+
+def trace_events(path: str, cat: str) -> List[Dict]:
+    """The events of category ``cat`` in a Chrome trace."""
+    with open(path) as f:
+        events = json.load(f).get("traceEvents", [])
+    return [e for e in events if e.get("cat") == cat]
+
+
+def kernel_names(path: str) -> List[str]:
+    """The names of the device kernels a Chrome trace holds, in order of
+    first launch."""
+    return list(dict.fromkeys(e.get("name", "")
+                              for e in trace_events(path, "kernel")))

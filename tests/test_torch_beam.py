@@ -20,14 +20,14 @@ from grounded_video_description_tpu import config as jconfig
 from grounded_video_description_tpu.data.dataset import AnetDataset, Loader
 from grounded_video_description_tpu.data.synthetic import (
     synthetic_batch as jax_synthetic_batch)
-from grounded_video_description_tpu.data.synthetic_files import (
-    write_synthetic_dataset)
 from grounded_video_description_tpu.engine.evaluator import (
     Evaluator as JaxEvaluator)
 from grounded_video_description_tpu.models import GVDModel as JaxModel
 from grounded_video_description_tpu.models import beam as jbeam
 from grounded_video_description_tpu.ops import attention as jattn
 from grounded_video_description_torch import config as tconfig
+from grounded_video_description_torch.data.synthetic_files import (
+    write_synthetic_dataset)
 from grounded_video_description_torch.data.vocab import VocabTables
 from grounded_video_description_torch.engine.evaluator import Evaluator
 from grounded_video_description_torch.models import (
@@ -215,8 +215,8 @@ def jax_beam_eval(tmp_path_factory):
     root = tmp_path_factory.mktemp("beam_eval")
     cfg = jconfig.tiny_test_config(obj_interact=True, num_prop_per_frm=75,
                                    batch_size=3)
-    paths = write_synthetic_dataset(str(root / "data"), cfg, n_train=1,
-                                    n_val=2, seed=0)
+    paths = write_synthetic_dataset(str(root / "data"), _tcfg(cfg),
+                                    n_train=1, n_val=2, seed=0)
     cfg = cfg.replace(**paths, language_eval=True, eval_obj_grounding=True,
                       id="beam", beam_size=3, data_path=str(root / "data"))
     dataset = AnetDataset(cfg, split=cfg.val_split)

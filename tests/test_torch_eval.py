@@ -3,7 +3,11 @@ the port's ``Evaluator`` and the JAX ``Evaluator`` on the same weights
 and the same numpy batches of a synthetic dataset on disk write
 byte-identical densecap, attn-gen, attn-gt and grd-gt JSONs with equal
 stats; the port's ``grounding_eval_cfg`` is ``main.grounding_eval_cfg``;
-each copied evalmetrics scorer gives the JAX scorer's numbers."""
+each copied evalmetrics scorer gives the JAX scorer's numbers; under
+``vis_attn`` both draw the same attention overlays.  The dataset is
+written by the port's ``write_synthetic_dataset`` (which
+tests/test_torch_utils.py holds to the JAX package's) and read by the
+JAX package's loader."""
 
 import dataclasses
 import importlib
@@ -17,12 +21,12 @@ import pytest
 
 from grounded_video_description_tpu import config as jconfig
 from grounded_video_description_tpu.data.dataset import AnetDataset, Loader
-from grounded_video_description_tpu.data.synthetic_files import (
-    write_synthetic_dataset)
 from grounded_video_description_tpu.engine.evaluator import (
     Evaluator as JaxEvaluator)
 from grounded_video_description_tpu.models import GVDModel as JaxModel
 from grounded_video_description_torch import config as tconfig
+from grounded_video_description_torch.data.synthetic_files import (
+    write_synthetic_dataset)
 from grounded_video_description_torch.data.vocab import VocabTables
 from grounded_video_description_torch.engine.evaluator import (
     Evaluator, grounding_eval_cfg)
@@ -51,8 +55,8 @@ def jax_eval(tmp_path_factory):
     root = tmp_path_factory.mktemp("eval")
     cfg = jconfig.tiny_test_config(obj_interact=True, num_prop_per_frm=75,
                                    batch_size=3)
-    paths = write_synthetic_dataset(str(root / "data"), cfg, n_train=1,
-                                    n_val=4, seed=0)
+    paths = write_synthetic_dataset(str(root / "data"), _tcfg(cfg),
+                                    n_train=1, n_val=4, seed=0)
     cfg = cfg.replace(**paths, language_eval=True, eval_obj_grounding=True,
                       eval_obj_grounding_gt=True, id="parity",
                       data_path=str(root / "data"))
@@ -142,15 +146,59 @@ def test_transformer_evaluator_json_and_stats_match_jax(jax_eval):
             == {k: v for k, v in want_stats.items() if k not in drop})
 
 
-def test_evaluator_refuses_what_is_not_ported(jax_eval):
-    cfg = _tcfg(jax_eval["cfg"])
-    model = GVDModel(cfg)
-    vocab = VocabTables.from_file(jax_eval["cfg"].input_dic)
-    batch = jax_eval["batches"][0]
-    with pytest.raises(NotImplementedError, match="item 15"):
-        Evaluator(cfg.replace(vis_attn=True, image_path="frames"), model,
-                  vocab).evaluate([batch], out_dir=str(jax_eval["root"]
-                                                       / "vis"))
+def _jpegs(root):
+    from PIL import Image
+
+    return {os.path.relpath(os.path.join(d, f), root):
+            np.asarray(Image.open(os.path.join(d, f)))
+            for d, _, fs in os.walk(root) for f in fs}
+
+
+def test_evaluator_vis_attn_matches_jax(jax_eval, tmp_path, monkeypatch,
+                                        capsys):
+    """``vis_attn`` over frames that PIL wrote under ``image_path``
+    (<seg_id>/NN.jpg; one segment has no directory and is passed over,
+    one lacks a frame and is skipped with a message): the port's
+    evaluator draws the JAX evaluator's JPEGs, under the same paths
+    (vis/<id>/<seg_id>_generated_sent.jpg in the working directory), with
+    equal pixels, and prints the same skip line."""
+    from PIL import Image
+
+    ref = jax_eval
+    batch = ref["batches"][0]
+    frames = tmp_path / "frames"
+    rng = np.random.RandomState(0)
+    for i, seg_id in enumerate(batch["seg_id"][:batch["n_valid"]]):
+        if i == 2:
+            continue
+        (frames / seg_id).mkdir(parents=True)
+        for f in range(ref["cfg"].num_sampled_frm - (i == 1)):
+            Image.fromarray(rng.randint(0, 256, (48, 64, 3), np.uint8)).save(
+                frames / seg_id / f"{f + 1:02d}.jpg")
+    jcfg = ref["cfg"].replace(vis_attn=True, image_path=str(frames))
+    logs = {}
+    for side in ("jax", "port"):
+        (tmp_path / side).mkdir()
+        monkeypatch.chdir(tmp_path / side)
+        if side == "jax":
+            JaxEvaluator(jcfg, JaxModel(jcfg), ref["vocab"]).evaluate(
+                ref["variables"], [batch], out_dir="out")
+        else:
+            cfg = _tcfg(jcfg)
+            model = GVDModel(cfg)
+            model.load_state_dict(from_jax_variables(ref["variables"]))
+            Evaluator(cfg, model.eval(), VocabTables.from_file(
+                jcfg.input_dic)).evaluate([batch], out_dir="out")
+        logs[side] = [line for line in capsys.readouterr().out.splitlines()
+                      if line.startswith("[vis_attn]")]
+    want = _jpegs(tmp_path / "jax" / "vis")
+    got = _jpegs(tmp_path / "port" / "vis")
+    assert sorted(got) == sorted(want) == [
+        f"parity/{batch['seg_id'][0]}_generated_sent.jpg"]
+    for name, pixels in want.items():
+        np.testing.assert_array_equal(got[name], pixels, err_msg=name)
+    assert logs["port"] == logs["jax"]
+    assert len(logs["jax"]) == 1 and batch["seg_id"][1] in logs["jax"][0]
 
 
 _GUARD = ("pallas_encoder_grounding_guard", "use_pallas_encoder",

@@ -1,6 +1,6 @@
-"""PyTorch port, data parallelism (``grounded_video_description_torch/
-parallel``) on the CPU: two gloo ranks, each in its own process, at the
-tiny widths in f32 on the plain path.
+"""PyTorch port, the device mesh (``grounded_video_description_torch/
+parallel``) on the CPU: gloo ranks, each in its own process, at the tiny
+widths in f32 on the plain path.  The data axis on two ranks:
 
 - ``Trainer.train_step`` on two ranks equals one device's step on the
   whole batch, at dropout 0 and at the flagship rates, for the TopDown
@@ -20,9 +20,23 @@ tiny widths in f32 on the plain path.
   flag its data axis over eight cards is the JAX driver's auto-DP;
 - the rank's loader rows, and one kernel build for two processes.
 
+The model axis (``parallel/tensor.py``) on four ranks:
+
+- (1, 2) and (2, 2) steps equal one device's, with a vocab padded to 2
+  and the visual-word table split, and with a table that does not divide
+  (replicated), under the flagship dropout rates;
+- the (2, 2) step equals the JAX jit mesh step on a (2, 2) mesh of the
+  virtual CPU devices (the logit split by the JAX TP rules);
+- a checkpoint saved under (2, 2) holds the whole head and its moments,
+  restores under one device and under (4, 1), and one more step there
+  equals one device's;
+- the sharded ``evaluate`` and ``eval_grounding_gt`` under (1, 2) write
+  the single-device port's JSONs byte for byte.
+
 The ranks of a case run in one spawned group; the JAX package is imported
 only by the parent process."""
 
+import copy
 import dataclasses
 import json
 import math
@@ -47,7 +61,8 @@ from grounded_video_description_torch.ops.kernels import (
 from grounded_video_description_torch.ops.kernels.attention_train import (
     mha_probs_dropout_plain)
 from grounded_video_description_torch.parallel import (
-    close_data_mesh, init_data_mesh, shard_rows, spawn)
+    Mesh, close_mesh, init_mesh, shard_model, shard_rows, spawn)
+from grounded_video_description_torch.parallel import tensor as tp
 from grounded_video_description_torch.tools.eval_files import (
     eval_references, eval_vocab)
 
@@ -116,8 +131,8 @@ def _step_result(trainer, batch, lr):
 
 def _join(rank, tmp):
     torch.set_num_threads(1)
-    return init_data_mesh("cpu", world=WORLD, rank=rank,
-                          init_method=f"file://{tmp}/rdzv")
+    return init_mesh("cpu", shape=(WORLD,), rank=rank,
+                     init_method=f"file://{tmp}/rdzv")
 
 
 def _group_worker(rank, tmp, jobs):
@@ -143,7 +158,7 @@ def _group_worker(rank, tmp, jobs):
                 stats.update(ev.eval_grounding_gt(batches, out_dir=d))
             out["eval"][mode] = stats
     finally:
-        close_data_mesh(mesh)
+        close_mesh(mesh)
     torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
 
 
@@ -173,11 +188,11 @@ def _eval_job(root):
     return cfg, model.state_dict(), vocab, batches
 
 
-@pytest.fixture(scope="module")
-def jax_mesh_case():
-    """The JAX package's jit mesh step on a (2, 1) mesh at dropout 0
-    (TopDown, BatchNorm on, accumulation 1, SGD): its initial weights,
-    the batch, its metrics and parameters after the step."""
+def _jax_mesh_step(shape):
+    """The JAX package's jit mesh step on a ``shape`` mesh of the virtual
+    CPU devices at dropout 0 (TopDown, BatchNorm on, accumulation 1, SGD;
+    on a model axis the logit split by the JAX TP rules): its initial
+    weights, the batch, its metrics and parameters after the step."""
     import jax
     import jax.numpy as jnp
 
@@ -191,9 +206,13 @@ def jax_mesh_case():
     jcfg = jconfig.tiny_test_config(
         batch_size=4, optim="sgd", learning_rate=LR,
         learning_rate_decay_start=-1, w_att2=0.05, w_grd=0.05, w_cls=0.1)
-    mesh = make_mesh((2, 1), ("data", "model"), devices=jax.devices()[:2])
+    mesh = make_mesh(shape, ("data", "model"),
+                     devices=jax.devices()[:shape[0] * shape[1]])
     trainer = JaxTrainer(jcfg, mesh=mesh)
-    st = trainer.init_state(rng=jax.random.PRNGKey(7))
+    st = trainer.shard_state(trainer.init_state(rng=jax.random.PRNGKey(7)))
+    if shape[1] > 1:
+        assert tuple(st.params["logit"]["w"].sharding.spec) == (
+            None, "model")
     cfg = tconfig.GVDConfig(**{f.name: getattr(jcfg, f.name)
                                for f in dataclasses.fields(tconfig.GVDConfig)}
                             ).validate()
@@ -208,6 +227,11 @@ def jax_mesh_case():
     return dict(cfg=cfg, batch=batch, init=from_jax_variables(init),
                 after=from_jax_variables(tree),
                 metrics={k: float(v) for k, v in m.items()})
+
+
+@pytest.fixture(scope="module")
+def jax_mesh_case():
+    return _jax_mesh_step((2, 1))
 
 
 @pytest.fixture(scope="module")
@@ -279,22 +303,25 @@ def test_dp_step_equals_one_device(group, case):
         assert torch.equal(v, r1["state"][n]), n
 
 
-def test_dp_step_equals_jax_mesh_step(group, jax_mesh_case):
-    """The two-rank step against the JAX jit mesh step on the same
-    weights and batch: losses within 1e-5 relative, parameters and
-    BatchNorm statistics within 1e-6."""
-    got = group["ranks"][0]["train"]["jax"]
+def _assert_equals_jax_step(got, jax_case):
     for k in LOSS_KEYS:
         np.testing.assert_allclose(got["metrics"][k],
-                                   jax_mesh_case["metrics"][k],
+                                   jax_case["metrics"][k],
                                    rtol=LOSS_RTOL, err_msg=k)
-    for n, v in jax_mesh_case["after"].items():
+    for n, v in jax_case["after"].items():
         w = got["state"][n]
         if n.endswith("num_batches_tracked"):
             assert int(w) == int(v), n
         else:
             np.testing.assert_allclose(w.numpy(), v.numpy(),
                                        atol=PARAM_ATOL, rtol=0, err_msg=n)
+
+
+def test_dp_step_equals_jax_mesh_step(group, jax_mesh_case):
+    """The two-rank step against the JAX jit mesh step on the same
+    weights and batch: losses within 1e-5 relative, parameters and
+    BatchNorm statistics within 1e-6."""
+    _assert_equals_jax_step(group["ranks"][0]["train"]["jax"], jax_mesh_case)
 
 
 EVAL_FILES = {
@@ -329,6 +356,250 @@ def test_sharded_eval_writes_the_one_device_files(group, mode):
     r0, r1 = (r["eval"][mode] for r in group["ranks"])
     assert r0 == r1
     drop = ("captions_per_sec",)
+    assert ({k: v for k, v in r0.items() if k not in drop}
+            == {k: v for k, v in stats.items() if k not in drop})
+
+
+# --------------------------------------------------------------------- #
+# the model axis: four ranks, as (2, 2), (1, 2) on ranks 0-1 and (4, 1)
+# --------------------------------------------------------------------- #
+
+TP_WORLD = 4
+PRE_CLIP_RTOL = 1e-6
+TP_CASES = {
+    # a vocab of 51 padded to 52, a table of 12 rows split in two
+    "odd-vocab-split-table": dict(vocab_size=51, vocab_pad_to=2,
+                                  detect_size=11),
+    # a table of 11 rows: replicated, as the JAX _TP_OPTIONAL rule has it
+    "replicated-table": dict(vocab_size=50, detect_size=10),
+}
+
+
+def _tp_cfg(case, **kw):
+    return _train_cfg("topdown", "flagship-drop").replace(
+        **TP_CASES[case], **kw).validate()
+
+
+def _arrays(batch):
+    return {k: v for k, v in batch.items() if k not in ("seg_id", "n_valid")}
+
+
+def _tp_result(trainer, batch):
+    """``_step_result`` with the split parameters' gradients and weights
+    gathered whole."""
+    metrics, grads = _record_step(trainer, batch, LR)
+    shard = tp.shard_of(trainer.model)
+    for n in (shard.names if shard else ()):
+        grads[n] = tp._gathered(grads[n], shard)
+    state = {k: v.clone()
+             for k, v in tp.whole_state_dict(trainer.model).items()}
+    return dict(metrics=metrics, grads=grads, state=state,
+                split=shard.names if shard else ())
+
+
+def _tp_train(cfg, state, batch, mesh, **trainer_kw):
+    model = GVDModel(cfg)
+    model.load_state_dict(state)
+    trainer = Trainer(cfg, model, mesh=mesh, **trainer_kw)
+    rows = shard_rows(cfg.batch_size, cfg.grad_accum, mesh.data_rank,
+                      mesh.data)
+    local = {k: v[rows] for k, v in batch.items() if k != "seg_id"}
+    return trainer, batch_to_device(cfg, local, "cpu")
+
+
+def _tp_worker(rank, tmp, jobs):
+    """Every model-axis run: the train cases under (2, 2) and, on ranks 0
+    and 1, under (1, 2); the JAX case under (2, 2); a checkpoint saved
+    under (2, 2) and restored under (4, 1) for one more step; the
+    evaluator under (1, 2)."""
+    import torch.distributed as dist
+
+    from grounded_video_description_torch.engine.checkpoint import (
+        CheckpointManager)
+
+    torch.set_num_threads(1)
+    mesh22 = init_mesh("cpu", shape=(2, 2), rank=rank,
+                       init_method=f"file://{tmp}/rdzv")
+    # every rank makes both groups; ranks 0 and 1 form the (1, 2) mesh
+    pairs = [dist.new_group([0, 1]), dist.new_group([2, 3])]
+    mesh12 = Mesh((1, 2), rank, mesh22.device, pairs[0], None, pairs[0])
+    mesh41 = Mesh((4, 1), rank, mesh22.device, mesh22.group, mesh22.group)
+    out = {"train": {}, "eval": {}}
+    try:
+        for name, (cfg, state, batch) in jobs["train"].items():
+            for shape, mesh in (("2x2", mesh22), ("1x2", mesh12)):
+                if shape == "1x2" and rank >= 2:
+                    continue
+                out["train"][name, shape] = _tp_result(
+                    *_tp_train(cfg, state, batch, mesh))
+        cfg, state, batch = jobs["ckpt"]
+        trainer, local = _tp_train(cfg, state, batch, mesh22)
+        trainer.train_step(local, LR)
+        CheckpointManager(os.path.join(tmp, "ckpt"), mesh22).save(
+            trainer, {"epoch": 1})
+        fresh = GVDModel(cfg).init(torch.Generator().manual_seed(8))
+        trainer, local = _tp_train(cfg, fresh.state_dict(), batch, mesh41)
+        CheckpointManager(os.path.join(tmp, "ckpt"), mesh41).restore(
+            trainer, load_best=False)
+        out["restored41"] = {
+            "model": {k: v.clone() for k, v in
+                      trainer.model.state_dict().items()},
+            "optimizer": copy.deepcopy(trainer.optimizer.state_dict())}
+        out["ckpt41"] = _tp_result(trainer, local)
+        if rank < 2:
+            cfg, state, vocab, batches = jobs["eval"]
+            for mode, beam in (("greedy", 1), ("beam3", 3)):
+                model = GVDModel(cfg.replace(beam_size=beam))
+                model.load_state_dict(state)
+                shard_model(model, mesh12)
+                ev = Evaluator(model.cfg, model.eval(), vocab, mesh12)
+                # a decode before any evaluation gathers the head too
+                out["eval"][mode, "generate"] = ev.generate(
+                    _arrays(batches[0]))
+                d = os.path.join(tmp, mode)
+                stats = ev.evaluate(batches, out_dir=d)
+                if beam == 1:
+                    stats.update(ev.eval_grounding_gt(batches, out_dir=d))
+                out["eval"][mode] = stats
+    finally:
+        close_mesh(mesh22)
+    torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
+
+
+@pytest.fixture(scope="module")
+def jax_tp_case():
+    return _jax_mesh_step((2, 2))
+
+
+@pytest.fixture(scope="module")
+def tp_group(tmp_path_factory, jax_tp_case):
+    tmp = tmp_path_factory.mktemp("tp")
+    train = {}
+    for case in TP_CASES:
+        cfg = _tp_cfg(case)
+        state = GVDModel(cfg).init(
+            torch.Generator().manual_seed(5)).state_dict()
+        train[case] = (cfg, state, synthetic_batch(cfg, 4, seed=9))
+    c = jax_tp_case
+    train["jax"] = (c["cfg"], c["init"], c["batch"])
+    # one microbatch of four: a row for each rank of (4, 1)
+    cfg = _tp_cfg("odd-vocab-split-table", grad_accum=1)
+    ckpt = (cfg, GVDModel(cfg).init(
+        torch.Generator().manual_seed(6)).state_dict(),
+        synthetic_batch(cfg, 4, seed=10))
+    cfg, state, vocab, batches = _eval_job(tmp)
+    jobs = {"train": train, "ckpt": ckpt,
+            "eval": (cfg.replace(vocab_pad_to=2), state, vocab, batches)}
+    spawn(_tp_worker, TP_WORLD, (str(tmp), jobs), timeout_s=TIMEOUT_S)
+    ranks = [torch.load(tmp / f"rank{r}.pt", weights_only=False)
+             for r in range(TP_WORLD)]
+    return dict(ranks=ranks, jobs=jobs, tmp=tmp)
+
+
+@pytest.mark.parametrize("shape", ["1x2", "2x2"])
+@pytest.mark.parametrize("case", list(TP_CASES))
+def test_model_axis_step_equals_one_device(tp_group, case, shape):
+    """The step of a (1, 2) and of a (2, 2) mesh under the flagship
+    dropout rates: losses within 1e-5 relative, the gradient's norm before
+    the clip within 1e-6 relative, every gradient (the split ones gathered
+    whole) within 1e-5 of its tensor's largest |g|, parameters and
+    BatchNorm statistics within 1e-6 of one device's step on the whole
+    batch.  The head is split on every rank, the table only where its
+    rows divide; the ranks of a model group end with the same replicated
+    weights."""
+    cfg, state, batch = tp_group["jobs"]["train"][case]
+    ref = _one_device(cfg, state, batch)
+    ranks = [r["train"][case, shape] for r in tp_group["ranks"]
+             if (case, shape) in r["train"]]
+    assert len(ranks) == (2 if shape == "1x2" else 4)
+    want_split = {"logit.weight", "logit.bias"} | (
+        {"vis_embed.0.weight"} if case == "odd-vocab-split-table" else set())
+    assert set(ranks[0]["split"]) == want_split
+    assert cfg.vocab_size_padded == (52 if case.startswith("odd") else 50)
+    for got in ranks:
+        _assert_same_run(got, ref)
+        np.testing.assert_allclose(got["metrics"]["grad_norm"],
+                                   ref["metrics"]["grad_norm"],
+                                   rtol=PRE_CLIP_RTOL)
+        for n, v in got["state"].items():
+            assert torch.equal(v, ranks[0]["state"][n]), n
+
+
+def test_model_axis_step_equals_jax_mesh_step(tp_group, jax_tp_case):
+    """The (2, 2) step against the JAX jit mesh step on a (2, 2) mesh (its
+    logit split on the model axis) on the same weights and batch: losses
+    within 1e-5 relative, parameters and BatchNorm within 1e-6."""
+    _assert_equals_jax_step(tp_group["ranks"][0]["train"]["jax", "2x2"],
+                            jax_tp_case)
+
+
+def test_model_axis_checkpoint_restores_anywhere(tp_group):
+    """A checkpoint saved after a (2, 2) step holds the whole padded head
+    (52 rows) and its momentum: one device restores it exactly, every
+    rank of a (4, 1) mesh too, and one more step under (4, 1) equals one
+    more step on one device."""
+    from grounded_video_description_torch.engine.checkpoint import (
+        STATE_FILE, CheckpointManager)
+
+    cfg, _, batch = tp_group["jobs"]["ckpt"]
+    blob = torch.load(tp_group["tmp"] / "ckpt" / "model" / STATE_FILE,
+                      weights_only=True)
+    assert blob["model"]["logit.weight"].shape == (52, cfg.rnn_size)
+    model = GVDModel(cfg)
+    trainer = Trainer(cfg, model)
+    CheckpointManager(str(tp_group["tmp"] / "ckpt")).restore(
+        trainer, load_best=False)
+    assert trainer.step == 1
+    for n, v in blob["model"].items():
+        assert torch.equal(model.state_dict()[n], v), n
+    saved = blob["optimizer"]["state"]
+    assert {tuple(st["momentum_buffer"].shape) for st in saved.values()
+            } >= {(52, cfg.rnn_size), (52,), (12, cfg.att_feat_size)}
+    for r in tp_group["ranks"]:
+        got = r["restored41"]
+        for n, v in blob["model"].items():
+            assert torch.equal(got["model"][n], v), n
+        for i, st in saved.items():
+            assert torch.equal(got["optimizer"]["state"][i][
+                "momentum_buffer"], st["momentum_buffer"]), i
+    ref = _step_result(trainer, batch_to_device(cfg, batch, "cpu"), LR)
+    for r in tp_group["ranks"]:
+        _assert_same_run(r["ckpt41"], ref)
+
+
+@pytest.mark.parametrize("mode", list(EVAL_FILES))
+def test_model_axis_eval_writes_the_one_device_files(tp_group, mode):
+    """The evaluator of a (1, 2) mesh, whose model holds half of the head:
+    it gathers the whole head once per evaluation (and at a ``generate``
+    before one) and splits each batch's rows over both ranks; the
+    decode's tokens are the single-device evaluator's (its float arrays
+    within 1e-6: a rank's products run on fewer rows), its densecap and
+    grounding JSONs byte for byte, and both ranks get its scores."""
+    cfg, state, vocab, batches = tp_group["jobs"]["eval"]
+    beam = 3 if mode == "beam3" else 1
+    model = GVDModel(cfg.replace(beam_size=beam))
+    model.load_state_dict(state)
+    ev = Evaluator(model.cfg, model.eval(), vocab)
+    want = ev.generate(_arrays(batches[0]))
+    got = tp_group["ranks"][0]["eval"][mode, "generate"]
+    assert got.keys() == want.keys()
+    for k, v in want.items():
+        if v.dtype.kind == "f":
+            np.testing.assert_allclose(got[k], v, atol=1e-6, rtol=0,
+                                       err_msg=k)
+        else:
+            np.testing.assert_array_equal(got[k], v, err_msg=k)
+    assert tp_group["ranks"][1]["eval"][mode, "generate"] is None
+    d = str(tp_group["tmp"] / f"one-{mode}")
+    stats = ev.evaluate(batches, out_dir=d)
+    if beam == 1:
+        stats.update(ev.eval_grounding_gt(batches, out_dir=d))
+    for name in EVAL_FILES[mode]:
+        got = (tp_group["tmp"] / mode / name).read_bytes()
+        assert got == (Path(d) / name).read_bytes(), name
+    r0, r1 = (r["eval"][mode] for r in tp_group["ranks"][:2])
+    drop = ("captions_per_sec",)
+    assert r0 == r1
     assert ({k: v for k, v in r0.items() if k not in drop}
             == {k: v for k, v in stats.items() if k not in drop})
 
@@ -413,12 +684,11 @@ def test_row0_matches_jax_kernel_rows(kernel):
 
 @pytest.fixture(scope="module")
 def synth(tmp_path_factory):
-    from grounded_video_description_tpu import config as jconfig
-    from grounded_video_description_tpu.data.synthetic_files import (
+    from grounded_video_description_torch.data.synthetic_files import (
         write_synthetic_dataset)
 
     root = tmp_path_factory.mktemp("dpdata")
-    cfg = jconfig.tiny_test_config()
+    cfg = tconfig.tiny_test_config()
     return cfg, write_synthetic_dataset(str(root), cfg, n_train=4, n_val=4)
 
 

@@ -18,13 +18,13 @@ import torch
 from grounded_video_description_tpu import config as jconfig
 from grounded_video_description_tpu.data import transfer as jtransfer
 from grounded_video_description_tpu.data import vocab as jvocab
-from grounded_video_description_tpu.data.synthetic_files import (
-    write_synthetic_dataset)
 from grounded_video_description_tpu.models import GVDModel as JaxModel
 from grounded_video_description_torch import config as tconfig
 from grounded_video_description_torch import main as tmain
 from grounded_video_description_torch.data import transfer as ttransfer
 from grounded_video_description_torch.data import vocab as tvocab
+from grounded_video_description_torch.data.synthetic_files import (
+    write_synthetic_dataset)
 from grounded_video_description_torch.models import GVDModel
 from grounded_video_description_torch.weights import from_jax_variables
 
@@ -172,7 +172,8 @@ def transfer_data(tmp_path_factory):
     but the background)."""
     root = tmp_path_factory.mktemp("transfer")
     cfg = jconfig.tiny_test_config()
-    paths = write_synthetic_dataset(str(root), cfg, n_train=1, n_val=1)
+    paths = write_synthetic_dataset(str(root), _tcfg(cfg), n_train=1,
+                                    n_val=1)
     os.makedirs(root / "detectron_weights")
     with open(root / "vg_object_vocab.txt", "w") as f:
         f.write("\n".join(["man", "woman", "dog", "ball", "red car"]
