@@ -53,6 +53,7 @@ from grounded_video_description_torch.models.gvd import (
 from grounded_video_description_torch.parallel.mesh import (
     Mesh, broadcast_object, gather_rows, split_rows)
 from grounded_video_description_torch.parallel.tensor import whole_model
+from grounded_video_description_torch.utils.logging import span
 
 EXTERNAL_DATA = {"used": True, "details": "Object detector pre-trained on "
                  "Visual Genome on object detection task."}
@@ -126,16 +127,27 @@ class Evaluator:
         return self._sharded(self._generate, batch_arrays)
 
     def _generate(self, batch_arrays) -> Dict[str, np.ndarray]:
-        batch = batch_to_tensors(batch_arrays, self._device())
-        if self.cfg.beam_size > 1:
-            seq, lps, att2_ind, att2_frm = self.decoder.sample_beam(
-                batch, beam_size=self.cfg.beam_size)
-            return {"seq": _numpy(seq), "logprobs": _numpy(lps),
-                    "att2_ind": _numpy(att2_ind),
-                    "att2_frm_ind": _numpy(att2_frm)}
-        seq, lps, att2_w, sim = self.decoder.sample_greedy(batch)
-        return {"seq": _numpy(seq), "logprobs": _numpy(lps),
-                "att2_weights": _numpy(att2_w), "sim_mat": _numpy(sim)}
+        """One batch under the ``generate`` span: the copy in (``h2d``),
+        the model's ``encode`` and ``decode``, the copies back
+        (``d2h``)."""
+        with span("generate"):
+            with span("h2d", nbytes=lambda: sum(
+                    np.asarray(v).nbytes for k, v in batch_arrays.items()
+                    if k != "seg_id")):
+                batch = batch_to_tensors(batch_arrays, self._device())
+            if self.cfg.beam_size > 1:
+                names = ("seq", "logprobs", "att2_ind", "att2_frm_ind")
+                out = self.decoder.sample_beam(
+                    batch, beam_size=self.cfg.beam_size)
+            else:
+                names = ("seq", "logprobs", "att2_weights", "sim_mat")
+                out = self.decoder.sample_greedy(batch)
+            host: Dict[str, np.ndarray] = {}
+            with span("d2h", nbytes=lambda: sum(
+                    a.nbytes for a in host.values())):
+                for k, t in zip(names, out):
+                    host[k] = _numpy(t)
+            return host
 
     # ------------------------------------------------------------------ #
 

@@ -45,6 +45,7 @@ from grounded_video_description_torch.parallel.mesh import (
 from grounded_video_description_torch.parallel.spmd import COUNTS
 from grounded_video_description_torch.parallel.tensor import (
     shard_model, split_params)
+from grounded_video_description_torch.utils.logging import span
 
 FINETUNE_KEYS = ("ctx2pool_grd", "vis_embed")
 
@@ -112,12 +113,13 @@ def batch_to_device(cfg: GVDConfig, batch: Dict,
     with bf16 compute the two feature banks (seg_feat, ppls_feat) are cast
     to bf16 on the host, halving their transfer; the model casts them to
     bf16 on arrival anyway.  Geometry (ppls, gt_boxes) stays f32 for the
-    IoU targets."""
-    host = batch_to_tensors(batch, "cpu")
-    if cfg.dtype == "bfloat16":
-        for k in ("seg_feat", "ppls_feat"):
-            host[k] = host[k].to(torch.bfloat16)
-    return {k: v.to(device) for k, v in host.items()}
+    IoU targets.  Under the ``h2d`` span, with the bytes copied."""
+    with span("h2d", nbytes=lambda: sum(t.nbytes for t in host.values())):
+        host = batch_to_tensors(batch, "cpu")
+        if cfg.dtype == "bfloat16":
+            for k in ("seg_feat", "ppls_feat"):
+                host[k] = host[k].to(torch.bfloat16)
+        return {k: v.to(device) for k, v in host.items()}
 
 
 class Trainer:
@@ -184,45 +186,55 @@ class Trainer:
         carried from one microbatch to the next.  Returns the loss terms
         summed over the microbatches and the ranks (each the whole batch's
         value) and the global gradient norm before the clip, as 0-d
-        tensors on the device."""
+        tensors on the device.
+
+        Spans (``utils/logging.py``): the step is ``train_step``; in it
+        each microbatch's model call and total loss are ``forward`` and
+        its ``loss.backward()`` is ``backward``; the mesh reductions, the
+        clip, the optimizer's step and ``zero_grad`` are ``optimizer``."""
         cfg, model = self.cfg, self.model
         accum = cfg.grad_accum
-        sup = model.supervision(batch)
-        totals = spmd.global_counts(self.mesh, sup)
-        sup_rows = {k: v for k, v in sup.items() if k not in COUNTS}
+        with span("train_step"):
+            sup = model.supervision(batch)
+            totals = spmd.global_counts(self.mesh, sup)
+            sup_rows = {k: v for k, v in sup.items() if k not in COUNTS}
 
-        def part(t: torch.Tensor, i: int) -> torch.Tensor:
-            n = t.shape[0] // accum
-            return t[i * n:(i + 1) * n]
+            def part(t: torch.Tensor, i: int) -> torch.Tensor:
+                n = t.shape[0] // accum
+                return t[i * n:(i + 1) * n]
 
-        metrics = None
-        for i in range(accum):
-            mb = {k: part(v, i) for k, v in batch.items()}
-            losses, bn_state = model(
-                mb, mode="MLE", train=True,
-                generator=self._generator(mb["seg_feat"].shape[0]),
-                sup={k: part(v, i) for k, v in sup_rows.items()})
-            frac = spmd.renormalized(losses, totals)
-            loss = L.total_loss(
-                frac["lm_loss"], frac["att2_loss"], frac["ground_loss"],
-                frac["cls_loss"], w_att2=cfg.w_att2, w_grd=cfg.w_grd,
-                w_cls=cfg.w_cls, disable_caption=cfg.disable_caption)
-            loss.backward()
-            model.set_bn_state(bn_state)
-            step = {"loss": loss.detach(),
-                    **{k: v.detach() for k, v in frac.items()}}
-            metrics = step if metrics is None else {
-                k: metrics[k] + step[k] for k in metrics}
-        if self.mesh is not None:
-            all_reduce_grads_sum(self.mesh, self.params)
-            metrics = spmd.sum_metrics(self.mesh, metrics)
-        metrics["grad_norm"] = clip_by_global_norm(
-            self.params, cfg.grad_clip, self.split,
-            self.mesh.model_group if self.split else None)
-        for group in self.optimizer.param_groups:
-            group["lr"] = lr * group["lr_scale"]
-        self.optimizer.step()
-        self.optimizer.zero_grad(set_to_none=True)
+            metrics = None
+            for i in range(accum):
+                mb = {k: part(v, i) for k, v in batch.items()}
+                with span("forward"):
+                    losses, bn_state = model(
+                        mb, mode="MLE", train=True,
+                        generator=self._generator(mb["seg_feat"].shape[0]),
+                        sup={k: part(v, i) for k, v in sup_rows.items()})
+                    frac = spmd.renormalized(losses, totals)
+                    loss = L.total_loss(
+                        frac["lm_loss"], frac["att2_loss"],
+                        frac["ground_loss"], frac["cls_loss"],
+                        w_att2=cfg.w_att2, w_grd=cfg.w_grd, w_cls=cfg.w_cls,
+                        disable_caption=cfg.disable_caption)
+                with span("backward"):
+                    loss.backward()
+                model.set_bn_state(bn_state)
+                step = {"loss": loss.detach(),
+                        **{k: v.detach() for k, v in frac.items()}}
+                metrics = step if metrics is None else {
+                    k: metrics[k] + step[k] for k in metrics}
+            with span("optimizer"):
+                if self.mesh is not None:
+                    all_reduce_grads_sum(self.mesh, self.params)
+                    metrics = spmd.sum_metrics(self.mesh, metrics)
+                metrics["grad_norm"] = clip_by_global_norm(
+                    self.params, cfg.grad_clip, self.split,
+                    self.mesh.model_group if self.split else None)
+                for group in self.optimizer.param_groups:
+                    group["lr"] = lr * group["lr_scale"]
+                self.optimizer.step()
+                self.optimizer.zero_grad(set_to_none=True)
         self.step += 1
         return metrics
 
@@ -252,14 +264,9 @@ class Trainer:
             batch = batch_to_device(self.cfg, batch, device)
             if prof is not None:
                 prof.maybe_start(self.step)
-            if prof is not None and prof.active:
-                with torch.profiler.record_function(
-                        f"train_step {self.step}"):
-                    m = self.train_step(batch, lr)
-                    if device.type == "cuda":
-                        torch.cuda.synchronize(device)
-            else:
-                m = self.train_step(batch, lr)
+            m = self.train_step(batch, lr)
+            if prof is not None and prof.active and device.type == "cuda":
+                torch.cuda.synchronize(device)
             if prof is not None:
                 prof.maybe_stop(self.step)
             total = m if total is None else {k: total[k] + m[k]

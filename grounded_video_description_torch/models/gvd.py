@@ -74,6 +74,7 @@ from grounded_video_description_torch.parallel.mesh import (
 from grounded_video_description_torch.parallel.tensor import (
     head_logits, vis_embed_weight,
 )
+from grounded_video_description_torch.utils.logging import span
 
 
 class CoreState(NamedTuple):
@@ -208,10 +209,16 @@ class GVDModel(nn.Module):
 
     def encode(self, batch: Dict[str, torch.Tensor], *, train: bool = False,
                generator: Optional[torch.Generator] = None) -> Dict:
-        """The attention banks.  In training, dropout at every site of the
-        JAX package's encode, BatchNorm on batch statistics (the new
-        running statistics under "bn_state", None at eval), the BiRNN
-        and the obj_interact encoder on their training paths."""
+        """The attention banks, under the ``encode`` span.  In training,
+        dropout at every site of the JAX package's encode, BatchNorm on
+        batch statistics (the new running statistics under "bn_state",
+        None at eval), the BiRNN and the obj_interact encoder on their
+        training paths."""
+        with span("encode"):
+            return self._encode(batch, train, generator)
+
+    def _encode(self, batch: Dict[str, torch.Tensor], train: bool,
+                generator: Optional[torch.Generator]) -> Dict:
         cfg, dt = self.cfg, self.dtype
         segs_feat = batch["seg_feat"].to(dt)                  # (B, T, F)
         ppls = batch["ppls"].float()                          # (B, R, 7)
@@ -691,9 +698,16 @@ class GVDModel(nn.Module):
 
         With att_model "transformer" the decoder's argmax greedy decode
         over the encodings (gvd.py:799-807): seq, zero f32 logprobs, zero
-        f32 att2 (B, L, max_proposal) and sim_mat_static."""
+        f32 att2 (B, L, max_proposal) and sim_mat_static.
+
+        All after ``encode`` is the ``decode`` span."""
         cfg = self.cfg
         enc = self.encode(batch)
+        with span("decode"):
+            return self._decode_greedy(enc)
+
+    def _decode_greedy(self, enc: Dict) -> Tuple[torch.Tensor, ...]:
+        cfg = self.cfg
         pnt_mask = enc["pnt_mask"]
         if cfg.att_model == "transformer":
             seq = xf.decoder_greedy(
@@ -723,12 +737,15 @@ class GVDModel(nn.Module):
         """Batched beam search (``models/beam.py::beam_search``) over the
         banks of one encode.  Returns (seq (B, L) int32, seq_logprobs (B,
         L) f32, att2_ind (B, L) int32, att2_frm_ind (B, L,
-        num_sampled_frm) int32).  The TopDown family only."""
+        num_sampled_frm) int32).  The TopDown family only; the search is
+        the ``decode`` span."""
         if self.cfg.att_model != "topdown":
             raise ValueError("beam search decodes with the TopDown core; "
                              f"att_model {self.cfg.att_model!r} decodes "
                              "greedily")
-        return beam_search(self, self.encode(batch), beam_size=beam_size)
+        enc = self.encode(batch)
+        with span("decode"):
+            return beam_search(self, enc, beam_size=beam_size)
 
 
 def batch_to_tensors(batch: Dict, device) -> Dict[str, torch.Tensor]:

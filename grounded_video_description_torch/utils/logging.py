@@ -7,14 +7,23 @@ optional TensorBoard scalar mirror through ``torch.utils.tensorboard``
 sink is unavailable and keeps the JSONL sink, as the JAX package does),
 and ``ProfilerHooks``, a ``torch.profiler`` trace of a window of steps
 where the JAX package takes ``jax.profiler``.
+
+``span`` names the program's parts inside such a trace: a span is
+recorded exactly while a ``torch.profiler`` profile is active in the
+process (``ProfilerHooks``' window, or any other profile), and otherwise
+costs one test of the profiler's flag.  A recorded span shows in the
+profile's Chrome trace as a ``record_function`` annotation and leaves a
+``SpanRecord`` (host interval on the profiler's clock, bytes moved, and
+on a CUDA device its device interval) that ``span_records()`` returns.
 """
 
 from __future__ import annotations
 
+import collections
 import json
 import os
 import time
-from typing import Dict, List, Optional
+from typing import Callable, Deque, Dict, List, Optional, Tuple, Union
 
 import torch
 
@@ -138,3 +147,105 @@ def kernel_names(path: str) -> List[str]:
     first launch."""
     return list(dict.fromkeys(e.get("name", "")
                               for e in trace_events(path, "kernel")))
+
+
+# --------------------------------------------------------------------- #
+# spans
+# --------------------------------------------------------------------- #
+
+SPAN_RECORDS = 4096     # the buffer's bound; the oldest records go first
+
+_profiler_enabled = torch.autograd._profiler_enabled
+_records: Deque["SpanRecord"] = collections.deque(maxlen=SPAN_RECORDS)
+_open: List["SpanRecord"] = []  # the recording spans open, innermost last
+
+
+class SpanRecord:
+    """One recorded span: ``name``, the enclosing span's record
+    (``parent``, None at a root), the host interval ``t0_ns`` / ``t1_ns``
+    on ``time.time_ns()`` (the clock ``torch.profiler`` stamps its events
+    on), the bytes it moved where its caller gives them (``nbytes``), and
+    on a CUDA device the pair of events recorded on the current stream at
+    its entry and exit."""
+
+    __slots__ = ("name", "parent", "t0_ns", "t1_ns", "nbytes", "_events",
+                 "_device_ms")
+
+    def __init__(self, name: str, parent: Optional["SpanRecord"]):
+        self.name = name
+        self.parent = parent
+        self.t0_ns = self.t1_ns = 0
+        self.nbytes: Optional[int] = None
+        self._events: Optional[Tuple[torch.cuda.Event, ...]] = None
+        self._device_ms: Optional[float] = None
+
+    @property
+    def device_ms(self) -> Optional[float]:
+        """The device interval between the span's entry and exit, in ms
+        (None off a CUDA device); the first read waits for the exit
+        event."""
+        if self._events is not None:
+            start, end = self._events
+            end.synchronize()
+            self._device_ms = start.elapsed_time(end)
+            self._events = None
+        return self._device_ms
+
+
+class span:
+    """``with span(name):`` names a part of the program in a profile.
+
+    With no ``torch.profiler`` profile active, entering it tests the
+    profiler's flag and does nothing else.  While one is active it enters
+    ``torch.profiler.record_function(name)``, so that the span shows in
+    the Chrome trace; on a CUDA device it records an event pair on the
+    current stream; and at its exit it appends a ``SpanRecord`` to the
+    bounded buffer ``span_records()`` reads, its parent the innermost
+    recording span open around it.  ``nbytes``: the bytes the span moves,
+    or a function of no arguments that gives them, called at a clean exit
+    and only while recording."""
+
+    __slots__ = ("name", "nbytes", "_rec", "_annotation")
+
+    def __init__(self, name: str, *,
+                 nbytes: Union[None, int, Callable[[], int]] = None):
+        self.name = name
+        self.nbytes = nbytes
+        self._rec: Optional[SpanRecord] = None
+
+    def __enter__(self) -> "span":
+        if not _profiler_enabled():
+            return self
+        rec = SpanRecord(self.name, _open[-1] if _open else None)
+        self._annotation = torch.profiler.record_function(self.name)
+        self._annotation.__enter__()
+        if torch.cuda.is_initialized():
+            rec._events = (torch.cuda.Event(enable_timing=True),
+                           torch.cuda.Event(enable_timing=True))
+            rec._events[0].record()
+        _open.append(rec)
+        self._rec = rec
+        rec.t0_ns = time.time_ns()
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> bool:
+        rec = self._rec
+        if rec is None:
+            return False
+        rec.t1_ns = time.time_ns()
+        if rec._events is not None:
+            rec._events[1].record()
+        self._rec = None
+        _open.pop()
+        if exc_type is None:
+            n = self.nbytes
+            rec.nbytes = n() if callable(n) else n
+        self._annotation.__exit__(exc_type, exc, tb)
+        _records.append(rec)
+        return False
+
+
+def span_records() -> List[SpanRecord]:
+    """The recorded spans still in the buffer, oldest first (the program
+    never clears it)."""
+    return list(_records)

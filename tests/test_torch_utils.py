@@ -9,14 +9,20 @@ against its JAX counterpart:
   arrays and dtypes exact, forward outputs within 1e-6), and a missing
   key or a shape that differs raises as in tests/test_params_io.py;
 - ``utils/logging.py::ProfilerHooks``: ``Trainer.fit_epoch`` under
-  ``profile_dir`` traces steps 2-4 and no other; a CUDA trace without
-  kernels raises;
+  ``profile_dir`` traces steps 2-4 and no other, with their spans; a
+  CUDA trace without kernels raises;
+- ``utils/logging.py::span``: with no profiler, ``generate`` and
+  ``train_step`` record nothing and enter no ``record_function``; under
+  one, each records its span tree, the bytes copied each way and host
+  intervals inside the profile;
 - ``tools/rehearsal.py --smoke``: two driver phases on one checkpoint
   directory, the resume, the four evaluation JSONs and the report."""
 
+import collections
 import dataclasses
 import json
 import os
+import time
 
 import h5py
 import jax
@@ -32,12 +38,15 @@ from grounded_video_description_tpu.utils import params_io as jio
 from grounded_video_description_torch import config as tconfig
 from grounded_video_description_torch.data import synthetic_files as tsf
 from grounded_video_description_torch.data.synthetic import synthetic_batch
-from grounded_video_description_torch.engine.trainer import Trainer
+from grounded_video_description_torch.engine.evaluator import Evaluator
+from grounded_video_description_torch.engine.trainer import (
+    Trainer, batch_to_device)
 from grounded_video_description_torch.models import (
     GVDModel, batch_to_tensors)
 from grounded_video_description_torch.utils import params_io as tio
+from grounded_video_description_torch.utils import logging as tlog
 from grounded_video_description_torch.utils.logging import (
-    ProfilerHooks, trace_events)
+    ProfilerHooks, span_records, trace_events)
 from grounded_video_description_torch.weights import (
     from_jax_variables, to_jax_variables)
 
@@ -201,9 +210,11 @@ def test_params_io_missing_and_mismatched_keys(tmp_path):
 
 def test_profile_dir_traces_steps_two_to_four(tmp_path):
     """``profile_dir`` on the CPU: six steps of one epoch, a Chrome trace
-    whose train-step spans are those of steps 2, 3 and 4 (the window of
-    JAX trainer.py:342-346) and no other; the hooks open and close only at
-    their window's ends."""
+    of steps 2, 3 and 4 (the window of JAX trainer.py:342-346) whose
+    annotations are those three steps' spans and no other step's: three
+    ``train_step``, each microbatch's ``forward`` and ``backward``, one
+    ``optimizer`` a step; the hooks open and close only at their
+    window's ends."""
     cfg = tconfig.tiny_test_config(profile_dir=str(tmp_path / "prof"))
     model = GVDModel(cfg).init(torch.Generator().manual_seed(1))
     trainer = Trainer(cfg, model)
@@ -211,10 +222,13 @@ def test_profile_dir_traces_steps_two_to_four(tmp_path):
     trainer.fit_epoch(batches, 0)
     prof = trainer.profiler
     assert prof.path and os.path.dirname(prof.path) == cfg.profile_dir
-    spans = sorted(e["name"] for e in trace_events(prof.path,
-                                                   "user_annotation")
-                   if e["name"].startswith("train_step"))
-    assert spans == ["train_step 2", "train_step 3", "train_step 4"]
+    assert os.path.basename(prof.path) == "trace_steps_2-4.json"
+    names = collections.Counter(e["name"] for e in trace_events(
+        prof.path, "user_annotation"))
+    assert {k: names[k] for k in ("train_step", "forward", "backward",
+                                  "optimizer", "encode")} == {
+        "train_step": 3, "forward": 3, "backward": 3, "optimizer": 3,
+        "encode": 3}
     hooks = ProfilerHooks(str(tmp_path / "h"), start_step=3, num_steps=2)
     opened = []
     for step in range(7):
@@ -231,6 +245,89 @@ def test_profile_of_a_cuda_device_without_kernels_raises(tmp_path):
     torch.ones(4).sum()
     with pytest.raises(RuntimeError, match="no CUDA kernel"):
         hooks.maybe_stop(1)
+
+
+# --------------------------------------------------------------------- #
+# spans
+# --------------------------------------------------------------------- #
+
+SERVE_TREE = [("d2h", "generate"), ("decode", "generate"),
+              ("encode", "generate"), ("generate", None),
+              ("h2d", "generate")]
+TRAIN_TREE = sorted([("h2d", None), ("train_step", None),
+                     ("optimizer", "train_step")]
+                    + [("forward", "train_step"), ("encode", "forward"),
+                       ("backward", "train_step")] * 2)
+
+
+def _span_call(kind):
+    """One call of ``kind`` at the tiny widths: a function that runs it
+    and returns (the host arrays copied in, the host arrays returned)."""
+    over = {"greedy": {}, "beam2": {"beam_size": 2},
+            "transformer": {"att_model": "transformer"},
+            "train": {"grad_accum": 2, "batch_size": 4}}[kind]
+    cfg = tconfig.tiny_test_config(**over)
+    model = GVDModel(cfg).init(torch.Generator().manual_seed(1))
+    batch = synthetic_batch(cfg, cfg.batch_size, seed=3)
+    arrays = {k: v for k, v in batch.items() if k != "seg_id"}
+    if kind == "train":
+        trainer = Trainer(cfg, model.train())
+
+        def call():
+            trainer.train_step(batch_to_device(cfg, batch, "cpu"),
+                               cfg.learning_rate)
+            return arrays, None
+    else:
+        ev = Evaluator(cfg, model.eval(), vocab=None)
+
+        def call():
+            return arrays, ev.generate(batch)
+    return call
+
+
+@pytest.mark.parametrize("kind", ["greedy", "beam2", "transformer",
+                                  "train"])
+def test_spans_are_recorded_under_a_profiler_alone(kind, monkeypatch):
+    """(a) With no profiler a call records nothing and enters no
+    ``record_function``; (b) under a CPU profile it records the span tree
+    of its entry (serving: ``generate`` holding ``h2d``, ``encode``,
+    ``decode`` and ``d2h``; training at two microbatches: ``h2d`` and
+    ``train_step`` holding two ``forward`` (each holding ``encode``), two
+    ``backward`` and one ``optimizer``), one ``record_function`` a span;
+    (c) ``h2d`` counts the host arrays' bytes, ``d2h`` the returned
+    arrays'; (d) each span's host interval lies within the clock's
+    bounds around the profile, and within its parent's."""
+    monkeypatch.setattr(tlog, "_records", collections.deque(maxlen=64))
+    entered = []
+    annotate = torch.profiler.record_function
+
+    def counted(name):
+        entered.append(name)
+        return annotate(name)
+    monkeypatch.setattr(torch.profiler, "record_function", counted)
+    call = _span_call(kind)
+    call()
+    assert span_records() == [] and entered == []
+
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU]):
+        t0 = time.time_ns()
+        arrays, out = call()
+        t1 = time.time_ns()
+    recs = span_records()
+    tree = sorted((r.name, r.parent and r.parent.name) for r in recs)
+    assert tree == (TRAIN_TREE if kind == "train" else SERVE_TREE)
+    assert sorted(entered) == sorted(r.name for r in recs)
+    nbytes = {r.name: r.nbytes for r in recs}
+    assert nbytes["h2d"] == sum(np.asarray(v).nbytes
+                                for v in arrays.values())
+    if out is not None:
+        assert nbytes["d2h"] == sum(a.nbytes for a in out.values())
+    for r in recs:
+        assert t0 <= r.t0_ns <= r.t1_ns <= t1
+        if r.parent is not None:
+            assert r.parent.t0_ns <= r.t0_ns <= r.t1_ns <= r.parent.t1_ns
+        assert r.device_ms is None
 
 
 # --------------------------------------------------------------------- #
