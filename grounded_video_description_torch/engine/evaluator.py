@@ -47,6 +47,7 @@ import numpy as np
 import torch
 
 from grounded_video_description_torch.config import GVDConfig
+from grounded_video_description_torch.data import staging
 from grounded_video_description_torch.data.vocab import decode_sequence
 from grounded_video_description_torch.models.gvd import (
     GVDModel, batch_to_tensors)
@@ -71,13 +72,6 @@ def grounding_eval_cfg(cfg: GVDConfig) -> GVDConfig:
             and (cfg.eval_obj_grounding or cfg.eval_obj_grounding_gt)):
         return cfg.replace(use_pallas_encoder=False)
     return cfg
-
-
-def _numpy(t: torch.Tensor) -> np.ndarray:
-    """A host copy; bf16 becomes f32, which keeps every value and
-    argmax."""
-    t = t.detach()
-    return (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
 
 
 class Evaluator:
@@ -128,13 +122,14 @@ class Evaluator:
 
     def _generate(self, batch_arrays) -> Dict[str, np.ndarray]:
         """One batch under the ``generate`` span: the copy in (``h2d``),
-        the model's ``encode`` and ``decode``, the copies back
-        (``d2h``)."""
+        the model's ``encode`` and ``decode``, the copies back (``d2h``).
+        On a CUDA device both copies go through the device's pinned
+        staging ring (``data/staging.py``): in, chunked DMAs into views of
+        one device buffer, each overlapping the host's staging of the
+        next; back, chunked DMAs into the ring, each copied out into
+        fresh host arrays (bf16 as f32) while the next is in flight."""
         with span("generate"):
-            with span("h2d", nbytes=lambda: sum(
-                    np.asarray(v).nbytes for k, v in batch_arrays.items()
-                    if k != "seg_id")):
-                batch = batch_to_tensors(batch_arrays, self._device())
+            batch = self._to_device(batch_arrays)
             if self.cfg.beam_size > 1:
                 names = ("seq", "logprobs", "att2_ind", "att2_frm_ind")
                 out = self.decoder.sample_beam(
@@ -142,12 +137,27 @@ class Evaluator:
             else:
                 names = ("seq", "logprobs", "att2_weights", "sim_mat")
                 out = self.decoder.sample_greedy(batch)
-            host: Dict[str, np.ndarray] = {}
-            with span("d2h", nbytes=lambda: sum(
-                    a.nbytes for a in host.values())):
-                for k, t in zip(names, out):
-                    host[k] = _numpy(t)
-            return host
+            return self._to_host(names, out)
+
+    def _to_device(self, arrays) -> Dict[str, torch.Tensor]:
+        """``batch_to_tensors`` to the model's device, under the ``h2d``
+        span with the host arrays' bytes."""
+        with span("h2d", nbytes=lambda: sum(
+                np.asarray(v).nbytes for k, v in arrays.items()
+                if k != "seg_id")):
+            return batch_to_tensors(arrays, self._device())
+
+    @staticmethod
+    def _to_host(names, tensors) -> Dict[str, np.ndarray]:
+        """``tensors`` as host arrays by ``names`` (bf16 as f32, which
+        keeps every value and argmax), under the ``d2h`` span with their
+        bytes."""
+        host: Dict[str, np.ndarray] = {}
+        with span("d2h", nbytes=lambda: sum(
+                a.nbytes for a in host.values())):
+            host.update(zip(names, staging.to_host(
+                [t for _, t in zip(names, tensors)])))
+        return host
 
     # ------------------------------------------------------------------ #
 
@@ -410,10 +420,9 @@ class Evaluator:
         return self._sharded(self._grounding, batch_arrays)
 
     def _grounding(self, arrays) -> Dict[str, np.ndarray]:
-        out = self.decoder.forward(
-            batch_to_tensors(arrays, self._device()), mode="GRD")
-        return {k: _numpy(out[k]) for k in ("att2_ind", "grd_ind",
-                                            "sim_target", "pred_cls")}
+        out = self.decoder.forward(self._to_device(arrays), mode="GRD")
+        names = ("att2_ind", "grd_ind", "sim_target", "pred_cls")
+        return self._to_host(names, [out[k] for k in names])
 
     def _grounding_stats(self, att2_output, grd_output, cls_pairs,
                          vocab_in_split, out_dir: str) -> Dict[str, float]:

@@ -113,13 +113,16 @@ def batch_to_device(cfg: GVDConfig, batch: Dict,
     with bf16 compute the two feature banks (seg_feat, ppls_feat) are cast
     to bf16 on the host, halving their transfer; the model casts them to
     bf16 on arrival anyway.  Geometry (ppls, gt_boxes) stays f32 for the
-    IoU targets.  Under the ``h2d`` span, with the bytes copied."""
-    with span("h2d", nbytes=lambda: sum(t.nbytes for t in host.values())):
-        host = batch_to_tensors(batch, "cpu")
-        if cfg.dtype == "bfloat16":
-            for k in ("seg_feat", "ppls_feat"):
-                host[k] = host[k].to(torch.bfloat16)
-        return {k: v.to(device) for k, v in host.items()}
+    IoU targets.  To a CUDA device the batch goes through the device's
+    pinned staging ring and the cast happens in its staging copy (rounding
+    as ``Tensor.to``); to the CPU it takes ``Tensor.to``.  Under the
+    ``h2d`` span, with the bytes copied (as they arrive)."""
+    cast = ({k: torch.bfloat16 for k in ("seg_feat", "ppls_feat")}
+            if cfg.dtype == "bfloat16" else None)
+    with span("h2d", nbytes=lambda: sum(
+            t.nbytes for t in out.values())):
+        out = batch_to_tensors(batch, device, cast)
+        return out
 
 
 class Trainer:

@@ -48,6 +48,7 @@ from torch import nn
 
 from grounded_video_description_torch import losses as L
 from grounded_video_description_torch.config import GVDConfig
+from grounded_video_description_torch.data import staging
 from grounded_video_description_torch.models import transformer as xf
 from grounded_video_description_torch.models.beam import beam_search
 from grounded_video_description_torch.nn import (
@@ -748,8 +749,17 @@ class GVDModel(nn.Module):
             return beam_search(self, enc, beam_size=beam_size)
 
 
-def batch_to_tensors(batch: Dict, device) -> Dict[str, torch.Tensor]:
+def batch_to_tensors(batch: Dict, device,
+                     dtypes: Optional[Dict[str, torch.dtype]] = None
+                     ) -> Dict[str, torch.Tensor]:
     """A numpy batch of ``data.synthetic_batch`` / the dataset as tensors
-    on ``device`` (the string ``seg_id`` column is dropped)."""
-    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
-            for k, v in batch.items() if k != "seg_id"}
+    on ``device`` (the string ``seg_id`` column is dropped), each cast to
+    its entry of ``dtypes`` where it has one.  To a CUDA device the batch
+    goes through the device's pinned staging ring
+    (``data/staging.py``): views of one device buffer, filled by chunked
+    DMAs that overlap the host's staging of the next chunk, ordered before
+    the kernels queued after them on the current stream.  To the CPU it
+    takes ``Tensor.to``."""
+    return staging.to_device(
+        {k: torch.from_numpy(np.ascontiguousarray(v))
+         for k, v in batch.items() if k != "seg_id"}, device, dtypes)

@@ -15,6 +15,9 @@ costs one test of the profiler's flag.  A recorded span shows in the
 profile's Chrome trace as a ``record_function`` annotation and leaves a
 ``SpanRecord`` (host interval on the profiler's clock, bytes moved, and
 on a CUDA device its device interval) that ``span_records()`` returns.
+``span_count`` adds to the counts of the innermost span recording: the
+bytes a copy moved through the staging ring and the times it waited for
+a slot (``data/staging.py``).
 """
 
 from __future__ import annotations
@@ -164,18 +167,23 @@ class SpanRecord:
     """One recorded span: ``name``, the enclosing span's record
     (``parent``, None at a root), the host interval ``t0_ns`` / ``t1_ns``
     on ``time.time_ns()`` (the clock ``torch.profiler`` stamps its events
-    on), the bytes it moved where its caller gives them (``nbytes``), and
-    on a CUDA device the pair of events recorded on the current stream at
-    its entry and exit."""
+    on), the bytes it moved where its caller gives them (``nbytes``), of
+    those the bytes that went through the staging ring
+    (``staged_nbytes``) and the times the host found a ring slot still in
+    flight (``ring_waits``), both summed by ``span_count``, and on a CUDA
+    device the pair of events recorded on the current stream at its entry
+    and exit."""
 
-    __slots__ = ("name", "parent", "t0_ns", "t1_ns", "nbytes", "_events",
-                 "_device_ms")
+    __slots__ = ("name", "parent", "t0_ns", "t1_ns", "nbytes",
+                 "staged_nbytes", "ring_waits", "_events", "_device_ms")
 
     def __init__(self, name: str, parent: Optional["SpanRecord"]):
         self.name = name
         self.parent = parent
         self.t0_ns = self.t1_ns = 0
         self.nbytes: Optional[int] = None
+        self.staged_nbytes = 0
+        self.ring_waits = 0
         self._events: Optional[Tuple[torch.cuda.Event, ...]] = None
         self._device_ms: Optional[float] = None
 
@@ -243,6 +251,15 @@ class span:
         self._annotation.__exit__(exc_type, exc, tb)
         _records.append(rec)
         return False
+
+
+def span_count(staged_nbytes: int = 0, ring_waits: int = 0):
+    """Adds ``staged_nbytes`` and ``ring_waits`` to the innermost span
+    that is recording (nothing where none is)."""
+    if _open:
+        rec = _open[-1]
+        rec.staged_nbytes += staged_nbytes
+        rec.ring_waits += ring_waits
 
 
 def span_records() -> List[SpanRecord]:

@@ -2,8 +2,9 @@
 plain PyTorch version, at small unaligned shapes, f32 and bf16 (K4 also
 its gradients, and at the flagship's uneven heads; K6 on a tiny model of
 the flagship's shape, and its bf16 first step against its twin's
-rounding); the transformer family's greedy decode through K1 and K2, and
-greedy decoding over int8 banks.
+rounding); the transformer family's greedy decode through K1 and K2,
+greedy decoding over int8 banks, and the pinned staging ring's copies
+against the pageable path they replaced.
 
 The machine with the card has no JAX, so this file imports none, and is
 run there without the repository's conftest (which imports JAX):
@@ -950,3 +951,112 @@ def test_birnn_plan_is_asked_per_device(dev):
         ref = birnn_recurrence_plain(gi, wh, bh, mode="bigru", hidden=40)
         torch.cuda.synchronize(d1)
     assert _within(got, ref, torch.float32)
+
+
+# ------------------------------------------------------------------ #
+# the pinned staging ring (data/staging.py)
+# ------------------------------------------------------------------ #
+
+def _pageable_generate(ev, arrays):
+    """``Evaluator._generate`` as it was before the ring: pageable copies
+    in, ``.cpu()`` back (bf16 as f32)."""
+    dev = ev._device()
+    batch = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+             for k, v in arrays.items() if k != "seg_id"}
+    if ev.cfg.beam_size > 1:
+        names = ("seq", "logprobs", "att2_ind", "att2_frm_ind")
+        out = ev.decoder.sample_beam(batch, beam_size=ev.cfg.beam_size)
+    else:
+        names = ("seq", "logprobs", "att2_weights", "sim_mat")
+        out = ev.decoder.sample_greedy(batch)
+    return {k: (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
+            for k, t in zip(names, out)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("beam", [1, 3])
+def test_generate_through_the_ring_equals_the_pageable_path(dev, beam):
+    """``Evaluator.generate`` at B = 5 (greedy with every kernel, beam 3
+    on the peaked weights): every array bitwise the pageable path's, with
+    its dtype and shape, and the caller's (a second call changes none)."""
+    from grounded_video_description_torch.engine.evaluator import Evaluator
+    cfg = tiny_test_config(obj_interact=True, num_prop_per_frm=75,
+                           use_pallas=True, use_pallas_decode=True,
+                           beam_size=beam)
+    model = (_peaked_beam_model(cfg, dev) if beam > 1 else
+             GVDModel(cfg).init(torch.Generator().manual_seed(4))
+             .to(dev).eval())
+    ev = Evaluator(cfg, model, vocab=None)
+    arrays = synthetic_batch(cfg, 5, seed=8)
+    got = ev.generate(arrays)
+    want = _pageable_generate(ev, arrays)
+    assert list(got) == list(want)
+    for k in want:
+        assert got[k].dtype == want[k].dtype, k
+        assert got[k].shape == want[k].shape, k
+        assert got[k].tobytes() == want[k].tobytes(), k
+    keep = {k: v.copy() for k, v in got.items()}
+    ev.generate(synthetic_batch(cfg, 5, seed=9))
+    assert all(np.array_equal(got[k], keep[k]) for k in keep)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_batch_to_device_through_the_ring_equals_the_pageable_path(dev,
+                                                                  dtype):
+    """``batch_to_device`` (bf16: the banks cast in the staging copy)
+    against the host cast and pageable copy it replaced, bitwise; and a
+    batch of several slots, cut inside rows and across arrays."""
+    from grounded_video_description_torch.data import staging
+    from grounded_video_description_torch.engine.trainer import (
+        batch_to_device)
+    cfg = tiny_test_config(dtype=str(dtype).replace("torch.", ""))
+    batch = synthetic_batch(cfg, 6, seed=3)
+    got = batch_to_device(cfg, batch, dev)
+    for k, v in batch.items():
+        if k == "seg_id":
+            continue
+        want = torch.from_numpy(v)
+        if k in ("seg_feat", "ppls_feat"):
+            want = want.to(dtype)
+        assert got[k].device.type == "cuda" and got[k].dtype == want.dtype
+        assert got[k].shape == want.shape, k
+        assert torch.equal(got[k].cpu().view(torch.uint8),
+                           want.view(torch.uint8)), k
+    ring = staging.ring(dev)
+    rng = np.random.default_rng(5)
+    n = ring.slot_bytes // 4
+    big = {"a": rng.standard_normal((3, n // 3 + 7), dtype=np.float32),
+           "b": rng.integers(-9, 9, (n // 5 + 3, 2)),
+           "c": rng.random((7, n // 7 + 1)) > 0.5,
+           "d": rng.standard_normal(n + 5, dtype=np.float32)}
+    moved = batch_to_tensors(big, dev, {"d": dtype})
+    for k, v in big.items():
+        want = torch.from_numpy(v).to(moved[k].dtype)
+        assert torch.equal(moved[k].cpu(), want), k
+
+
+@pytest.mark.cuda
+def test_the_ring_copies_are_pinned_dmas(dev):
+    """A profiled ``generate``: its copies in are ``Memcpy HtoD (Pinned ->
+    Device)`` and its copies back ``Memcpy DtoH (Device -> Pinned)``, and
+    the ``h2d`` and ``d2h`` spans staged every byte."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from grounded_video_description_torch.engine.evaluator import Evaluator
+    from grounded_video_description_torch.utils.logging import span_records
+    cfg = tiny_test_config()
+    model = GVDModel(cfg).init(torch.Generator().manual_seed(4)).to(dev)
+    ev = Evaluator(cfg, model.eval(), vocab=None)
+    arrays = synthetic_batch(cfg, 4, seed=2)
+    ev.generate(arrays)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        ev.generate(arrays)
+        torch.cuda.synchronize()
+    names = {e.name() for e in prof.profiler.kineto_results.events()}
+    assert "Memcpy HtoD (Pinned -> Device)" in names
+    assert "Memcpy DtoH (Device -> Pinned)" in names
+    recs = {r.name: r for r in span_records()[-6:]}
+    for name in ("h2d", "d2h"):
+        assert recs[name].nbytes > 0
+        assert recs[name].staged_nbytes == recs[name].nbytes
