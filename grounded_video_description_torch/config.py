@@ -31,7 +31,11 @@ loop, checkpointing, logging, ``profile_dir``), and of its device mesh
 (``mesh_shape`` [D] or [D, M], ``coordinator_address``,
 ``num_processes``, ``process_id``).
 ``from_cli`` parses flags named after these fields, so a JAX flag the
-port does not read is an argparse error.
+port does not read is an argparse error.  The port's own captioner,
+``att_model`` "lm" (``models/lm.py``), takes ``GVDLMConfig``: these
+fields and ``lm``, its language model's block, which ``--lm`` reads from
+a JSON file; ``GVDConfig`` itself stays field for field the JAX
+package's.
 """
 
 from __future__ import annotations
@@ -39,7 +43,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 from dataclasses import dataclass, field
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 
 @dataclass
@@ -70,7 +74,7 @@ class GVDConfig:
     loc_encoding_size: int = 300
     seg_info_size: int = 50
 
-    att_model: str = "topdown"          # topdown | transformer
+    att_model: str = "topdown"          # topdown | transformer | lm
     att_input_mode: str = "both"        # both | featmap | region | dual_region
     t_attn_mode: str = "bigru"          # bilstm | bigru
     transfer_mode: str = "cls"          # none | cls | glove | both
@@ -212,8 +216,14 @@ class GVDConfig:
     def validate(self) -> "GVDConfig":
         if self.enable_BUTD and self.att_input_mode != "region":
             raise ValueError("region attention only under the BUTD mode")
-        if self.att_model not in ("topdown", "transformer"):
+        if self.att_model not in ("topdown", "transformer", "lm"):
             raise ValueError(f"unknown att_model {self.att_model!r}")
+        if (self.att_model == "lm") != (getattr(self, "lm", None)
+                                        is not None):
+            raise ValueError("att_model lm takes an lm block "
+                             "(GVDLMConfig), and only it")
+        if self.att_model == "lm":
+            self._validate_lm()
         # two pairs the JAX package accepts and then mishandles: its
         # transformer greedy decode reads a quantized bank's shape, and its
         # beam search decodes with the untrained TopDown core
@@ -265,6 +275,25 @@ class GVDConfig:
                              f"{self.num_processes} processes")
         return self
 
+    def _validate_lm(self) -> None:
+        from grounded_video_description_torch.models.lm import LMShape
+        shape = LMShape.of(self.lm)
+        if self.vocab_size != shape.vocab:
+            raise ValueError(f"att_model lm captions in the LM's vocabulary: "
+                             f"vocab_size {self.vocab_size} != "
+                             f"{shape.vocab}")
+        if self.beam_size > 1:
+            raise ValueError("att_model lm decodes greedily only "
+                             "(beam_size 1)")
+        if self.quantize_banks:
+            raise ValueError("att_model lm does not take quantize_banks: "
+                             "its projector reads the unquantized "
+                             "encodings")
+        if self.mesh_shape is not None and len(self.mesh_shape) > 1 \
+                and self.mesh_shape[1] > 1:
+            raise ValueError("att_model lm takes no model axis: its vocab "
+                             "head is not split")
+
     def replace(self, **kw) -> "GVDConfig":
         return dataclasses.replace(self, **kw)
 
@@ -297,6 +326,11 @@ class GVDConfig:
                                     default=None)
             elif f.name in ("densecap_references", "mesh_shape"):
                 parser.add_argument(name, type=str, nargs="+", default=None)
+            elif f.name == "lm":
+                parser.add_argument(name, type=_lm_block, default=None,
+                                    metavar="JSON",
+                                    help="a JSON file: the LM block, or a "
+                                         "configuration holding it as 'lm'")
             else:
                 typ = {"int": int, "float": float}.get(f.type, str)
                 parser.add_argument(name, type=typ, default=None)
@@ -310,6 +344,25 @@ class GVDConfig:
         cfg = cfg.replace(test_mode=cfg.val_split in ("testing",
                                                       "hidden_test"))
         return cfg.validate()
+
+
+@dataclass
+class GVDLMConfig(GVDConfig):
+    """The config of ``att_model`` "lm": ``GVDConfig``'s fields and the
+    language model's block (``models/lm.py``: the published config.json
+    keys of a DeepSeek-V3 LM, the projector's ``projector_hidden_size``,
+    ``start_id`` and ``torch_dtype``)."""
+    lm: Optional[Dict] = None
+
+
+def _lm_block(path: str) -> Dict:
+    """The LM block of ``--lm``'s JSON file: the file itself, or its
+    ``lm`` key (a benchmark configuration file)."""
+    import json
+
+    with open(path) as f:
+        raw = json.load(f)
+    return raw.get("lm", raw)
 
 
 def tiny_test_config(**overrides) -> GVDConfig:
@@ -339,4 +392,5 @@ def tiny_test_config(**overrides) -> GVDConfig:
         enc_drop=0.0,
     )
     base.update(overrides)
-    return GVDConfig(**base).validate()
+    cls = GVDLMConfig if "lm" in overrides else GVDConfig
+    return cls(**base).validate()

@@ -19,7 +19,9 @@ nothing to jit); ``beam_size > 1`` takes ``GVDModel.sample_beam``, whose
 per-frame argmaxes of the best beam ground the generated words.  The
 transformer family's greedy decode returns zero region logits, so its
 generated words ground on proposal 0 of each frame, as in the JAX
-evaluator.  The model
+evaluator; so do the language-model captioner's (``att_model`` "lm"),
+whose ``seq`` holds ids of its own vocabulary (up to 163839 at the
+published size) in the same int32 arrays.  The model
 holds its weights, so unlike the JAX evaluator no ``variables`` are
 passed.  Under ``vis_attn`` the greedy decode's attention is drawn over
 the frames under ``image_path`` (``utils/visualize.py``).

@@ -194,7 +194,9 @@ class Trainer:
         Spans (``utils/logging.py``): the step is ``train_step``; in it
         each microbatch's model call and total loss are ``forward`` and
         its ``loss.backward()`` is ``backward``; the mesh reductions, the
-        clip, the optimizer's step and ``zero_grad`` are ``optimizer``."""
+        clip, the optimizer's step and ``zero_grad`` are ``optimizer``, and
+        in it the gradients' sum over the mesh is ``allreduce`` (with the
+        gradients' bytes)."""
         cfg, model = self.cfg, self.model
         accum = cfg.grad_accum
         with span("train_step"):
@@ -229,7 +231,10 @@ class Trainer:
                     k: metrics[k] + step[k] for k in metrics}
             with span("optimizer"):
                 if self.mesh is not None:
-                    all_reduce_grads_sum(self.mesh, self.params)
+                    with span("allreduce", nbytes=lambda: sum(
+                            p.grad.nbytes for p in self.params
+                            if p.grad is not None)):
+                        all_reduce_grads_sum(self.mesh, self.params)
                     metrics = spmd.sum_metrics(self.mesh, metrics)
                 metrics["grad_norm"] = clip_by_global_norm(
                     self.params, cfg.grad_clip, self.split,

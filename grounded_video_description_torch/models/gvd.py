@@ -9,8 +9,13 @@ forward (model.py:283-489), greedy UNK-suppressed sampling
 misc/CaptionModelBU.py).  With ``att_model`` "transformer" the caption
 model is the Masked-Transformer decoder of ``models/transformer.py``
 (model.py:411-419, 570-578): its LM loss alone in training, its argmax
-greedy decode at inference, over the same encode.  ``quantize_banks``
-decodes greedily over int8 attention banks (``ops/quantize.py``).
+greedy decode at inference, over the same encode.  With ``att_model``
+"lm" it is the language model of ``models/lm.py`` (its ``lm`` block):
+the frame and region encodings through its projector as visual tokens,
+a prefill and greedy steps through its latent cache; it has no TopDown
+core, word embedding or logit head, and no training forward.
+``quantize_banks`` decodes greedily over int8 attention banks
+(``ops/quantize.py``).
 
 Parameters are float32 and named after the reference state dict, so
 ``engine/checkpoint.py::import_torch_checkpoint`` of the JAX package
@@ -49,6 +54,7 @@ from torch import nn
 from grounded_video_description_torch import losses as L
 from grounded_video_description_torch.config import GVDConfig
 from grounded_video_description_torch.data import staging
+from grounded_video_description_torch.models import lm as lm_model
 from grounded_video_description_torch.models import transformer as xf
 from grounded_video_description_torch.models.beam import beam_search
 from grounded_video_description_torch.nn import (
@@ -137,9 +143,11 @@ class GVDModel(nn.Module):
         self.dtype = (torch.bfloat16 if cfg.dtype == "bfloat16"
                       else torch.float32)
         rnn = cfg.rnn_size
+        captioner = cfg.att_model != "lm"
         self.loc_fc = _seq(nn.Linear(5, cfg.loc_encoding_size))
-        self.embed = _seq(nn.Embedding(cfg.vocab_size,
-                                       cfg.input_encoding_size))
+        if captioner:
+            self.embed = _seq(nn.Embedding(cfg.vocab_size,
+                                           cfg.input_encoding_size))
         self.vis_embed = _seq(nn.Embedding(cfg.detect_size + 1,
                                            cfg.vis_encoding_size))
         self.fc_embed = _seq(nn.Linear(cfg.fc_feat_size_full, rnn))
@@ -152,7 +160,8 @@ class GVDModel(nn.Module):
         self.ctx2att = nn.Linear(rnn, cfg.att_hid_size)
         self.ctx2pool = nn.Linear(rnn, cfg.att_hid_size)
         # logit width padded to vocab_pad_to (pad columns masked)
-        self.logit = nn.Linear(rnn, cfg.vocab_size_padded)
+        if captioner:
+            self.logit = nn.Linear(rnn, cfg.vocab_size_padded)
         self.ctx2pool_grd = _seq(nn.Linear(cfg.att_feat_size,
                                            cfg.vis_encoding_size))
         self.context_enc = BiRNNParams(rnn, rnn // 2, 2, cfg.t_attn_mode)
@@ -165,7 +174,8 @@ class GVDModel(nn.Module):
         if cfg.transfer_mode in ("cls", "both"):
             self.vis_classifiers_bias = nn.Parameter(
                 torch.zeros(cfg.detect_size + 1))
-        self.core = TopDownCore(cfg)
+        if captioner:
+            self.core = TopDownCore(cfg)
         if cfg.obj_interact:
             # 2 layers, 6 heads, d_hidden = rnn/2 (model.py:126-135)
             self.obj_interact = xf.ObjInteract(rnn, rnn // 2, 2)
@@ -173,6 +183,10 @@ class GVDModel(nn.Module):
             # 2 layers, 6 heads, d_hidden = rnn/2 (gvd.py:152-154)
             self.cap_model = xf.CaptionModel(rnn, rnn // 2, cfg.vocab_size,
                                              2)
+        elif cfg.att_model == "lm":
+            # 16 B parameters at the published size: build the model on
+            # the meta device and load with ``assign=True``
+            self.cap_model = lm_model.LanguageModel(cfg.lm, rnn)
 
     # ------------------------------------------------------------------ #
     # init: the JAX package's distributions, from an explicit generator
@@ -192,6 +206,8 @@ class GVDModel(nn.Module):
         if hasattr(self, "vis_classifiers_bias"):
             with torch.no_grad():
                 self.vis_classifiers_bias.zero_()
+        if self.cfg.att_model == "lm":
+            self.cap_model.reset_parameters(generator)
         return self
 
     def set_bn_state(self, state: Optional[Dict[str, torch.Tensor]]):
@@ -558,6 +574,9 @@ class GVDModel(nn.Module):
         through the TopDown core's attention, raises."""
         if mode not in ("MLE", "GRD"):
             raise ValueError(f"unknown mode {mode!r}")
+        if self.cfg.att_model == "lm":
+            raise ValueError("att_model lm captions at inference only: it "
+                             "has no training or grounding forward")
         if self.cfg.att_model == "transformer":
             if mode == "GRD":
                 raise ValueError("mode GRD grounds through the TopDown "
@@ -699,7 +718,11 @@ class GVDModel(nn.Module):
 
         With att_model "transformer" the decoder's argmax greedy decode
         over the encodings (gvd.py:799-807): seq, zero f32 logprobs, zero
-        f32 att2 (B, L, max_proposal) and sim_mat_static.
+        f32 att2 (B, L, max_proposal) and sim_mat_static.  With att_model
+        "lm" the language model's greedy decode over the same encodings
+        (``LanguageModel.greedy``: spans ``lm_prefill`` and ``lm_decode``):
+        seq (ids of its vocabulary, int32), the served words' f32
+        log-probabilities, zero f32 att2 and sim_mat_static.
 
         All after ``encode`` is the ``decode`` span."""
         cfg = self.cfg
@@ -717,6 +740,13 @@ class GVDModel(nn.Module):
                 cfg.seq_length, n_heads=6)
             B, L, dev = seq.shape[0], cfg.seq_length, seq.device
             return (seq, torch.zeros((B, L), device=dev),
+                    torch.zeros((B, L, cfg.max_proposal), device=dev),
+                    enc["sim_mat_static"])
+        if cfg.att_model == "lm":
+            seq, seq_lp = self.cap_model.greedy(self._transformer_encodings(
+                enc["conv_feats"], enc["pool_feats"]), cfg.seq_length)
+            B, L, dev = seq.shape[0], cfg.seq_length, seq.device
+            return (seq, seq_lp,
                     torch.zeros((B, L, cfg.max_proposal), device=dev),
                     enc["sim_mat_static"])
         if cfg.quantize_banks:

@@ -172,10 +172,13 @@ class SpanRecord:
     (``staged_nbytes``) and the times the host found a ring slot still in
     flight (``ring_waits``), both summed by ``span_count``, and on a CUDA
     device the pair of events recorded on the current stream at its entry
-    and exit."""
+    and exit.  ``counts``: the other named counts ``span_count`` added,
+    each an int (a count given as a device tensor is read at the first
+    access, after the span)."""
 
     __slots__ = ("name", "parent", "t0_ns", "t1_ns", "nbytes",
-                 "staged_nbytes", "ring_waits", "_events", "_device_ms")
+                 "staged_nbytes", "ring_waits", "_counts", "_events",
+                 "_device_ms")
 
     def __init__(self, name: str, parent: Optional["SpanRecord"]):
         self.name = name
@@ -184,8 +187,14 @@ class SpanRecord:
         self.nbytes: Optional[int] = None
         self.staged_nbytes = 0
         self.ring_waits = 0
+        self._counts: Dict[str, object] = {}
         self._events: Optional[Tuple[torch.cuda.Event, ...]] = None
         self._device_ms: Optional[float] = None
+
+    @property
+    def counts(self) -> Dict[str, int]:
+        self._counts = {k: int(v) for k, v in self._counts.items()}
+        return dict(self._counts)
 
     @property
     def device_ms(self) -> Optional[float]:
@@ -253,13 +262,22 @@ class span:
         return False
 
 
-def span_count(staged_nbytes: int = 0, ring_waits: int = 0):
-    """Adds ``staged_nbytes`` and ``ring_waits`` to the innermost span
-    that is recording (nothing where none is)."""
+def span_count(staged_nbytes: int = 0, ring_waits: int = 0, **counts):
+    """Adds ``staged_nbytes``, ``ring_waits`` and the named ``counts``
+    (ints or 0-d device tensors, read after the span) to the innermost
+    span that is recording (nothing where none is)."""
     if _open:
         rec = _open[-1]
         rec.staged_nbytes += staged_nbytes
         rec.ring_waits += ring_waits
+        for k, v in counts.items():
+            rec._counts[k] = rec._counts[k] + v if k in rec._counts else v
+
+
+def recording() -> bool:
+    """Whether a span is recording: what a count costs is paid only
+    then."""
+    return bool(_open)
 
 
 def span_records() -> List[SpanRecord]:
