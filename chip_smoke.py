@@ -11,9 +11,10 @@ kernels from ``grounded_video_description_torch/csrc``, holds each kernel
 against its plain PyTorch version at the flagship shapes in float32 and
 bfloat16 (K4, the training attention, and K5, the whole obj_interact
 training layer, with their gradients and at dropout 0.2 and 0; K6, the
-whole greedy decode, on the banks of one encoded batch), each with its
-bound and, where one PyTorch call computes the same function, that
-call's time, then runs ``GVDModel.sample_greedy`` at the flagship
+whole greedy decode, on the banks of one encoded batch; K2's training
+route, forward and backward, against the twin under autograd at a train
+microbatch), each with its bound and, where one PyTorch call computes
+the same function, that call's time, then runs ``GVDModel.sample_greedy`` at the flagship
 configuration (bench.py's: vocab 4905, 431 detector classes,
 obj_interact, BiGRU, mix region attention; batch 100, 1000 ROIs, 480
 frames, 20 tokens; random weights from a seeded generator) once through
@@ -30,7 +31,8 @@ off by the grounding guard) and on the plain path, in f32 and bf16, and
 microbatches, w_att2 0.05, w_cls 0.1, Adam at 5e-4, clip 0.1): in f32
 with every dropout rate 0, one step through K5 and one through K4
 against one on the plain attention; in bf16 at the flagship dropout
-rates, two timed steps on each path, in turns.  Last the training
+rates, two timed steps on each path, in turns; every path trains the
+BiGRU through K2's training route.  Last the training
 driver (``grounded_video_description_torch.main.run``): two epochs of one
 bf16 step through K5, each validated over one batch of 100, checkpointed
 into a temporary directory, then resumed from the latest checkpoint by a
@@ -60,8 +62,10 @@ K4 rows also the time of the repack that its tensor-core kernels run
 first; f32 K4, K5's attention, K7 and K1's attention run in 3xTF32, and
 their launches also count that route, ``attention_tf32x3``; K1's rows
 also its QKV GEMM's TFLOP/s beside cuBLAS's; K6's rows also the
-streaming floor and the split of a decode by phase), and as the last
-line ``{"ok": true, "device": {...}}``.
+streaming floor and the split of a decode by phase; the f32 row of K2's
+training route, ``birnn_train``, also its forward alone and the device
+kernels of one call of the route and of the twin), and as the last line
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -433,6 +437,101 @@ def phase_birnn(dev, results):
             results[(f"birnn_recurrence_{mode}", name)] = dict(
                 max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 library_ms=library_ms, exchange_ms=exchange_ms, **b)
+
+
+def birnn_train_counts(accum: int) -> dict:
+    """K2's training-route launches of a train step of ``accum``
+    microbatches: a forward and a backward for each of the BiGRU's 2
+    layers."""
+    return {"birnn_train_fwd": 2 * accum, "birnn_train_bwd": 2 * accum}
+
+
+TRAIN_ROWS = 30         # the train cells' microbatch
+
+
+def phase_birnn_train(dev, results):
+    """K2's training route (``birnn_recurrence_train``) at a train
+    microbatch, (T, B, H) = (480, 30, 512), f32, the GRU, both lanes:
+    forward and backward against autograd through the twin (the
+    gradients of gi, W_hh and b_hh within 1e-4 of their largest), one
+    launch each way; its time beside its forward alone, the twin's under
+    autograd, the bound (3 products of h and W_hh's size: the forward's,
+    the carried dh's, dW_hh's) and cuDNN's bidirectional GRU forward and
+    backward (``library_ms``, timed only: it also computes the input
+    projection and its gradients); the device kernels of one call of the
+    route and of the twin, counted by the profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from grounded_video_description_torch.ops.kernels import _build
+    from grounded_video_description_torch.ops.kernels.birnn import (
+        birnn_backward_plan, birnn_recurrence_plain, birnn_recurrence_train,
+        card_plan)
+
+    H, mode = D_RNN // 2, "bigru"
+    G = 3 * H
+    g = torch.Generator(device=dev).manual_seed(7)
+    gi, wh, bh = birnn_inputs(dev, g, T_FRAMES, TRAIN_ROWS, H, mode)
+    dys = torch.randn(T_FRAMES, 2, TRAIN_ROWS, H, generator=g, device=dev)
+    leaves = [t.requires_grad_(True) for t in (gi, wh, bh)]
+
+    def run(fn):
+        for t in leaves:
+            t.grad = None
+        fn(gi, wh, bh, mode=mode, hidden=H).backward(dys)
+
+    run(birnn_recurrence_plain)
+    ref = [t.grad.clone() for t in leaves]
+    _build.reset_launches()
+    run(birnn_recurrence_train)
+    torch.cuda.synchronize()
+    counts = dict(_build.launches)
+    check(counts == {"birnn_train_fwd": 1, "birnn_train_bwd": 1},
+          f"K2 train launches {counts}")
+    errs = {}
+    for name, t, r in zip(("gi", "wh", "bh"), leaves, ref):
+        errs[name] = max_err(t.grad, r) / float(r.abs().max())
+        check(errs[name] <= 1e-4, f"K2 train d{name} err {errs[name]}")
+    ms = time_ms(lambda: run(birnn_recurrence_train), 5)
+    fwd_ms = time_ms(lambda: birnn_recurrence_train(
+        gi, wh, bh, mode=mode, hidden=H), 5)
+    plain_ms = time_ms(lambda: run(birnn_recurrence_plain), 3)
+    kernels = {}
+    for name, fn in (("route", birnn_recurrence_train),
+                     ("plain", birnn_recurrence_plain)):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run(fn)
+            torch.cuda.synchronize()
+        kernels[name] = sum(
+            1 for e in prof.profiler.kineto_results.events()
+            if e.device_type() == torch.autograd.DeviceType.CUDA
+            and not e.name().startswith(("Memcpy", "Memset")))
+    # read gi, W_hh, b_hh, dy; written ys and the three gradients, of the
+    # same sizes
+    b = bound(3 * 2 * T_FRAMES * 2 * TRAIN_ROWS * H * G,
+              2 * nbytes(gi, wh, bh, dys), "float32")
+    rnn = torch.nn.GRU(D_RNN, H, bidirectional=True).to(dev)
+    rnn.flatten_parameters()
+    xs = torch.randn(T_FRAMES, TRAIN_ROWS, D_RNN, generator=g, device=dev,
+                     requires_grad=True)
+    dy = torch.randn(T_FRAMES, TRAIN_ROWS, 2 * H, generator=g, device=dev)
+    library_ms = time_ms(lambda: rnn(xs)[0].backward(dy), 5)
+    del rnn, xs, dy
+    plan = card_plan(TRAIN_ROWS, H, mode, torch.float32)
+    KB, smem = birnn_backward_plan(plan, mode)
+    print(f"K2 train {mode} float32 (T, B, H) = ({T_FRAMES}, {TRAIN_ROWS}, "
+          f"{H}): plan {plan.describe()}; backward {KB} of "
+          f"{plan.n_gates * plan.Up} rows of W_hh^T resident, {smem} B smem; "
+          f"err " + ", ".join(f"d{k} {v:.3e}" for k, v in errs.items())
+          + f" (of the largest); route fwd+bwd {ms:.3f} ms (fwd {fwd_ms:.3f}"
+          f" ms), plain under autograd {plain_ms:.3f} ms, bound "
+          f"{b['bound_ms']:.3f} ms ({b['bound_by']}), cuDNN GRU fwd+bwd "
+          f"{library_ms:.3f} ms; device kernels a call: route "
+          f"{kernels['route']}, plain {kernels['plain']}", flush=True)
+    results[("birnn_train", "float32")] = dict(
+        max_abs_err=max(errs.values()), ms=ms, fwd_ms=fwd_ms,
+        plain_ms=plain_ms, library_ms=library_ms,
+        device_kernels=kernels["route"], plain_device_kernels=kernels["plain"],
+        **b)
 
 
 def phase_encoder_layer(dev, results):
@@ -1107,11 +1206,14 @@ def phase_train(dev, state, family="topdown", paths=None):
         "plain": {}}
 
     def step_counts(name, dt):
+        # every path trains the BiGRU through K2's training route
+        birnn = birnn_train_counts(ACCUM)
         if name == "K5":
-            return {**per_step[name], **k5_gemm_counts(dt, 2 * ACCUM)}
+            return {**per_step[name], **k5_gemm_counts(dt, 2 * ACCUM),
+                    **birnn}
         if name == "K4" and dt == "float32":
-            return {**per_step[name], TF32_ROUTE: 4 * ACCUM}
-        return per_step[name]
+            return {**per_step[name], TF32_ROUTE: 4 * ACCUM, **birnn}
+        return {**per_step[name], **birnn}
 
     def trainer_for(cfg):
         model = GVDModel(cfg)
@@ -1741,7 +1843,8 @@ def phase_driver(dev, state):
                  GEMM_ROUTES[torch.bfloat16]: 1,
                  "flash_self_attention": 4, "birnn_recurrence": 4,
                  "region_attention": base.seq_length,
-                 **k5_gemm_counts("bfloat16", layers)}
+                 **k5_gemm_counts("bfloat16", layers),
+                 **birnn_train_counts(base.grad_accum)}
 
     def trainer_for(cfg, weights):
         model = GVDModel(cfg)
@@ -1993,13 +2096,14 @@ TP_RUNS = (("K5", "float32", 1), ("K4", "float32", 1),
 
 def train_step_counts(path: str, dt: str, accum: int) -> dict:
     """The kernel launches of one train step through ``path`` (2 layers
-    a microbatch), on one device or on each rank."""
+    a microbatch, and the BiGRU's 2 through K2's training route), on one
+    device or on each rank."""
     if path == "K5":
         return {"encoder_layer_train_fwd": 2 * accum,
                 "encoder_layer_train_bwd": 2 * accum,
-                **k5_gemm_counts(dt, 2 * accum)}
+                **k5_gemm_counts(dt, 2 * accum), **birnn_train_counts(accum)}
     counts = {"attention_train_fwd": 2 * accum,
-              "attention_train_bwd": 2 * accum}
+              "attention_train_bwd": 2 * accum, **birnn_train_counts(accum)}
     if dt == "float32":
         counts[TF32_ROUTE] = 4 * accum
     return counts
@@ -2837,6 +2941,7 @@ def main() -> int:
     results = {}
     timed(phase_region_attention, dev, results)
     timed(phase_birnn, dev, results)
+    timed(phase_birnn_train, dev, results)
     timed(phase_encoder_layer, dev, results)
     timed(phase_attention_train, dev, results)
     timed(phase_encoder_layer_train, dev, results)
@@ -2922,6 +3027,16 @@ def main() -> int:
                 if extra in r:
                     row[extra] = r[extra]
             kernels.append(row)
+    r = results[("birnn_train", "float32")]
+    n = launches["float32"].get("birnn_train_fwd", 0)
+    check(n > 0, "birnn_train (float32) was not launched on the main path")
+    kernels.append({
+        "name": "birnn_train", "route": "cuda",
+        "source": "grounded_video_description_torch/csrc/birnn.cu",
+        "replaces": None, "launches": n, "dtype": "float32",
+        **{k: r[k] for k in ("max_abs_err", "ms", "fwd_ms", "plain_ms",
+                             "bound_ms", "bound_by", "library_ms",
+                             "device_kernels", "plain_device_kernels")}})
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -7,6 +7,8 @@
 // (T, 2, B, H), lane 1 still in reversed time.  G = 3H (GRU: r, z, n;
 // n = tanh(i_n + r * (W_hn h + b_hn))) or 4H (LSTM: i, f, g, o).  The
 // carry, the gate math and the product h W_hh are f32 in both dtypes.
+// Training: the f32 SIMT kernel also stores each step's gates, and
+// birnn_backward_kernel (below) runs the reverse-time pass.
 //
 // What bounds it on an H100: the T-step chain.  Each step needs the whole
 // W_hh of its direction (512 x 1536 at the flagship: 1.5 MB in bf16, 3 MB
@@ -75,6 +77,11 @@ __host__ __device__ constexpr int h_rows(int bt, int rpt) {
   return (bt + 1) / 2 + rpt;
 }
 
+// Gate values per (step, row, unit) that the training route's forward saves
+// for its backward: the GRU's r, z, n and W_hn h + b_hn; the LSTM's i, f, g,
+// o and c.
+__host__ __device__ constexpr int saved_gates(bool gru) { return gru ? 4 : 5; }
+
 // Shared memory of one block, in bytes, in the order of the kernel's
 // buffers; the Python plan computes the same (birnn.py::_smem_bytes).
 __host__ size_t smem_bytes(const Plan& p, int rpt, int NG, bool lstm,
@@ -94,24 +101,43 @@ __device__ __forceinline__ float sigmoidf(float x) {
 }
 
 // h' of one (row, unit) from its input projections x, recurrent products
-// a (+ bias b for the GRU), old h (GRU) or cell c (LSTM, updated).
+// a (+ bias b for the GRU), old h (GRU) or cell c (LSTM, updated).  sv,
+// where not null (the training route's forward), receives what the
+// backward needs, ld floats apart: the GRU's r, z, n and W_hn h + b_hn, the
+// LSTM's i, f, g, o and the new c.  The same instructions give h' either
+// way, so the training route's output is the inference route's, bit for bit.
 __device__ __forceinline__ float gru_gate(float xr, float xz, float xn,
                                          float ar, float az, float an,
                                          float br, float bz, float bn,
-                                         float h_old) {
+                                         float h_old, float* sv, int ld) {
   const float r = sigmoidf(xr + ar + br);
   const float z = sigmoidf(xz + az + bz);
-  const float n = tanhf(xn + r * (an + bn));
+  const float hn = an + bn;
+  const float n = tanhf(xn + r * hn);
+  if (sv != nullptr) {
+    sv[0] = r;
+    sv[ld] = z;
+    sv[2 * ld] = n;
+    sv[3 * ld] = hn;
+  }
   return (1.0f - z) * n + z * h_old;
 }
 __device__ __forceinline__ float lstm_gate(float xi, float xf, float xg,
                                           float xo, float ai, float af,
-                                          float ag, float ao, float& c) {
+                                          float ag, float ao, float& c,
+                                          float* sv, int ld) {
   const float ig = sigmoidf(xi + ai);
   const float fg = sigmoidf(xf + af);
   const float gg = tanhf(xg + ag);
   const float og = sigmoidf(xo + ao);
   c = fg * c + ig * gg;
+  if (sv != nullptr) {
+    sv[0] = ig;
+    sv[ld] = fg;
+    sv[2 * ld] = gg;
+    sv[3 * ld] = og;
+    sv[4 * ld] = c;
+  }
   return og * tanhf(c);
 }
 
@@ -211,16 +237,19 @@ __device__ __forceinline__ void push_slice(cg::cluster_group& cl,
 // Grid (C, tiles, 2): one cluster of C blocks per (batch tile, direction).
 // exchange_only: run only the exchange of h through DSMEM and the two
 // cluster barriers of every step (no product, no gates, no output), to
-// time them alone.
+// time them alone.  gates_ (f32 only, else null): the training route's
+// saved gates, (T, 2, B, NS, H) f32 with NS = saved_gates(GRU).
 template <typename T, bool GRU, int RPT>
 __global__ void __launch_bounds__(THREADS, 1)
 birnn_cluster_kernel(const void* gi_, const void* wh_, const void* bh_,
-                     void* out_, int n_steps, int B, int H, Plan p,
-                     int exchange_only) {
+                     void* out_, void* gates_, int n_steps, int B, int H,
+                     Plan p, int exchange_only) {
   constexpr int NG = GRU ? 3 : 4;
+  constexpr int NS = saved_gates(GRU);
   const T* gi = static_cast<const T*>(gi_);
   const T* bh = static_cast<const T*>(bh_);
   T* out = static_cast<T*>(out_);
+  float* gates = static_cast<float*>(gates_);
   extern __shared__ __align__(16) unsigned char smem_raw[];
   cg::cluster_group cl = cg::this_cluster();
   const int c = (int)cl.block_rank();
@@ -340,17 +369,21 @@ birnn_cluster_kernel(const void* gi_, const void* wh_, const void* bh_,
           float h_new = 0.0f;
           if (b0 + b < B && j < H) {
             const T* gq = gbuf + b * NG * p.Up + u;
+            float* sv = gates == nullptr
+                            ? nullptr
+                            : gates + (((size_t)t * 2 + k) * B + b0 + b) *
+                                          NS * H + j;
             if constexpr (GRU) {
               h_new = gru_gate(gvd::to_f32(gq[0]), gvd::to_f32(gq[p.Up]),
                                gvd::to_f32(gq[2 * p.Up]), fin[0][q],
                                fin[1][q], fin[2][q], bias[0], bias[1],
-                               bias[2], h_old[q]);
+                               bias[2], h_old[q], sv, H);
             } else {
               h_new = lstm_gate(gvd::to_f32(gq[0]), gvd::to_f32(gq[p.Up]),
                                 gvd::to_f32(gq[2 * p.Up]),
                                 gvd::to_f32(gq[3 * p.Up]), fin[0][q],
                                 fin[1][q], fin[2][q], fin[NG - 1][q],
-                                cell[b * p.Up + u]);
+                                cell[b * p.Up + u], sv, H);
             }
             out[(((size_t)t * 2 + k) * B + b0 + b) * H + j] =
                 gvd::from_f32<T>(h_new);
@@ -432,8 +465,8 @@ __device__ __forceinline__ void split2(float2 x, uint32_t& hi, uint32_t& lo) {
 template <bool GRU, int MT>
 __global__ void __launch_bounds__(THREADS, 1)
 birnn_mma_kernel(const void* gi_, const void* wh_, const void* bh_,
-                 void* out_, int n_steps, int B, int H, Plan p,
-                 int exchange_only) {
+                 void* out_, void* /* gates: the SIMT route's alone */,
+                 int n_steps, int B, int H, Plan p, int exchange_only) {
   using T = __nv_bfloat16;
   constexpr int NG = GRU ? 3 : 4;
   const T* gi = static_cast<const T*>(gi_);
@@ -565,13 +598,14 @@ birnn_mma_kernel(const void* gi_, const void* wh_, const void* bh_,
                              __bfloat162float(gq[p.Up]),
                              __bfloat162float(gq[2 * p.Up]), a[0], a[p.Up],
                              a[2 * p.Up], bsm[u], bsm[p.Up + u],
-                             bsm[2 * p.Up + u], h_old[i]);
+                             bsm[2 * p.Up + u], h_old[i], nullptr, 0);
           } else {
             h_new = lstm_gate(__bfloat162float(gq[0]),
                               __bfloat162float(gq[p.Up]),
                               __bfloat162float(gq[2 * p.Up]),
                               __bfloat162float(gq[3 * p.Up]), a[0], a[p.Up],
-                              a[2 * p.Up], a[3 * p.Up], cst[i]);
+                              a[2 * p.Up], a[3 * p.Up], cst[i], nullptr,
+                              0);
           }
           out[(((size_t)t * 2 + k) * B + b0 + b) * H + j] =
               __float2bfloat16(h_new);
@@ -588,8 +622,280 @@ birnn_mma_kernel(const void* gi_, const void* wh_, const void* bh_,
   }
 }
 
-using KernelFn = void (*)(const void*, const void*, const void*, void*, int,
-                          int, int, Plan, int);
+// ------------------------------------------ training: the reverse-time pass --
+// The backward of the SIMT kernel's recurrence, in f32 (the training route
+// casts every dtype to f32 once).  Inputs: dy (T, 2, B, H), the forward's ys
+// (T, 2, B, H) and saved gates (T, 2, B, NS, H), W_hh^T (2, G, H).  Outputs:
+// dgi (T, 2, B, G), the gradient of gi; dgh (2, T, B, G), the gradient of
+// the recurrent pre-activations h W_hh (+ b_hh), which for the GRU differs
+// from dgi in its n block (dgi_n r); hp (2, T, B, H), h_{t-1} (0 at t = 0).
+// dW_hh = hp^T dgh over all T B rows and db_hh = the sum of dgh are one
+// product and one sum outside the kernel (ops/kernels/birnn.py).
+//
+// It replaces no TPU kernel: the JAX package trains this recurrence with an
+// XLA scan.  It exists because the plain twin under autograd launches ~33
+// small kernels for every step of every layer, forward and backward, which
+// left a training step waiting on the host.
+//
+// What bounds it: the same T-step chain as the forward, run backwards.  The
+// carried dh_{t-1} = dgh_t W_hh^T (+ dh_t z_t for the GRU) needs every
+// block's columns of W_hh, while each block forms the gate gradients of its
+// own units only.  Design: the forward's plan and clusters, each block
+// owning the same units; its NG Up columns of W_hh are held transposed in
+// shared memory, (K = NG Up rows, C Up columns), rows past KB streamed from
+// L2.  A step:
+//  * gate phase: each thread takes up to NPAIR (row, unit) pairs; dh = dy +
+//    the local term (GRU) + the C partials in its slots, summed in block
+//    order (no atomics: the same bits from run to run); the gate gradients
+//    go to dgi, dgh and into D (the step's dgh of the block's units);
+//  * product: the partial dgh W_hh^T of the block's K rows over all C Up
+//    units, (bt, C Up), each thread 4 columns x RPT rows, read as float4;
+//  * reduce-scatter: each thread pushes its 4 columns to their owner's slot
+//    for this block through DSMEM, the mirror of the forward's all-gather;
+//  * two cluster barriers, as in the forward: the first (arrive after the
+//    gate phase, wait before the push, so the product hides it) says every
+//    owner has read its slots; the second that every partial has landed.
+//    dy_{t-1}, the saved gates and h_{t-2} are prefetched with cp.async.
+__host__ __device__ constexpr int bwd_inputs(bool gru) { return gru ? 6 : 8; }
+
+// Shared memory of one backward block (birnn.py::_bwd_smem_bytes): the
+// resident rows of W_hh^T, D (its rows zero-padded as the forward's h),
+// the slots, the prefetched inputs.
+__host__ size_t bwd_smem_bytes(const Plan& p, int rpt, int NG, bool lstm,
+                               int KB) {
+  const size_t K = (size_t)NG * p.Up, CU = (size_t)p.C * p.Up;
+  return (size_t)KB * CU * 4 + (size_t)h_rows(p.bt, rpt) * K * 4 +
+         (size_t)p.C * p.bt * p.Up * 4 +
+         (size_t)p.bt * bwd_inputs(!lstm) * p.Up * 4;
+}
+
+// Step t's inputs of this block's (rows, units) into gbuf (bt, NI, Up): dy,
+// the NS saved gates, h_{t-1} and (LSTM) c_{t-1}; zero past B, past H and
+// before the first step.
+template <bool GRU>
+__device__ void prefetch_bwd(float* gbuf, const float* dy, const float* ys,
+                             const float* gates, int t, int k, int b0, int B,
+                             int H, int j0, const Plan& p) {
+  constexpr int NS = saved_gates(GRU), NI = bwd_inputs(GRU);
+  const int n = p.bt * NI * p.Up;
+  for (int i = threadIdx.x; i < n; i += THREADS) {
+    const int u = i % p.Up, rest = i / p.Up, s = rest % NI, b = rest / NI;
+    const int j = j0 + u;
+    const bool prev = s > NS;
+    const bool ok = b0 + b < B && j < H && (!prev || t > 0);
+    const float* src = dy;
+    if (ok) {
+      const size_t row = ((size_t)(prev ? t - 1 : t) * 2 + k) * B + b0 + b;
+      if (s == 0) src = dy + row * H + j;
+      else if (s <= NS) src = gates + (row * NS + s - 1) * H + j;
+      else if (s == NS + 1) src = ys + row * H + j;
+      else src = gates + (row * NS + NS - 1) * H + j;
+    }
+    cp_async4(gbuf + (b * NI + s) * p.Up + u, src, ok);
+  }
+  cp_async_commit();
+}
+
+template <bool GRU, int RPT>
+__global__ void __launch_bounds__(THREADS, 1)
+birnn_backward_kernel(const float* __restrict__ dy,
+                      const float* __restrict__ ys,
+                      const float* __restrict__ gates,
+                      const float* __restrict__ whT, float* __restrict__ dgi,
+                      float* __restrict__ dgh, float* __restrict__ hp,
+                      int n_steps, int B, int H, Plan p, int KB) {
+  constexpr int NG = GRU ? 3 : 4, NI = bwd_inputs(GRU);
+  constexpr int NPAIR = (RPT + 1) / 2;   // bt Up <= 2 RPT x 64 pairs
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  cg::cluster_group cl = cg::this_cluster();
+  const int c = (int)cl.block_rank();
+  const int k = blockIdx.z;
+  const int b0 = blockIdx.y * p.bt, j0 = c * p.Up;
+  const int G = NG * H, K = NG * p.Up, CU = p.C * p.Up;
+  const int HR = h_rows(p.bt, RPT);
+  const float* Wg = whT + (size_t)k * G * H;          // (G, H)
+
+  float* Wt = reinterpret_cast<float*>(smem_raw);      // (KB, CU)
+  float* D = Wt + (size_t)KB * CU;                     // (HR, K)
+  float* slots = D + HR * K;                           // (C, bt, Up)
+  float* gbuf = slots + p.C * p.bt * p.Up;             // (bt, NI, Up)
+
+  const int tid = threadIdx.x;
+  // resident row kk = g Up + u of W_hh^T: row g H + j0 + u, all H columns
+  for (int i = tid; i < KB * CU; i += THREADS) {
+    const int q = i % CU, kk = i / CU;
+    const int jj = j0 + kk % p.Up;
+    Wt[i] = q < H && jj < H ? Wg[(size_t)((kk / p.Up) * H + jj) * H + q]
+                            : 0.0f;
+  }
+  for (int i = tid; i < HR * K; i += THREADS) D[i] = 0.0f;
+  for (int i = tid; i < p.C * p.bt * p.Up; i += THREADS) slots[i] = 0.0f;
+  // GRU: the local term dh z of the carried dh; LSTM: the carried dc
+  float loc[NPAIR];
+#pragma unroll
+  for (int i = 0; i < NPAIR; ++i) loc[i] = 0.0f;
+  const int n_pairs = p.bt * p.Up;
+  // the product's items: (row group, 4 columns), one or two a thread
+  const int NQ = CU / 4, n_items = 2 * NQ;
+  const int rpe = (p.bt + 1) / 2;
+  prefetch_bwd<GRU>(gbuf, dy, ys, gates, n_steps - 1, k, b0, B, H, j0, p);
+  cl.sync();
+
+  for (int s = 0; s < n_steps; ++s) {
+    const int t = n_steps - 1 - s;
+    cp_async_wait_all();
+    __syncthreads();              // step t's inputs, for every thread
+#pragma unroll
+    for (int pi = 0; pi < NPAIR; ++pi) {
+      const int q = tid + pi * THREADS;
+      if (q >= n_pairs) break;
+      const int b = q / p.Up, u = q - b * p.Up, j = j0 + u;
+      if (b0 + b >= B || j >= H) continue;
+      float carried = GRU ? loc[pi] : 0.0f;
+      for (int r = 0; r < p.C; ++r) carried += slots[(r * p.bt + b) * p.Up + u];
+      const float* in = gbuf + b * NI * p.Up + u;
+      const float dh = in[0] + carried;
+      const size_t row = ((size_t)t * 2 + k) * B + b0 + b;
+      const size_t lrow = ((size_t)k * n_steps + t) * B + b0 + b;
+      float* gi_out = dgi + row * G + j;
+      float* gh_out = dgh + lrow * G + j;
+      float* d = D + b * K + u;
+      if constexpr (GRU) {
+        const float r = in[p.Up], z = in[2 * p.Up], n = in[3 * p.Up];
+        const float hn = in[4 * p.Up], h_old = in[5 * p.Up];
+        const float dn = dh * (1.0f - z) * (1.0f - n * n);
+        const float dr = dn * hn * r * (1.0f - r);
+        const float dz = dh * (h_old - n) * z * (1.0f - z);
+        const float dhn = dn * r;
+        loc[pi] = dh * z;
+        gi_out[0] = dr;
+        gi_out[H] = dz;
+        gi_out[2 * H] = dn;
+        gh_out[0] = dr;
+        gh_out[H] = dz;
+        gh_out[2 * H] = dhn;
+        d[0] = dr;
+        d[p.Up] = dz;
+        d[2 * p.Up] = dhn;
+        hp[lrow * H + j] = h_old;
+      } else {
+        const float ig = in[p.Up], fg = in[2 * p.Up], gg = in[3 * p.Up];
+        const float og = in[4 * p.Up], cn = in[5 * p.Up];
+        const float h_old = in[6 * p.Up], c_old = in[7 * p.Up];
+        const float tc = tanhf(cn);
+        const float dc = loc[pi] + dh * og * (1.0f - tc * tc);
+        const float g4[4] = {dc * gg * ig * (1.0f - ig),
+                             dc * c_old * fg * (1.0f - fg),
+                             dc * ig * (1.0f - gg * gg),
+                             dh * tc * og * (1.0f - og)};
+        loc[pi] = dc * fg;
+#pragma unroll
+        for (int g = 0; g < 4; ++g) {
+          gi_out[g * H] = g4[g];
+          gh_out[g * H] = g4[g];
+          d[g * p.Up] = g4[g];
+        }
+        hp[lrow * H + j] = h_old;
+      }
+    }
+    cluster_arrive();             // this block is done reading its slots
+    __syncthreads();              // D is complete; gbuf is free
+    if (t > 0)
+      prefetch_bwd<GRU>(gbuf, dy, ys, gates, t - 1, k, b0, B, H, j0, p);
+    const bool more = t > 0;      // dh_{-1} is not needed
+    for (int it = 0; it < 2; ++it) {
+      const int item = tid + it * THREADS;
+      float acc[RPT][4];
+#pragma unroll
+      for (int i = 0; i < RPT; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][e] = 0.0f;
+      const bool mine = more && item < n_items;
+      const int rs = item / NQ, cq = item - (item / NQ) * NQ;
+      const int r0 = rs * rpe, q0 = 4 * cq;
+      if (mine) {
+        const float* drow = D + r0 * K;
+        int kk = 0;
+        const int kres = min(KB, K);
+        for (; kk < kres; kk += 4) {
+          float4 w[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            w[e] = *reinterpret_cast<const float4*>(Wt + (kk + e) * CU + q0);
+#pragma unroll
+          for (int i = 0; i < RPT; ++i) {
+            const float4 dv = *reinterpret_cast<const float4*>(drow + i * K + kk);
+            const float dd[4] = {dv.x, dv.y, dv.z, dv.w};
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              acc[i][0] = fmaf(dd[e], w[e].x, acc[i][0]);
+              acc[i][1] = fmaf(dd[e], w[e].y, acc[i][1]);
+              acc[i][2] = fmaf(dd[e], w[e].z, acc[i][2]);
+              acc[i][3] = fmaf(dd[e], w[e].w, acc[i][3]);
+            }
+          }
+        }
+        for (; kk < K; kk += 4) {   // streamed from global memory (L2)
+          float w[4][4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int jj = j0 + (kk + e) % p.Up;
+            const float* src = Wg + (size_t)(((kk + e) / p.Up) * H + jj) * H;
+#pragma unroll
+            for (int f = 0; f < 4; ++f)
+              w[e][f] = jj < H && q0 + f < H ? src[q0 + f] : 0.0f;
+          }
+#pragma unroll
+          for (int i = 0; i < RPT; ++i) {
+            const float4 dv = *reinterpret_cast<const float4*>(drow + i * K + kk);
+            const float dd[4] = {dv.x, dv.y, dv.z, dv.w};
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+#pragma unroll
+              for (int f = 0; f < 4; ++f)
+                acc[i][f] = fmaf(dd[e], w[e][f], acc[i][f]);
+          }
+        }
+      }
+      if (it == 0) cluster_wait();  // every owner has read its slots
+      if (mine) {
+        const int owner = q0 / p.Up, u0 = q0 - owner * p.Up;
+        const int nr = max(0, min(rpe, p.bt - r0));
+        float* dst = cl.map_shared_rank(slots, owner) +
+                     (c * p.bt + r0) * p.Up + u0;
+#pragma unroll
+        for (int i = 0; i < RPT; ++i)
+          if (i < nr)
+            *reinterpret_cast<float4*>(dst + i * p.Up) =
+                make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+      }
+    }
+    cl.sync();                      // every partial has landed
+  }
+}
+
+using BackwardFn = void (*)(const float*, const float*, const float*,
+                            const float*, float*, float*, float*, int, int,
+                            int, Plan, int);
+
+BackwardFn pick_backward(int mode, int rpt) {
+  switch (rpt * 2 + mode) {
+    case 8: return birnn_backward_kernel<true, 4>;
+    case 9: return birnn_backward_kernel<false, 4>;
+    case 16: return birnn_backward_kernel<true, 8>;
+    case 17: return birnn_backward_kernel<false, 8>;
+    case 26: return birnn_backward_kernel<true, 13>;
+    case 27: return birnn_backward_kernel<false, 13>;
+    case 34: return birnn_backward_kernel<true, 17>;
+    case 35: return birnn_backward_kernel<false, 17>;
+    case 50: return birnn_backward_kernel<true, 25>;
+    case 51: return birnn_backward_kernel<false, 25>;
+  }
+  return nullptr;
+}
+
+using KernelFn = void (*)(const void*, const void*, const void*, void*,
+                          void*, int, int, int, Plan, int);
 
 // route 1: the tensor-core kernel of MT = rpt m16 tiles (bf16 only)
 KernelFn pick_mma(int mode, int mt) {
@@ -681,15 +987,18 @@ void cluster_config(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr,
 // mode: 0 = GRU, 1 = LSTM.  route: 0 = the SIMT kernel, 1 = the
 // tensor-core kernel (bf16).  The plan (C, bt, Up, KW, KR, rows per thread
 // or m16 tiles, shared memory) is birnn.py::birnn_plan's; a plan this file
-// does not take returns cudaErrorInvalidValue.  exchange_only: see the
-// kernels.
+// does not take returns cudaErrorInvalidValue.  gates: null at inference;
+// the training route's saved gates (f32, the SIMT kernel only).
+// exchange_only: see the kernels.
 extern "C" int gvd_birnn_recurrence(int dtype, int mode, const void* gi,
                                     const void* wh, const void* bh, void* out,
-                                    int n_steps, int B, int H, int route,
-                                    int C, int bt, int Up, int KW, int KR,
-                                    int rpt, int smem, int exchange_only,
-                                    void* stream) {
+                                    void* gates, int n_steps, int B, int H,
+                                    int route, int C, int bt, int Up, int KW,
+                                    int KR, int rpt, int smem,
+                                    int exchange_only, void* stream) {
   const Plan p{C, bt, Up, KW, KR};
+  if (gates != nullptr && (dtype != 0 || route != 0 || exchange_only))
+    return (int)cudaErrorInvalidValue;
   cudaError_t e;
   KernelFn kern = prepare(dtype, mode, H, route, p, rpt, smem, &e);
   if (kern == nullptr) return (int)e;
@@ -698,8 +1007,8 @@ extern "C" int gvd_birnn_recurrence(int dtype, int mode, const void* gi,
   cluster_config(&cfg, &attr, p, (B + bt - 1) / bt, smem,
                  (cudaStream_t)stream);
   void* args[] = {(void*)&gi, (void*)&wh, (void*)&bh, (void*)&out,
-                  (void*)&n_steps, (void*)&B, (void*)&H, (void*)&p,
-                  (void*)&exchange_only};
+                  (void*)&gates, (void*)&n_steps, (void*)&B, (void*)&H,
+                  (void*)&p, (void*)&exchange_only};
   e = cudaLaunchKernelExC(&cfg, (const void*)kern, args);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
@@ -721,4 +1030,50 @@ extern "C" int gvd_birnn_max_clusters(int dtype, int mode, int H, int route,
   int n = 0;
   e = cudaOccupancyMaxActiveClusters(&n, (const void*)kern, &cfg);
   return e == cudaSuccess ? n : -(int)e;
+}
+
+// The training route's backward (f32): see birnn_backward_kernel.  The plan
+// is the forward's (C, bt, Up, rows per thread), with KB resident rows of
+// W_hh^T and the shared memory of birnn.py::birnn_backward_plan; a plan this
+// file does not take returns cudaErrorInvalidValue.
+extern "C" int gvd_birnn_backward(int mode, const void* dy, const void* ys,
+                                  const void* gates, const void* whT,
+                                  void* dgi, void* dgh, void* hp,
+                                  int n_steps, int B, int H, int C, int bt,
+                                  int Up, int rpt, int KB, int smem,
+                                  void* stream) {
+  const Plan p{C, bt, Up, 0, 0};
+  BackwardFn kern = mode == 0 || mode == 1 ? pick_backward(mode, rpt)
+                                           : nullptr;
+  const int NG = mode == 0 ? 3 : 4;
+  const bool ok =
+      kern != nullptr && (C == 1 || C == 2 || C == 4 || C == 8 || C == 16) &&
+      Up % 4 == 0 && Up >= 4 && Up <= 64 && C * Up >= H && H >= 1 &&
+      bt >= 1 && (bt + 1) / 2 <= rpt && KB % 4 == 0 && KB >= 0 &&
+      KB <= NG * Up && n_steps >= 1 && smem <= SMEM_MAX &&
+      (size_t)smem == bwd_smem_bytes(p, rpt, NG, mode == 1, KB);
+  if (!ok) return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(
+      (const void*)kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute((const void*)kern,
+                             cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cluster_config(&cfg, &attr, p, (B + bt - 1) / bt, smem,
+                 (cudaStream_t)stream);
+  const float* dy_ = static_cast<const float*>(dy);
+  const float* ys_ = static_cast<const float*>(ys);
+  const float* gates_ = static_cast<const float*>(gates);
+  const float* whT_ = static_cast<const float*>(whT);
+  float* dgi_ = static_cast<float*>(dgi);
+  float* dgh_ = static_cast<float*>(dgh);
+  float* hp_ = static_cast<float*>(hp);
+  void* args[] = {(void*)&dy_, (void*)&ys_, (void*)&gates_, (void*)&whT_,
+                  (void*)&dgi_, (void*)&dgh_, (void*)&hp_, (void*)&n_steps,
+                  (void*)&B, (void*)&H, (void*)&p, (void*)&KB};
+  e = cudaLaunchKernelExC(&cfg, (const void*)kern, args);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
 }

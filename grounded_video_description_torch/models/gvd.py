@@ -22,13 +22,14 @@ Parameters are float32 and named after the reference state dict, so
 reads a port ``state_dict()`` as it is.  Activations run in
 ``cfg.dtype``; weights are cast where they are used, as in the JAX
 package.  Config flags select the hand-written kernels: at inference
-``use_pallas_rnn`` (K2, the BiRNN recurrence), ``use_pallas_encoder``
-(K1, the obj_interact layer), ``use_pallas_mha`` (K7, the obj_interact
-self-attention when K1 is off), ``use_pallas`` (K3, the per-token region
-attention) and ``use_pallas_decode`` (K6, the whole greedy decode), which
-have no backward and are off in training; in training
-``use_pallas_encoder_train`` (K5, the whole obj_interact layer), else
-``attn_train_impl`` (K4, the obj_interact attention).  A kernel wrapper
+``use_pallas_encoder`` (K1, the obj_interact layer), ``use_pallas_mha``
+(K7, the obj_interact self-attention when K1 is off), ``use_pallas`` (K3,
+the per-token region attention) and ``use_pallas_decode`` (K6, the whole
+greedy decode), which have no backward and are off in training; in
+training ``use_pallas_encoder_train`` (K5, the whole obj_interact layer),
+else ``attn_train_impl`` (K4, the obj_interact attention); in both
+``use_pallas_rnn`` (K2, the BiRNN recurrence: in training its route with
+a backward kernel).  A kernel wrapper
 runs its plain version on CPU tensors.  The config is the port's own
 (``config.py``), field for field a subset of the JAX package's.
 

@@ -22,6 +22,7 @@ from torch import nn
 
 from grounded_video_description_torch.parallel.mesh import (
     RowShard, all_reduce_sum)
+from grounded_video_description_torch.utils.logging import span, span_count
 
 
 # --------------------------------------------------------------------- #
@@ -181,10 +182,15 @@ def _scan_bidir(mode: str, w_ih, w_hh, b_ih, b_hh, xs: torch.Tensor,
     backward lane consumes time-reversed inputs.  The input projection
     has no sequential dependency and is hoisted out as one product.
 
-    use_kernel: run the recurrence through ``birnn_recurrence`` (the
-    CUDA kernel on a CUDA tensor); otherwise its plain version."""
+    use_kernel: run the recurrence through K2 on a CUDA tensor: where
+    autograd needs its gradient, the training route
+    (``birnn_recurrence_train``), else ``birnn_recurrence``; a CPU tensor
+    that needs the gradient takes the plain version under autograd.
+    Without use_kernel, the plain version.  Where the gradient is needed
+    the recurrence is the span ``birnn``, whose count ``kernel`` is 1 when
+    the training route ran it and 0 for the plain version."""
     from grounded_video_description_torch.ops.kernels.birnn import (
-        birnn_recurrence, birnn_recurrence_plain)
+        birnn_recurrence, birnn_recurrence_plain, birnn_recurrence_train)
 
     dt = xs.dtype
     bias = b_ih if mode == "bigru" else b_ih + b_hh     # LSTM: one bias
@@ -193,8 +199,16 @@ def _scan_bidir(mode: str, w_ih, w_hh, b_ih, b_hh, xs: torch.Tensor,
     gi = torch.stack([gi[:, 0], gi[:, 1].flip(0)], dim=1)  # reverse lane 1
     wh = w_hh.to(dt).transpose(1, 2).contiguous()          # (2, H, G)
     bh = b_hh.to(dt).contiguous() if mode == "bigru" else None
-    run = birnn_recurrence if use_kernel else birnn_recurrence_plain
-    ys = run(gi.contiguous(), wh, bh, mode=mode, hidden=hidden)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (gi, wh, bh)):
+        run = (birnn_recurrence_train if use_kernel and gi.is_cuda
+               else birnn_recurrence_plain)
+        with span("birnn"):
+            ys = run(gi.contiguous(), wh, bh, mode=mode, hidden=hidden)
+            span_count(kernel=int(run is birnn_recurrence_train))
+    else:
+        run = birnn_recurrence if use_kernel else birnn_recurrence_plain
+        ys = run(gi.contiguous(), wh, bh, mode=mode, hidden=hidden)
     out = torch.cat([ys[:, 0], ys[:, 1].flip(0)], dim=-1)  # (T, B, 2H)
     return out.transpose(0, 1)
 
@@ -204,14 +218,14 @@ def birnn(rnn: BiRNNParams, x: torch.Tensor, *, use_kernel: bool = False,
           generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """The stacked bidirectional RNN: (B, T, D) -> (B, T, 2H).
 
-    At eval, ``use_kernel`` runs each layer's recurrence through K2.  In
-    training the recurrence is K2's plain twin under autograd (K2 has no
-    backward; the JAX package trains with an XLA scan) and dropout at
-    ``drop`` falls between the layers."""
+    ``use_kernel`` runs each layer's recurrence through K2, at eval and
+    in training (its training route, forward and backward; the JAX package
+    trains with an XLA scan).  In training dropout at ``drop`` falls
+    between the layers."""
     out = x
     for li in range(rnn.num_layers):
         out = _scan_bidir(rnn.mode, *rnn.layer(li), out, rnn.hidden,
-                          use_kernel=use_kernel and not train)
+                          use_kernel=use_kernel)
         if train and li < rnn.num_layers - 1:
             out = dropout(out, drop, train=True, generator=generator)
     return out

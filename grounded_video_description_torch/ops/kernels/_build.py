@@ -54,10 +54,13 @@ _SIGNATURES = {
     # dtype, copy route, ROIs per slot, column groups, warps per block,
     # splits, smem
     "gvd_region_attention_max_clusters": [_I] * 7,
-    # dtype, mode, gi, wh, bh, out, T, B, H, then the plan (route, C,
-    # tile, Up, KW, KR, rows per thread or m16 tiles, smem), exchange_only,
-    # stream
-    "gvd_birnn_recurrence": [_I, _I] + [_P] * 4 + [_I] * 12 + [_P],
+    # dtype, mode, gi, wh, bh, out, gates (null at inference), T, B, H,
+    # then the plan (route, C, tile, Up, KW, KR, rows per thread or m16
+    # tiles, smem), exchange_only, stream
+    "gvd_birnn_recurrence": [_I, _I] + [_P] * 5 + [_I] * 12 + [_P],
+    # mode, dy, ys, gates, W_hh^T, dgi, dgh, hp, T, B, H, then the plan (C,
+    # tile, Up, rows per thread, resident rows of W_hh^T, smem), stream
+    "gvd_birnn_backward": [_I] + [_P] * 7 + [_I] * 9 + [_P],
     # dtype, mode, H, the plan
     "gvd_birnn_max_clusters": [_I] * 11,
     # dtype, A, W, bias, C, M, N, K, relu, stream

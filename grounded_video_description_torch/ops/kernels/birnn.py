@@ -13,8 +13,19 @@ memory a block takes.
 
 ``birnn_recurrence_plain`` is the same recurrence as a Python loop over
 time (f32 gate math and f32 carry, outputs in the input dtype), used for
-CPU tensors, on the model's plain path, under autograd in training (the
-kernel has no backward) and as the reference on the card.
+CPU tensors, on the model's plain path, under autograd on the CPU in
+training, and as the reference on the card.
+
+``birnn_recurrence_train`` is the training route, an autograd Function in
+f32 whose forward and backward are each one launch a layer: the forward is
+the SIMT cluster kernel on ``card_plan``'s plan, storing each step's gates
+besides; the backward (``birnn_backward_kernel``) runs the steps in
+reverse on the same plan, each block forming the gate gradients of its
+own units and reduce-scattering its share of dh W_hh^T through DSMEM;
+dW_hh and db_hh are one product and one sum over all T B rows after it.
+Its plain twins, ``birnn_forward_train_plain`` and
+``birnn_backward_plain``, take CPU tensors.  There is no TPU kernel of it:
+the JAX package trains this recurrence with an XLA scan.
 """
 
 from __future__ import annotations
@@ -28,6 +39,12 @@ import torch
 from grounded_video_description_torch.ops.kernels import _build
 
 MODE_CODES = {"bigru": 0, "bilstm": 1}
+# gate values a step saves for the backward (csrc/birnn.cu saved_gates):
+# the GRU's r, z, n and W_hn h + b_hn; the LSTM's i, f, g, o and c
+SAVED_GATES = {"bigru": 4, "bilstm": 5}
+# the backward's inputs per (row, unit) of a step (bwd_inputs): dy, the
+# saved gates, h_{t-1} and the LSTM's c_{t-1}
+BWD_INPUTS = {"bigru": 6, "bilstm": 8}
 
 # csrc/birnn.cu: the shared memory a block may take, the instantiated
 # rows per thread (SIMT route), the most hidden units a block takes, the
@@ -223,6 +240,31 @@ def birnn_plan(B: int, H: int, mode: str, dtype: torch.dtype,
                      smem=fixed + KR * per_row, **common)
 
 
+def _bwd_smem_bytes(p: BirnnPlan, mode: str, KB: int) -> int:
+    """csrc/birnn.cu bwd_smem_bytes: KB resident rows of W_hh^T (C Up
+    columns), the step's dgh of the block (zero-padded rows, as the
+    forward's h), the C slots of dh partials, the prefetched inputs."""
+    K, CU = p.n_gates * p.Up, p.C * p.Up
+    h_rows = _ceil(p.tile, 2) + p.rpt
+    return 4 * (KB * CU + h_rows * K + p.C * p.tile * p.Up
+                + p.tile * BWD_INPUTS[mode] * p.Up)
+
+
+def birnn_backward_plan(p: BirnnPlan, mode: str) -> tuple:
+    """(KB, smem) of the backward kernel on the forward's f32 plan ``p``:
+    as many of the block's K = NG Up rows of W_hh^T resident as shared
+    memory holds beside the rest (a multiple of 4; the others stream from
+    L2 at every step), and the block's shared memory."""
+    if p.route != "simt" or p.itemsize != 4:
+        raise ValueError("the backward runs on the f32 SIMT plan")
+    K, CU = p.n_gates * p.Up, p.C * p.Up
+    fixed = _bwd_smem_bytes(p, mode, 0)
+    if fixed > SMEM_MAX:
+        raise ValueError(f"no backward plan fits B {p.B}, H {p.H}, {mode}")
+    KB = min(K, (SMEM_MAX - fixed) // (CU * 4) // 4 * 4)
+    return KB, _bwd_smem_bytes(p, mode, KB)
+
+
 def _plan_args(p: BirnnPlan):
     return (ROUTES[p.route], p.C, p.tile, p.Up, p.KW, p.KR, p.rpt, p.smem)
 
@@ -256,19 +298,17 @@ def card_plan(B: int, H: int, mode: str, dtype: torch.dtype) -> BirnnPlan:
     return plan
 
 
-def birnn_recurrence_plain(gi: torch.Tensor, wh: torch.Tensor,
-                           bh: Optional[torch.Tensor], *, mode: str,
-                           hidden: int) -> torch.Tensor:
-    """gi (T, 2, B, G) input projections (+bias), lane 1 time-reversed;
-    wh (2, H, G); bh (2, G) for the GRU, None for the LSTM.
-    Returns ys (T, 2, B, H), lane 1 still in reversed time."""
+def _plain_steps(gi: torch.Tensor, wh: torch.Tensor,
+                 bh: Optional[torch.Tensor], mode: str, hidden: int):
+    """The recurrence step by step in f32: yields each step's h (2, B, H)
+    and the gate values the training route saves (the GRU's r, z, n and
+    W_hn h + b_hn; the LSTM's i, f, g, o and c)."""
     K, B = gi.shape[1:3]
     f32 = torch.float32
     whf = wh.to(f32)
     bhf = bh.to(f32)[:, None, :] if mode == "bigru" else None
     h = torch.zeros((K, B, hidden), dtype=f32, device=gi.device)
     c = torch.zeros_like(h)
-    ys = []
     # one cast and one unbind for all steps: under autograd, gi[t] per
     # step would give back a zero-filled gradient of all of gi, summed T
     # times, and a cast per step doubles the small launches
@@ -282,15 +322,27 @@ def birnn_recurrence_plain(gi: torch.Tensor, wh: torch.Tensor,
             z = torch.sigmoid(iz + hz)
             n = torch.tanh(in_ + r * hn)
             h = (1.0 - z) * n + z * h
+            yield h, (r, z, n, hn)
         else:
             i, f, g, o = (g_in + gh).chunk(4, dim=-1)
-            c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
-            h = torch.sigmoid(o) * torch.tanh(c)
-        ys.append(h)
+            i, f, g, o = (torch.sigmoid(i), torch.sigmoid(f), torch.tanh(g),
+                          torch.sigmoid(o))
+            c = f * c + i * g
+            h = o * torch.tanh(c)
+            yield h, (i, f, g, o, c)
+
+
+def birnn_recurrence_plain(gi: torch.Tensor, wh: torch.Tensor,
+                           bh: Optional[torch.Tensor], *, mode: str,
+                           hidden: int) -> torch.Tensor:
+    """gi (T, 2, B, G) input projections (+bias), lane 1 time-reversed;
+    wh (2, H, G); bh (2, G) for the GRU, None for the LSTM.
+    Returns ys (T, 2, B, H), lane 1 still in reversed time."""
+    ys = [h for h, _ in _plain_steps(gi, wh, bh, mode, hidden)]
     return torch.stack(ys).to(gi.dtype)
 
 
-def _launch(gi, wh, bh, mode, hidden, exchange_only) -> torch.Tensor:
+def _launch(gi, wh, bh, mode, hidden, exchange_only, save_gates=False):
     req = _build.require
     req(mode in MODE_CODES, f"unknown mode {mode!r}")
     T, K, B, G = gi.shape
@@ -308,12 +360,15 @@ def _launch(gi, wh, bh, mode, hidden, exchange_only) -> torch.Tensor:
     wh = wh.contiguous()
     bh_c = bh.contiguous() if mode == "bigru" else None
     out = torch.empty((T, 2, B, hidden), dtype=gi.dtype, device=gi.device)
+    gates = (torch.empty((T, 2, B, SAVED_GATES[mode], hidden),
+                         dtype=torch.float32, device=gi.device)
+             if save_gates else None)
     err = _build.lib().gvd_birnn_recurrence(
         code, MODE_CODES[mode], gi.data_ptr(), wh.data_ptr(),
-        _build.ptr(bh_c), out.data_ptr(), T, B, hidden, *_plan_args(plan),
-        int(exchange_only), _build.stream_of(gi))
+        _build.ptr(bh_c), out.data_ptr(), _build.ptr(gates), T, B, hidden,
+        *_plan_args(plan), int(exchange_only), _build.stream_of(gi))
     _build.check(err, "birnn_recurrence")
-    return out
+    return out, gates
 
 
 def birnn_recurrence(gi: torch.Tensor, wh: torch.Tensor,
@@ -326,7 +381,7 @@ def birnn_recurrence(gi: torch.Tensor, wh: torch.Tensor,
     _build.refuse_grad("birnn_recurrence", gi, wh, bh)
     if not gi.is_cuda:
         return birnn_recurrence_plain(gi, wh, bh, mode=mode, hidden=hidden)
-    out = _launch(gi, wh, bh, mode, hidden, exchange_only=False)
+    out, _ = _launch(gi, wh, bh, mode, hidden, exchange_only=False)
     _build.launches["birnn_recurrence"] += 1
     return out
 
@@ -342,3 +397,133 @@ def birnn_exchange(gi: torch.Tensor, wh: torch.Tensor,
     _build.require(gi.is_cuda, "birnn_exchange runs on the card only")
     with torch.no_grad():
         _launch(gi, wh, bh, mode, hidden, exchange_only=True)
+
+
+# --------------------------------------------------------------------- #
+# training: forward with saved gates, the reverse-time backward
+# --------------------------------------------------------------------- #
+
+def birnn_forward_train_plain(gi: torch.Tensor, wh: torch.Tensor,
+                              bh: Optional[torch.Tensor], *, mode: str,
+                              hidden: int):
+    """The training route's forward in plain PyTorch (f32): ys (T, 2, B,
+    H) as ``birnn_recurrence_plain``'s, and the saved gates (T, 2, B, NS,
+    H): the GRU's r, z, n, W_hn h + b_hn; the LSTM's i, f, g, o, c."""
+    steps = list(_plain_steps(gi, wh, bh, mode, hidden))
+    return (torch.stack([h for h, _ in steps]),
+            torch.stack([torch.stack(g, dim=2) for _, g in steps]))
+
+
+def birnn_backward_plain(dys: torch.Tensor, ys: torch.Tensor,
+                         gates: torch.Tensor, wh: torch.Tensor, *,
+                         mode: str):
+    """The training route's backward in plain PyTorch (f32): the reverse
+    recurrence written out, step by step, as the kernel runs it (the
+    carried dh = the local z dh term (GRU) + dgh W_hh^T), then dW_hh as
+    one product of h_{t-1} and dgh over all T B rows and db_hh as dgh's
+    sum.  Returns (dgi (T, 2, B, G), dwh (2, H, G), dbh (2, G) or None)."""
+    T, K, B, H = ys.shape
+    whT = wh.transpose(1, 2)
+    hp = torch.cat([ys.new_zeros((1, K, B, H)), ys[:-1]])
+    dh = ys.new_zeros((K, B, H))
+    dc = torch.zeros_like(dh)
+    dgi, dgh = [None] * T, [None] * T
+    for t in range(T - 1, -1, -1):
+        dh = dys[t] + dh
+        if mode == "bigru":
+            r, z, n, hn = gates[t].unbind(2)
+            dn = dh * (1.0 - z) * (1.0 - n * n)
+            dr = dn * hn * r * (1.0 - r)
+            dz = dh * (hp[t] - n) * z * (1.0 - z)
+            dgi[t] = torch.cat([dr, dz, dn], dim=-1)
+            dgh[t] = torch.cat([dr, dz, dn * r], dim=-1)
+            dh = dh * z + torch.bmm(dgh[t], whT)
+        else:
+            i, f, g, o, c = gates[t].unbind(2)
+            c_old = gates[t - 1][:, :, 4] if t > 0 else torch.zeros_like(c)
+            tc = torch.tanh(c)
+            dc = dc + dh * o * (1.0 - tc * tc)
+            dgi[t] = dgh[t] = torch.cat(
+                [dc * g * i * (1.0 - i), dc * c_old * f * (1.0 - f),
+                 dc * i * (1.0 - g * g), dh * tc * o * (1.0 - o)], dim=-1)
+            dc = dc * f
+            dh = torch.bmm(dgh[t], whT)
+    dgh = torch.stack(dgh, dim=1)                        # (2, T, B, G)
+    rows = hp.transpose(0, 1).reshape(K, T * B, H)
+    dwh = torch.bmm(rows.transpose(1, 2), dgh.reshape(K, T * B, -1))
+    dbh = dgh.sum(dim=(1, 2)) if mode == "bigru" else None
+    return torch.stack(dgi), dwh, dbh
+
+
+def _launch_backward(dys, ys, gates, wh, mode, hidden):
+    """The backward kernel on the forward's plan, then dW_hh and db_hh."""
+    T, K, B, H = ys.shape
+    G = wh.shape[-1]
+    plan = card_plan(B, hidden, mode, torch.float32)
+    KB, smem = birnn_backward_plan(plan, mode)
+    dys = dys.contiguous()
+    whT = wh.transpose(1, 2).contiguous()                # (2, G, H)
+    dgi = torch.empty((T, K, B, G), dtype=torch.float32, device=ys.device)
+    dgh = torch.empty((K, T, B, G), dtype=torch.float32, device=ys.device)
+    hp = torch.empty((K, T, B, H), dtype=torch.float32, device=ys.device)
+    err = _build.lib().gvd_birnn_backward(
+        MODE_CODES[mode], dys.data_ptr(), ys.data_ptr(), gates.data_ptr(),
+        whT.data_ptr(), dgi.data_ptr(), dgh.data_ptr(), hp.data_ptr(), T, B,
+        hidden, plan.C, plan.tile, plan.Up, plan.rpt, KB, smem,
+        _build.stream_of(ys))
+    _build.check(err, "birnn_backward")
+    _build.launches["birnn_train_bwd"] += 1
+    dgh = dgh.view(K, T * B, G)
+    dwh = torch.bmm(hp.view(K, T * B, H).transpose(1, 2), dgh)
+    dbh = dgh.sum(dim=1) if mode == "bigru" else None
+    return dgi, dwh, dbh
+
+
+class _BirnnTrain(torch.autograd.Function):
+    """ys = the recurrence of gi over wh (and bh), all f32; the forward
+    saves ys and the gates, the backward returns the gradients of gi, wh
+    and bh.  CUDA tensors launch the kernels, CPU tensors take the plain
+    twins."""
+
+    @staticmethod
+    def forward(ctx, gi, wh, bh, mode, hidden):
+        if gi.is_cuda:
+            ys, gates = _launch(gi, wh, bh, mode, hidden,
+                                exchange_only=False, save_gates=True)
+            _build.launches["birnn_train_fwd"] += 1
+        else:
+            ys, gates = birnn_forward_train_plain(gi, wh, bh, mode=mode,
+                                                  hidden=hidden)
+        ctx.save_for_backward(ys, gates, wh)
+        ctx.mode, ctx.hidden, ctx.has_bh = mode, hidden, bh is not None
+        return ys
+
+    @staticmethod
+    def backward(ctx, dys):
+        from grounded_video_description_torch.utils.logging import span
+        ys, gates, wh = ctx.saved_tensors
+        with span("birnn_bwd"):
+            if ys.is_cuda:
+                dgi, dwh, dbh = _launch_backward(dys, ys, gates, wh,
+                                                 ctx.mode, ctx.hidden)
+            else:
+                dgi, dwh, dbh = birnn_backward_plain(dys, ys, gates, wh,
+                                                     mode=ctx.mode)
+        return dgi, dwh, dbh if ctx.has_bh else None, None, None
+
+
+def birnn_recurrence_train(gi: torch.Tensor, wh: torch.Tensor,
+                           bh: Optional[torch.Tensor], *, mode: str,
+                           hidden: int) -> torch.Tensor:
+    """Same contract as ``birnn_recurrence_plain``, differentiable: the
+    inputs cast to f32 once (as the twin computes), one forward and one
+    backward launch a call on a CUDA tensor (``card_plan``'s f32 plan;
+    ``birnn_train_fwd`` and ``birnn_train_bwd`` in ``_build.launches``),
+    the plain twins on a CPU tensor.  Outputs in gi's dtype."""
+    f32 = torch.float32
+    if mode not in MODE_CODES:
+        raise ValueError(f"unknown mode {mode!r}")
+    ys = _BirnnTrain.apply(gi.to(f32).contiguous(), wh.to(f32).contiguous(),
+                           bh.to(f32).contiguous() if mode == "bigru"
+                           else None, mode, hidden)
+    return ys.to(gi.dtype)

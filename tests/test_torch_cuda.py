@@ -212,6 +212,123 @@ def test_birnn_recurrence_kernel(dev, mode, dtype, shape):
         assert plan.route == "mma"           # the tensor-core kernel
 
 
+# K2's training route at the cells' microbatches (30 rows; 15 a rank of
+# the four-card mesh) and at a ragged shape (H = 520: padded units)
+TRAIN_SHAPES = [(480, 30, 512), (480, 15, 512), (30, 7, 520)]
+
+
+def _birnn_train_inputs(dev, mode, dtype, T, B, H, seed=1):
+    G = (3 if mode == "bigru" else 4) * H
+    g = torch.Generator(device=dev).manual_seed(seed)
+    gi = (torch.randn(T, 2, B, G, generator=g, device=dev) * 0.5).to(dtype)
+    wh = ((torch.rand(2, H, G, generator=g, device=dev) * 2 - 1)
+          / H ** 0.5).to(dtype)
+    bh = ((torch.rand(2, G, generator=g, device=dev) * 2 - 1)
+          / H ** 0.5).to(dtype) if mode == "bigru" else None
+    dys = torch.randn(T, 2, B, H, generator=g, device=dev)
+    return gi, wh, bh, dys
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", TRAIN_SHAPES)
+@pytest.mark.parametrize("mode", ["bigru", "bilstm"])
+def test_birnn_train_forward_is_the_inference_route(dev, mode, shape):
+    """The training route's forward is the inference route's SIMT kernel
+    on the same f32 plan with the gates stored besides: ys bit for bit."""
+    from grounded_video_description_torch.ops.kernels.birnn import (
+        birnn_recurrence_train)
+    T, B, H = shape
+    gi, wh, bh, _ = _birnn_train_inputs(dev, mode, torch.float32, T, B, H)
+    with torch.no_grad():
+        want = birnn_recurrence(gi, wh, bh, mode=mode, hidden=H)
+    gi.requires_grad_(True)
+    got = birnn_recurrence_train(gi, wh, bh, mode=mode, hidden=H)
+    torch.cuda.synchronize()
+    assert got.requires_grad and torch.equal(got.detach(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", TRAIN_SHAPES)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("mode", ["bigru", "bilstm"])
+def test_birnn_train_gradients(dev, mode, dtype, shape):
+    """The gradients of gi, W_hh and b_hh through the training route (one
+    forward and one backward launch) against autograd through the plain
+    twin, on the same cotangent.  Both compute in f32 after the same cast,
+    in another order: the carried dh passes through T steps, and dW_hh is
+    one product over T B rows where the twin adds T products of B rows, so
+    each gradient is held to 1e-4 of its largest magnitude in f32.  A bf16
+    gradient is the f32 one rounded once: one bf16 ulp (2^-8) of the
+    largest, 1e-2 of it, covers two roundings of nearby values."""
+    from grounded_video_description_torch.ops.kernels.birnn import (
+        birnn_recurrence_train)
+    T, B, H = shape
+    gi, wh, bh, dys = _birnn_train_inputs(dev, mode, dtype, T, B, H)
+    leaves = [t for t in (gi, wh, bh) if t is not None]
+
+    def grads(fn):
+        xs = [t.detach().clone().requires_grad_(True) for t in leaves]
+        args = xs + [None] * (3 - len(xs))
+        ys = fn(*args, mode=mode, hidden=H)
+        ys.backward(dys.to(ys.dtype))
+        return ys.detach(), [x.grad for x in xs]
+
+    ys_ref, ref = grads(birnn_recurrence_plain)
+    _build.reset_launches()
+    ys_got, got = grads(birnn_recurrence_train)
+    torch.cuda.synchronize()
+    assert dict(_build.launches) == {"birnn_train_fwd": 1,
+                                     "birnn_train_bwd": 1}
+    assert _within(ys_got, ys_ref, dtype)
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+    for name, a, b in zip(("gi", "wh", "bh"), got, ref):
+        assert a.dtype == b.dtype == dtype
+        scale = float(b.float().abs().max())
+        err = float((a.float() - b.float()).abs().max())
+        assert err <= tol * scale, (name, err, scale)
+
+
+@pytest.mark.cuda
+def test_birnn_train_keeps_the_dropout_masks_and_records_its_spans(dev):
+    """Two BiGRU layers in training at drop 0.5: through the route and
+    through the twin from one generator seed, the same outputs (hence the
+    same mask between the layers) and the generator left in the same
+    state.  Under a profile the route's layers are ``birnn`` spans with
+    ``kernel`` 1 and its backwards, on autograd's device thread, are
+    ``birnn_bwd`` spans with a device interval, under the CUDA-only
+    profile of the benchmark's traced runs."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from grounded_video_description_torch.nn import core
+    from grounded_video_description_torch.utils.logging import span_records
+    D, H = 48, 40
+    rnn = core.BiRNNParams(D, H, 2, "bigru")
+    rnn.reset_parameters(torch.Generator().manual_seed(3))
+    rnn = rnn.to(dev)
+    x = torch.randn(7, 30, D, generator=torch.Generator().manual_seed(4))
+    x = x.to(dev).requires_grad_(True)
+    runs = {}
+    for kernel in (True, False):
+        g = torch.Generator(device=dev).manual_seed(5)
+        before = len(span_records())
+        with profile(activities=[ProfilerActivity.CUDA]):
+            out = core.birnn(rnn, x, use_kernel=kernel, train=True, drop=0.5,
+                             generator=g)
+            out.square().sum().backward()
+            torch.cuda.synchronize()
+        runs[kernel] = (out.detach(), g.get_state(), x.grad.clone())
+        x.grad = None
+        recs = span_records()[before:]
+        fwd = [r for r in recs if r.name == "birnn"]
+        assert [r.counts["kernel"] for r in fwd] == [int(kernel)] * 2
+        bwd = [r for r in recs if r.name == "birnn_bwd"]
+        assert len(bwd) == (2 if kernel else 0)
+        assert all(r.device_ms > 0 for r in bwd)
+    assert torch.equal(runs[True][1], runs[False][1])
+    assert float((runs[True][0] - runs[False][0]).abs().max()) <= 1e-5
+    assert float((runs[True][2] - runs[False][2]).abs().max()) <= 1e-4
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_encoder_layer_kernel(dev, dtype):
@@ -1060,3 +1177,60 @@ def test_the_ring_copies_are_pinned_dmas(dev):
     for name in ("h2d", "d2h"):
         assert recs[name].nbytes > 0
         assert recs[name].staged_nbytes == recs[name].nbytes
+
+
+# ------------------------------------------------------------------ #
+# K2's training route in topdown-train's steps: the file's longest test,
+# last, so that the profiles of the tests above run in a process no older
+# than before it came (test_the_ring_copies_are_pinned_dmas lost its
+# profile's first copies when it ran after it)
+# ------------------------------------------------------------------ #
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [2200000101, 3180018705])
+def test_topdown_train_steps_through_the_route(dev, seed):
+    """topdown-train's first three steps (batch 240 in 8 microbatches, the
+    cell's weights and batches from ``seed``) with the BiGRU through K2's
+    training route against the same trainer through the twin: the cell's
+    numbers (losses, pre-clip norms, the first gradient, the change after
+    three steps) within ``benchmark/checks/topdown-train.json``'s limits,
+    f32 with TF32 off.  3180018705 is a seed at which the program read
+    ``norm_err`` 2.67e-05 against the reference, route or twin alike."""
+    import dataclasses
+    import json
+    from pathlib import Path
+
+    from benchmark import harness
+    from benchmark.drivers import train_closed as tc
+    from benchmark.reference import train as ref_train
+    from benchmark.weights import draw_weights
+    from grounded_video_description_torch.engine.trainer import (
+        batch_to_device)
+    cell = harness.load_cell("topdown-train", seed, 0.0, False)
+    checks = json.loads((Path(harness.BENCH_DIR) / "checks" /
+                         "topdown-train.json").read_text())["numbers"]
+    batches = tc.inputs(cell)
+    readings = {}
+    for kernel in (True, False):
+        kernels = {**cell.config["kernels"]["train"],
+                   "use_pallas_rnn": kernel}
+        c = dataclasses.replace(cell, config={**cell.config, "kernels": {
+            **cell.config["kernels"], "train": kernels}})
+        weights = draw_weights(c.config, seed, c.device)
+        trainer = tc.program(c, weights)
+        cfg = trainer.cfg
+
+        def step(b):
+            return trainer.train_step(batch_to_device(cfg, b, c.device),
+                                      cfg.learning_rate)
+        _build.reset_launches()
+        readings[kernel] = tc.first_steps(c, trainer, step, batches,
+                                          weights)
+        got = dict(_build.launches)
+        assert got.get("birnn_train_fwd", 0) == (2 * 8 * 3 if kernel else 0)
+        assert got.get("birnn_train_bwd", 0) == (2 * 8 * 3 if kernel else 0)
+        del trainer, weights
+        tc.free(c)
+    numbers = ref_train.numbers(readings[True], readings[False])
+    for k, v in numbers.items():
+        assert v <= checks[k]["limit"], (k, v, checks[k]["limit"])

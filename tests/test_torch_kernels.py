@@ -20,7 +20,8 @@ from grounded_video_description_tpu.ops.pallas.region_attention import (
 from grounded_video_description_torch.models import transformer as txf
 from grounded_video_description_torch.ops.kernels import _build
 from grounded_video_description_torch.ops.kernels.birnn import (
-    birnn_recurrence, birnn_recurrence_plain)
+    birnn_backward_plain, birnn_forward_train_plain, birnn_recurrence,
+    birnn_recurrence_plain, birnn_recurrence_train)
 from grounded_video_description_torch.ops.kernels.encoder_layer import (
     fused_encoder_layer, fused_encoder_layer_plain, pack_qkv,
     qkv_heads_plain)
@@ -115,6 +116,80 @@ def test_birnn_recurrence_plain_matches_pallas(mode):
     _build.reset_launches()
     assert torch.equal(out, birnn_recurrence(*args, mode=mode, hidden=H))
     assert not _build.launches
+
+
+def _jax_recurrence(gi, wh, bh, mode):
+    """K2's recurrence as the JAX package's own steps under a scan, both
+    lanes vmapped: what ``jax.grad`` differentiates below."""
+    from grounded_video_description_tpu.ops.pallas.birnn import (
+        _gru_step, _lstm_step)
+    h0 = jnp.zeros((gi.shape[2], wh.shape[1]), jnp.float32)
+
+    def lane(g, w, b):
+        if mode == "bigru":
+            def step(h, x):
+                h = _gru_step(h, x, w, b)
+                return h, h
+            return jax.lax.scan(step, h0, g)[1]
+
+        def step(hc, x):
+            hc = _lstm_step(*hc, x, w)
+            return hc, hc[0]
+        return jax.lax.scan(step, (h0, h0), g)[1]
+    return jax.vmap(lane, in_axes=(1, 0, 0 if mode == "bigru" else None),
+                    out_axes=1)(gi, wh, bh)
+
+
+@pytest.mark.parametrize("mode", ["bigru", "bilstm"])
+def test_birnn_train_twins_match_autograd_and_jax(mode):
+    """K2's training route on the CPU: the forward twin's ys are the plain
+    recurrence's and its saved gates give them back; the backward twin
+    (the reverse recurrence, dW_hh as one product) gives the gradients of
+    gi, W_hh and b_hh that autograd through the plain recurrence and
+    ``jax.grad`` through the JAX package's steps give, within 1e-5; the
+    route's Function gives the twins' gradients, and counts no launch."""
+    T, B, D, H = 12, 5, 24, 16
+    gi, wh, bh = _gi_inputs(mode, T, B, D, H, 1)
+    w = np.random.RandomState(5).randn(T, 2, B, H).astype(np.float32)
+    args = [_t(gi), _t(wh), None if bh is None else _t(bh)]
+    ys, gates = birnn_forward_train_plain(*args, mode=mode, hidden=H)
+    np.testing.assert_allclose(
+        _np(ys), _np(birnn_recurrence_plain(*args, mode=mode, hidden=H)),
+        atol=1e-6)
+    hp = torch.cat([torch.zeros_like(ys[:1]), ys[:-1]])
+    if mode == "bigru":
+        r, z, n, hn = gates.unbind(3)
+        back = (1 - z) * n + z * hp
+    else:
+        i, f, g, o, c = gates.unbind(3)
+        back = o * torch.tanh(c)
+        c_old = torch.cat([torch.zeros_like(c[:1]), c[:-1]])
+        np.testing.assert_allclose(_np(c), _np(f * c_old + i * g), atol=1e-6)
+    np.testing.assert_allclose(_np(back), _np(ys), atol=1e-6)
+
+    n_args = 3 if mode == "bigru" else 2
+    dgi, dwh, dbh = birnn_backward_plain(_t(w), ys, gates, args[1],
+                                         mode=mode)
+    got = [dgi, dwh, dbh][:n_args]
+    leaves = [a.clone().requires_grad_(True) for a in args[:n_args]]
+    out = birnn_recurrence_plain(*(leaves + [None] * (3 - n_args)),
+                                 mode=mode, hidden=H)
+    auto = torch.autograd.grad((out * _t(w)).sum(), leaves)
+    jax_grads = jax.grad(
+        lambda *a: jnp.sum(_jax_recurrence(*a, mode) * w),
+        argnums=tuple(range(n_args)))(gi, wh, bh)
+    _build.reset_launches()
+    leaves = [a.clone().requires_grad_(True) for a in args[:n_args]]
+    out = birnn_recurrence_train(*(leaves + [None] * (3 - n_args)),
+                                 mode=mode, hidden=H)
+    route = torch.autograd.grad((out * _t(w)).sum(), leaves)
+    assert not _build.launches
+    for name, a, b, j, r in zip(("gi", "wh", "bh"), got, auto, jax_grads,
+                                route):
+        np.testing.assert_allclose(_np(a), _np(b), atol=1e-5, err_msg=name)
+        np.testing.assert_allclose(_np(a), np.asarray(j), atol=1e-5,
+                                   err_msg=name)
+        assert torch.equal(a, r), name
 
 
 def _encoder_pair(D, HID, layers, seed):

@@ -129,9 +129,11 @@ def test_batch_norm_train_matches_jax():
 
 @pytest.mark.parametrize("mode", ["bigru", "bilstm"])
 def test_birnn_train_matches_jax_and_differentiates(mode):
-    """Training runs K2's plain twin under autograd (use_kernel is
-    ignored): same output as the JAX scan, and the input and every
-    trainable weight get a gradient, within 1e-5 of JAX's."""
+    """Training with use_kernel on CPU tensors: the recurrence takes K2's
+    plain twin under autograd (the training route's kernels run on a CUDA
+    tensor alone) and counts no launch; same output as the JAX scan, and
+    the input and every trainable weight get a gradient, within 1e-5 of
+    JAX's."""
     B, T, D, H = 3, 9, 12, 8
     p = jcore.birnn_init(jax.random.PRNGKey(4), D, H, 2, mode)
     x = np.random.RandomState(3).randn(B, T, D).astype(np.float32)
@@ -157,6 +159,36 @@ def test_birnn_train_matches_jax_and_differentiates(mode):
             continue
         np.testing.assert_allclose(prm.grad.numpy(), ref[name].numpy(),
                                    atol=1e-5, err_msg=name)
+
+
+def test_birnn_training_route_keeps_the_dropout_masks(monkeypatch):
+    """Two BiGRU layers in training at drop 0.5, the recurrence taken once
+    by the twin under autograd and once by K2's training route (its
+    Function with the plain forward and backward, as a CPU tensor runs
+    it), from one generator seed: the same output, so the same mask
+    between the layers, the generator left in the same state, and the
+    same input gradient."""
+    from grounded_video_description_torch.ops.kernels import birnn as kb
+    D, H = 12, 8
+    rnn = tcore.BiRNNParams(D, H, 2, "bigru")
+    rnn.reset_parameters(torch.Generator().manual_seed(3))
+    x = torch.randn(3, 9, D, generator=torch.Generator().manual_seed(4))
+    got = {}
+    for route in (False, True):
+        if route:
+            monkeypatch.setattr(kb, "birnn_recurrence_plain",
+                                kb.birnn_recurrence_train)
+        g = torch.Generator().manual_seed(5)
+        xr = x.clone().requires_grad_(True)
+        out = tcore.birnn(rnn, xr, use_kernel=True, train=True, drop=0.5,
+                          generator=g)
+        out.square().sum().backward()
+        got[route] = (out.detach(), g.get_state(), xr.grad)
+    assert torch.equal(got[True][1], got[False][1])
+    np.testing.assert_allclose(got[True][0].numpy(), got[False][0].numpy(),
+                               atol=1e-6)
+    np.testing.assert_allclose(got[True][2].numpy(), got[False][2].numpy(),
+                               atol=1e-5)
 
 
 @pytest.mark.parametrize("impl", ["xla", "pallas", "hybrid"])

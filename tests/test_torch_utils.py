@@ -257,7 +257,8 @@ SERVE_TREE = [("d2h", "generate"), ("decode", "generate"),
 TRAIN_TREE = sorted([("h2d", None), ("train_step", None),
                      ("optimizer", "train_step")]
                     + [("forward", "train_step"), ("encode", "forward"),
-                       ("backward", "train_step")] * 2)
+                       ("backward", "train_step")] * 2
+                    + [("birnn", "encode")] * 4)
 
 
 def _span_call(kind):
@@ -292,8 +293,9 @@ def test_spans_are_recorded_under_a_profiler_alone(kind, monkeypatch):
     ``record_function``; (b) under a CPU profile it records the span tree
     of its entry (serving: ``generate`` holding ``h2d``, ``encode``,
     ``decode`` and ``d2h``; training at two microbatches: ``h2d`` and
-    ``train_step`` holding two ``forward`` (each holding ``encode``), two
-    ``backward`` and one ``optimizer``), one ``record_function`` a span;
+    ``train_step`` holding two ``forward`` (each holding ``encode``, which
+    holds the two BiGRU layers' ``birnn``), two ``backward`` and one
+    ``optimizer``), one ``record_function`` a span;
     (c) ``h2d`` counts the host arrays' bytes, ``d2h`` the returned
     arrays'; (d) each span's host interval lies within the clock's
     bounds around the profile, and within its parent's."""
