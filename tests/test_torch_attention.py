@@ -2,6 +2,9 @@
 temporal attention and the grounder against the JAX ops, f32 on the
 CPU, from seeded numpy inputs."""
 
+# first: one torch thread a process (-n 6 workers x 8 OpenMP threads, 8 cores)
+import torch_threads  # noqa: F401
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -4,6 +4,9 @@ against the Pallas primitive ``mha_probs_dropout`` in interpret mode on the
 CPU, forward and q/k/v gradients, with six uneven heads.  The CUDA kernels
 are tested against the twin on the card by tests/test_torch_cuda.py."""
 
+# first: one torch thread a process (-n 6 workers x 8 OpenMP threads, 8 cores)
+import torch_threads  # noqa: F401
+
 import math
 
 import jax

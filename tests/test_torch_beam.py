@@ -5,6 +5,9 @@ the shared-bank beam attentions in every region mode (1e-5), ``_top_w``'s
 order on rows with planted ties, and the evaluator at beam 3 writing the
 JAX evaluator's densecap and attn-gen JSONs byte for byte."""
 
+# first: one torch thread a process (-n 6 workers x 8 OpenMP threads, 8 cores)
+import torch_threads  # noqa: F401
+
 import dataclasses
 import os
 from functools import partial

@@ -6,6 +6,9 @@ held to what the kernel needs, and a plain emulation of the kernel's
 partition of the work (units per block, K-splits, resident and streamed
 rows, staged chunks of h) is held against the plain twin."""
 
+# first: one torch thread a process (-n 6 workers x 8 OpenMP threads, 8 cores)
+import torch_threads  # noqa: F401
+
 import numpy as np
 import pytest
 import torch

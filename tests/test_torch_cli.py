@@ -22,6 +22,9 @@ package's ``write_synthetic_dataset`` (as tests/test_cli_end_to_end.py):
   2; a multi-host process index outside the host count raises; no
   visible card with ``--device cuda`` raises."""
 
+# first: one torch thread a process (-n 6 workers x 8 OpenMP threads, 8 cores)
+import torch_threads  # noqa: F401
+
 import dataclasses
 import json
 import os

@@ -5,6 +5,9 @@ Pallas ``flash_self_attention``, and the obj_interact encoder and
 ``sample_greedy`` with the K6/K7 flags on against the JAX model (f32).
 The CUDA kernels are tested on the card by tests/test_torch_cuda.py."""
 
+# first: one torch thread a process (-n 6 workers x 8 OpenMP threads, 8 cores)
+import torch_threads  # noqa: F401
+
 import jax
 import jax.numpy as jnp
 import numpy as np

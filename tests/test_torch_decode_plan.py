@@ -11,6 +11,9 @@ to bf16 once) is held against the twin's products."""
 
 from __future__ import annotations
 
+# first: one torch thread a process (-n 6 workers x 8 OpenMP threads, 8 cores)
+import torch_threads  # noqa: F401
+
 import math
 
 import numpy as np

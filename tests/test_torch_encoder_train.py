@@ -10,6 +10,9 @@ through ``pack_layer_params`` with respect to the layer's own params.
 Then the dispatch: the seeds per layer, and the flag that routes the
 encoder and the model through K5."""
 
+# first: one torch thread a process (-n 6 workers x 8 OpenMP threads, 8 cores)
+import torch_threads  # noqa: F401
+
 import jax
 import jax.numpy as jnp
 import numpy as np

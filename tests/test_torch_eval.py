@@ -9,6 +9,9 @@ written by the port's ``write_synthetic_dataset`` (which
 tests/test_torch_utils.py holds to the JAX package's) and read by the
 JAX package's loader."""
 
+# first: one torch thread a process (-n 6 workers x 8 OpenMP threads, 8 cores)
+import torch_threads  # noqa: F401
+
 import dataclasses
 import importlib
 import itertools

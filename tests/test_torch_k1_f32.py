@@ -6,6 +6,9 @@ width (``encoder_layer.attention_route``)."""
 
 from __future__ import annotations
 
+# first: one torch thread a process (-n 6 workers x 8 OpenMP threads, 8 cores)
+import torch_threads  # noqa: F401
+
 import numpy as np
 import pytest
 import torch

@@ -12,6 +12,9 @@ version, the GEMM as its planned blocks, against the twin's autograd at
 tests/test_torch_encoder_train.py's shapes (B 3, R 200, D 32, six heads,
 FFN 24)."""
 
+# first: one torch thread a process (-n 6 workers x 8 OpenMP threads, 8 cores)
+import torch_threads  # noqa: F401
+
 import numpy as np
 import pytest
 import torch

@@ -3,6 +3,9 @@ Pallas kernel it replaces (interpret mode on the CPU), and the CPU
 dispatch of each wrapper.  The CUDA kernels themselves are tested on the
 card by tests/test_torch_cuda.py."""
 
+# first: one torch thread a process (-n 6 workers x 8 OpenMP threads, 8 cores)
+import torch_threads  # noqa: F401
+
 import jax
 import jax.numpy as jnp
 import numpy as np

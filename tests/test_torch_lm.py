@@ -9,6 +9,9 @@ it); the score bias moving the picks but not their weights; and
 ``Evaluator.generate`` end to end over a GVD model built on the meta
 device."""
 
+# first: one torch thread a process (-n 6 workers x 8 OpenMP threads, 8 cores)
+import torch_threads  # noqa: F401
+
 import sys
 from pathlib import Path
 

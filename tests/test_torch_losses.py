@@ -2,6 +2,9 @@
 through the JAX function and its port, f32 on the CPU, including the
 degenerate-box conventions and the cls BCE's where-guard at p = 0."""
 
+# first: one torch thread a process (-n 6 workers x 8 OpenMP threads, 8 cores)
+import torch_threads  # noqa: F401
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -1,6 +1,9 @@
 """PyTorch port, nn/core ops: the same inputs (numpy, seeded) through the
 JAX function and its port, float32 on the CPU."""
 
+# first: one torch thread a process (-n 6 workers x 8 OpenMP threads, 8 cores)
+import torch_threads  # noqa: F401
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -36,6 +36,9 @@ The model axis (``parallel/tensor.py``) on four ranks:
 The ranks of a case run in one spawned group; the JAX package is imported
 only by the parent process."""
 
+# first: one torch thread a process (-n 6 workers x 8 OpenMP threads, 8 cores)
+import torch_threads  # noqa: F401
+
 import copy
 import dataclasses
 import json
@@ -130,14 +133,13 @@ def _step_result(trainer, batch, lr):
 # --------------------------------------------------------------------- #
 
 def _join(rank, tmp):
-    torch.set_num_threads(1)
     return init_mesh("cpu", shape=(WORLD,), rank=rank,
                      init_method=f"file://{tmp}/rdzv")
 
 
 def _group_worker(rank, tmp, jobs):
     mesh = _join(rank, tmp)
-    out = {"train": {}, "eval": {}}
+    out = {"train": {}, "eval": {}, "threads": torch.get_num_threads()}
     try:
         for name, (cfg, state, batch) in jobs["train"].items():
             rows = shard_rows(cfg.batch_size, cfg.grad_accum, rank, WORLD)
@@ -417,14 +419,13 @@ def _tp_worker(rank, tmp, jobs):
     from grounded_video_description_torch.engine.checkpoint import (
         CheckpointManager)
 
-    torch.set_num_threads(1)
     mesh22 = init_mesh("cpu", shape=(2, 2), rank=rank,
                        init_method=f"file://{tmp}/rdzv")
     # every rank makes both groups; ranks 0 and 1 form the (1, 2) mesh
     pairs = [dist.new_group([0, 1]), dist.new_group([2, 3])]
     mesh12 = Mesh((1, 2), rank, mesh22.device, pairs[0], None, pairs[0])
     mesh41 = Mesh((4, 1), rank, mesh22.device, mesh22.group, mesh22.group)
-    out = {"train": {}, "eval": {}}
+    out = {"train": {}, "eval": {}, "threads": torch.get_num_threads()}
     try:
         for name, (cfg, state, batch) in jobs["train"].items():
             for shape, mesh in (("2x2", mesh22), ("1x2", mesh12)):
@@ -494,6 +495,15 @@ def tp_group(tmp_path_factory, jax_tp_case):
     ranks = [torch.load(tmp / f"rank{r}.pt", weights_only=False)
              for r in range(TP_WORLD)]
     return dict(ranks=ranks, jobs=jobs, tmp=tmp)
+
+
+@pytest.mark.parametrize("ranks", ["group", "tp_group"])
+def test_every_rank_runs_one_intra_op_thread(request, ranks):
+    """A spawned rank imports this module, and with it ``torch_threads``,
+    in an environment that holds its ``OMP_NUM_THREADS=1``: each of the
+    two- and the four-rank groups runs one intra-op thread a rank."""
+    got = [r["threads"] for r in request.getfixturevalue(ranks)["ranks"]]
+    assert got == [1] * len(got)
 
 
 @pytest.mark.parametrize("shape", ["1x2", "2x2"])

@@ -4,6 +4,9 @@ per-row fallbacks, round half to even on exact .5 ties), ``dequantize``,
 the temporal and region attentions over a ``QuantBank``, and greedy
 decoding over quantized banks, which takes the step loop and not K6."""
 
+# first: one torch thread a process (-n 6 workers x 8 OpenMP threads, 8 cores)
+import torch_threads  # noqa: F401
+
 import dataclasses
 
 import jax

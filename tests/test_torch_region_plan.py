@@ -7,6 +7,9 @@ kernel needs, and a plain emulation of the planned kernel (its splits, the
 online rescaling, the merge order) is held against the plain version and
 against the Pallas kernel in interpret mode."""
 
+# first: one torch thread a process (-n 6 workers x 8 OpenMP threads, 8 cores)
+import torch_threads  # noqa: F401
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -4,6 +4,9 @@ sample_greedy against the JAX model on the same weights and batch (f32,
 CPU), the weights bridge, seeded init, and that the port and
 chip_smoke.py stay off JAX and off the CPU."""
 
+# first: one torch thread a process (-n 6 workers x 8 OpenMP threads, 8 cores)
+import torch_threads  # noqa: F401
+
 import dataclasses
 import os
 import subprocess
@@ -318,6 +321,25 @@ def test_port_imports_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
+
+
+def test_the_test_process_runs_one_intra_op_thread():
+    """``torch_threads``, imported first by every port test module, caps
+    the process at one intra-op thread (6 workers x 8 OpenMP threads
+    would share 8 cores)."""
+    assert torch.get_num_threads() == 1
+
+
+def test_a_child_process_starts_with_one_intra_op_thread():
+    """A child started as the port's tests start the driver's processes
+    (``subprocess`` with the inherited environment) reads
+    ``OMP_NUM_THREADS=1`` and runs one intra-op thread."""
+    proc = subprocess.run(
+        [sys.executable, "-c",
+         "import torch; print(torch.get_num_threads())"],
+        cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split() == ["1"]
 
 
 def test_chip_smoke_refuses_to_run_without_a_gpu():

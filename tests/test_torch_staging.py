@@ -5,6 +5,9 @@ inside rows and across arrays, the bf16 cast in the staging copy, the
 copy back into arrays the caller owns, the counts it adds to the span
 recording around it, and the plain path that a CPU destination keeps."""
 
+# first: one torch thread a process (-n 6 workers x 8 OpenMP threads, 8 cores)
+import torch_threads  # noqa: F401
+
 import numpy as np
 import pytest
 import torch

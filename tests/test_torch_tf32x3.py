@@ -7,6 +7,9 @@ their tile order, held at the f32 bars that the kernels meet on the card
 
 from __future__ import annotations
 
+# first: one torch thread a process (-n 6 workers x 8 OpenMP threads, 8 cores)
+import torch_threads  # noqa: F401
+
 import math
 
 import numpy as np

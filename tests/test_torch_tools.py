@@ -6,6 +6,9 @@ on the CPU, where every kernel flag takes its plain version, holds every
 variant at agreement 1.0 with its baseline; and both refuse to run on a
 card that is not there."""
 
+# first: one torch thread a process (-n 6 workers x 8 OpenMP threads, 8 cores)
+import torch_threads  # noqa: F401
+
 import json
 import os
 

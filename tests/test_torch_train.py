@@ -8,6 +8,9 @@ keys) is taken; on the CPU K4's wrapper runs its plain twin.  All dropout
 is 0 where the JAX package is compared: the two packages draw their masks
 from different generators."""
 
+# first: one torch thread a process (-n 6 workers x 8 OpenMP threads, 8 cores)
+import torch_threads  # noqa: F401
+
 import dataclasses
 
 import jax

@@ -6,6 +6,9 @@ weights bridge; and the port's driver, on a data directory that holds
 ``detectron_weights``, applies the transfer the JAX driver applies and
 prints its line."""
 
+# first: one torch thread a process (-n 6 workers x 8 OpenMP threads, 8 cores)
+import torch_threads  # noqa: F401
+
 import dataclasses
 import os
 import pickle

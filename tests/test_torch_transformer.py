@@ -11,6 +11,9 @@ well as its packed one (layer 0 over the 16 frames).  The decoder's
 attention projections and FFN outputs are scaled up, so that the greedy
 captions are words and not all EOS, as at random weights."""
 
+# first: one torch thread a process (-n 6 workers x 8 OpenMP threads, 8 cores)
+import torch_threads  # noqa: F401
+
 import dataclasses
 
 import jax

@@ -18,6 +18,9 @@ against its JAX counterpart:
 - ``tools/rehearsal.py --smoke``: two driver phases on one checkpoint
   directory, the resume, the four evaluation JSONs and the report."""
 
+# first: one torch thread a process (-n 6 workers x 8 OpenMP threads, 8 cores)
+import torch_threads  # noqa: F401
+
 import collections
 import dataclasses
 import json
@@ -336,17 +339,15 @@ def test_spans_are_recorded_under_a_profiler_alone(kind, monkeypatch):
 # the rehearsal tool
 # --------------------------------------------------------------------- #
 
-def test_rehearsal_smoke_resumes_and_writes_the_eval_files(tmp_path,
-                                                           monkeypatch):
+def test_rehearsal_smoke_resumes_and_writes_the_eval_files(tmp_path):
     """``--smoke`` (tiny widths, ``--device cpu``): phase 1 trains and
     validates one epoch, phase 2 resumes from its checkpoint at epoch 1
     and runs the second; the report names the resume, the four evaluation
     JSONs, both epochs' rates and stats; it refuses to write over a
-    report.  The driver's processes run one thread each, beside the other
-    test workers."""
+    report.  The driver's processes inherit ``OMP_NUM_THREADS=1`` from
+    ``torch_threads`` and run one thread each, beside the other test
+    workers."""
     from grounded_video_description_torch.tools import rehearsal
-
-    monkeypatch.setenv("OMP_NUM_THREADS", "1")
 
     out = tmp_path / "report.json"
     argv = ["--smoke", "--root", str(tmp_path / "r"), "--out", str(out),
